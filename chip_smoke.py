@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's forward ``method="bin"`` frame at the headline size: the
-dragon-class mesh (``dragon_class_mesh(800_000)``, 800,130 triangles) at
-960x540, 16x32 tiles, bin_chunk 512, backface cull, the bench camera
-(pos (0, 0, -3), look-at the origin, film_h 0.024, focal 0.055).
+Drives the port's ``method="bin"`` frame and its training step at the
+headline size: the dragon-class mesh (``dragon_class_mesh(800_000)``,
+800,130 triangles) at 960x540, 16x32 tiles, bin_chunk 512, backface cull,
+the bench camera (pos (0, 0, -3), look-at the origin, film_h 0.024, focal
+0.055).
 
 Phases (any failure raises and the process exits non-zero):
-  1. the card (nvidia-smi name and power limit), versions, the kernel build;
+  1. the card (nvidia-smi name, power limit and maximum SM clock), versions,
+     the build of both kernels (one nvcc per source, in parallel);
   2. the bin-intersect kernel against its plain PyTorch version on the same
      binned tensors (a 96x64 sphere and the headline frame): triangle ids
      equal and t bitwise equal; both timed with CUDA events;
@@ -17,7 +19,32 @@ Phases (any failure raises and the process exits non-zero):
      ``render``, each timed with CUDA events, after resetting the kernel's
      launch counter; the counter must show the frames went through it;
   4. frame 0 against the ``mt_fixed_origin`` oracle on 4,096 sampled rays
-     (seed 0): agreement >= 0.999.
+     (seed 0): agreement >= 0.999;
+  5. the segment-sum kernel (K2) against its plain version on the card, on
+     synthetic cases (one at the headline size with half the rows on one
+     id) and on the cotangent block of the first headline training step:
+     within n·2⁻²³·Σ|x| of a float64 sum per id, two launches bitwise
+     equal; each synthetic case again on integer rows, whose sums float32
+     holds exactly, where both must equal the float64 sum bitwise (a
+     dropped or doubled run of a long segment fails there); timed beside
+     the plain version, autograd's
+     default backward (``index_add_`` on the unsorted rows) and the whole
+     gather backward (sort + permute + kernel);
+  6. training: the bench's weighted-radiance gradient over every scene and
+     camera leaf (finite, table gradients not all 0), then 5
+     ``make_train_step`` steps with SGD(lr 1e-4) toward frame 0's image from
+     a pose turned by 1 degree, each timed with CUDA events; both kernels'
+     counters are reset just before the steps and must show >= 5 launches;
+     then one step split into forward, backward and SGD, and one profiled
+     step (device busy ms and device operations);
+  7. the pose/light/camera-only step (triangle tables frozen), 3 steps: the
+     segment-sum counter must not move; split and profiled as in 6;
+  8. telemetry (kernel K3): frame 0 through ``intersect_binned`` with
+     ``with_stats`` at esub 1 (bitwise phase 3's hits) and esub 4; the
+     kernel against its plain version on frame 0's operands at esub 1 and
+     4 (t, tri and steps bitwise equal); the ray-entry pairs K1 scanned
+     give its bound; kernel and frame timed with and without the
+     telemetry.
 Prints a JSON line of per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``. Needs a CUDA device and never falls back
 to the CPU.
@@ -25,6 +52,7 @@ to the CPU.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -41,6 +69,12 @@ N_SAMPLE = 4096
 MIN_AGREE = 0.999
 KERNEL_REPS = 20
 PLAIN_REPS = 3
+N_TRAIN_STEPS = 5
+N_POSE_STEPS = 3
+LR = 1e-4
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
+N_SMS, FP32_LANES = 132, 128   # per SM; peak = SMs x lanes x 2 x clock
+K1_OPS_PER_PAIR = 31           # csrc/bin_intersect.cu, "Bound"
 
 
 def log(msg: str) -> None:
@@ -71,6 +105,7 @@ def main() -> None:
                                               render)
     from cpp_cuda_raytracer_dev_torch.accel.traverse import bin_object
     from cpp_cuda_raytracer_dev_torch.models.renderer import trace_rays
+    from cpp_cuda_raytracer_dev_torch.ops.cuda import _build
     from cpp_cuda_raytracer_dev_torch.ops.cuda import bin_intersect as k1
     from cpp_cuda_raytracer_dev_torch.ops.quaternion import from_axis_angle
     from cpp_cuda_raytracer_dev_torch.utils.procgen import (dragon_class_mesh,
@@ -89,12 +124,19 @@ def main() -> None:
         f"{torch.cuda.get_device_name(0)}")
     if torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("float32 matmuls must stay full float32")
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    log(f"max SM clock {clock_mhz} MHz")
     t0 = time.perf_counter()
-    lib, build_log = k1.build()
-    log(f"built {lib.name} in {time.perf_counter() - t0:.2f} s")
-    for line in build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    built = _build.build("bin_intersect", "segment_sum")
+    log(f"built {', '.join(lib.name for lib, _ in built.values())} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for _, build_log in built.values():
+        for line in build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas: {line.strip()}")
 
     cfg = RenderConfig(method="bin", tile_h=16, tile_w=32, bin_chunk=512,
                        backface_cull=True)
@@ -209,12 +251,335 @@ def main() -> None:
     if agree < MIN_AGREE:
         raise RuntimeError(f"agreement {agree} < {MIN_AGREE}")
 
+    # ---- 5. K2 against its plain version on the card ----
+    from cpp_cuda_raytracer_dev_torch import render_differentiable
+    from cpp_cuda_raytracer_dev_torch.accel.traverse import intersect_binned
+    from cpp_cuda_raytracer_dev_torch.ops import gather as gather_mod
+    from cpp_cuda_raytracer_dev_torch.ops.cuda import segment_sum as k2
+    from cpp_cuda_raytracer_dev_torch.parallel.render_pjit import (
+        make_loss_fn, make_train_step)
+
+    target = outs[0].radiance.clone()        # frame 0's image, a plain tensor
+    train_tris = Triangles.from_vertices(headline_tv, device=dev)
+    train_pose = Pose(from_axis_angle([0.0, 1.0, 0.0], math.radians(1.0),
+                                      device=dev), torch.zeros(3, device=dev))
+    train_cam = Camera.create(RES_W, RES_H, pos=[0.0, 0.0, -3.0],
+                              look_at=[0.0, 0.0, 0.0], up=[0.0, 1.0, 0.0],
+                              film_h=0.024, focal=0.055,
+                              device=dev).requires_grad_()
+    params = {"scene": Scene([SceneObject(train_tris, train_pose)]),
+              "camera": train_cam}
+    all_params = [*params["scene"].parameters(), *train_cam.parameters()]
+
+    captured = []
+    segment_sum_rows = gather_mod.segment_sum_rows
+
+    def capture(block, idx, t_rows):
+        captured.append((block.detach().clone(), idx.clone(), t_rows))
+        return segment_sum_rows(block, idx, t_rows)
+
+    gather_mod.segment_sum_rows = capture    # the first step's cotangent
+    try:
+        make_loss_fn(cfg)(params, target).backward()
+    finally:
+        gather_mod.segment_sum_rows = segment_sum_rows
+    for p in all_params:
+        p.grad = None
+    (ct, ct_idx, t_rows), = captured
+    log(f"headline cotangent block {tuple(ct.shape)}, T = {t_rows}, "
+        f"rows on triangle 0: {int((ct_idx == 0).sum())}")
+
+    def k2_cases():
+        rng = np.random.default_rng(0)
+        long_idx = np.concatenate([np.zeros(ct.shape[0] // 2, np.int64),
+                                   rng.integers(1, t_rows, ct.shape[0] // 2)])
+        for name, idx, t in (
+                ("random R, T", rng.integers(0, 60_000, 100_000), 60_000),
+                ("every row on one id", np.full(200_000, 7), 1000),
+                ("R under one run", rng.integers(0, 1000, 300), 1000),
+                ("T not a multiple", rng.integers(0, 77_773, 99_991),
+                 77_773),
+                ("empty segments", rng.choice(np.arange(0, 90_000, 9),
+                                              50_000), 90_001),
+                ("headline size, half the rows on id 0", long_idx, t_rows)):
+            idx = torch.from_numpy(np.sort(idx).astype(np.int32)).to(dev)
+            block = torch.from_numpy(rng.standard_normal(
+                (idx.shape[0], 12)).astype(np.float32)).to(dev)
+            yield name, block, idx, t
+            # integers in [-16, 16]: every partial sum is below 2^24, so
+            # float32 sums them exactly in any order
+            yield name + ", integer rows", torch.round(block * 4), idx, t
+        srt, order = torch.sort(ct_idx, stable=True)
+        yield ("headline cotangent", ct.index_select(0, order).contiguous(),
+               srt.to(torch.int32), t_rows)
+
+    k2_err = 0.0
+    for name, block, idx, t in k2_cases():
+        got = k2.segment_sum(block, idx, t)
+        again = k2.segment_sum(block, idx, t)
+        plain = k2.segment_sum_reference(block, idx, t)
+        torch.cuda.synchronize()
+        il = idx.long()
+        exact = torch.zeros((t, 12), dtype=torch.float64,
+                            device=dev).index_add_(0, il, block.double())
+        mag = torch.zeros_like(exact).index_add_(0, il, block.abs().double())
+        n_seg = torch.bincount(il, minlength=t)[:, None]
+        bound = n_seg * 2.0 ** -23 * mag
+        ratio = max(float(((x.double() - exact).abs() - bound).max())
+                    for x in (got, plain))
+        # the error as a share of sum|x|, on the longest segment
+        longest = int(n_seg.argmax())
+        rel = float((got[longest].double() - exact[longest]).abs().max()
+                    / mag[longest].max().clamp_min(1e-300))
+        err = float((got - plain).abs().max())
+        k2_err = max(k2_err, err)
+        integer = name.endswith("integer rows")
+        exact_eq = (torch.equal(got, exact.float())
+                    and torch.equal(plain, exact.float()))
+        log(f"K2 vs plain [{name}]: R {block.shape[0]} T {t} max_abs_err "
+            f"{err} max(|x - exact| - bound) {ratio} longest segment "
+            f"{int(n_seg[longest])} rows, |x - exact| / sum|x| {rel} "
+            f"bitwise_repeat {torch.equal(got, again)}"
+            + (f" exact {exact_eq}" if integer else ""))
+        if ratio > 0 or not torch.equal(got, again) or (integer and
+                                                        not exact_eq):
+            raise RuntimeError(f"segment sum out of bound, not "
+                               f"deterministic or not exact on {name}")
+    ct_sorted, idx_sorted = block, idx       # the headline case, last
+    k2_ms = cuda_ms(lambda: k2.segment_sum(ct_sorted, idx_sorted, t_rows),
+                    KERNEL_REPS)
+    k2_plain_ms = cuda_ms(lambda: k2.segment_sum_reference(
+        ct_sorted, idx_sorted, t_rows), KERNEL_REPS)
+    ct_idx_l = ct_idx.long()
+    k2_library_ms = cuda_ms(lambda: torch.zeros(
+        (t_rows, 12), device=dev).index_add_(0, ct_idx_l, ct), KERNEL_REPS)
+    k2_backward_ms = cuda_ms(lambda: segment_sum_rows(ct, ct_idx, t_rows),
+                             KERNEL_REPS)
+    k2_bytes = ct.shape[0] * (12 + 1) * 4 + t_rows * 12 * 4
+    k2_bound_ms = k2_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"K2 at the headline cotangent: kernel {k2_ms:.4f} ms, plain "
+        f"{k2_plain_ms:.4f} ms, index_add_ on unsorted rows "
+        f"{k2_library_ms:.4f} ms, whole gather backward (sort + permute + "
+        f"kernel) {k2_backward_ms:.4f} ms, bound {k2_bound_ms:.4f} ms "
+        f"({k2_bytes} bytes) ({smi})")
+    del captured, ct_sorted, idx_sorted, block, idx, got, again, plain
+
+    # ---- 6. training at the headline size ----
+    w = torch.linspace(0.3, 1.7, RES_H * RES_W * 3,
+                       device=dev).reshape(RES_H, RES_W, 3)
+    start.record()
+    torch.mean(render_differentiable(params["scene"], train_cam,
+                                     cfg).radiance * w).backward()
+    end.record()
+    torch.cuda.synchronize()
+    log(f"bench loss gradient (all leaves): {start.elapsed_time(end):.3f} ms")
+    names = [n for n, _ in params["scene"].named_parameters()] + [
+        "camera." + n for n, _ in train_cam.named_parameters()]
+    for n, p in zip(names, all_params):
+        if p.grad is None or not bool(torch.isfinite(p.grad).all()):
+            raise RuntimeError(f"gradient of {n} missing or not finite")
+    table_max = max(float(getattr(train_tris, f).grad.abs().max())
+                    for f in ("p1x", "e1y", "e2z", "color"))
+    log(f"gradients finite for {len(names)} leaves; max |table grad| "
+        f"{table_max}; |d/d light_pos| "
+        f"{params['scene'].phong.light_pos.grad.tolist()}; |d/d cam pos| "
+        f"{train_cam.pos.grad.tolist()}")
+    if table_max == 0:
+        raise RuntimeError("every triangle-table gradient is 0")
+
+    def run_steps(optimizer, n):
+        step = make_train_step(optimizer, cfg)
+        losses, ms = [], []
+        for _ in range(n):
+            start.record()
+            loss = step(params, target)
+            end.record()
+            torch.cuda.synchronize()
+            losses.append(float(loss))
+            ms.append(start.elapsed_time(end))
+        return losses, ms
+
+    def split_and_profile(optimizer, kind, step_ms):
+        """One more step split by CUDA events into forward (loss),
+        backward and SGD, then one under torch.profiler: device busy ms
+        (device events only; an aten op's own device time repeats its
+        kernels') and device operations a step."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        optimizer.zero_grad(set_to_none=True)
+        ev[0].record()
+        loss = make_loss_fn(cfg)(params, target)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        optimizer.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        split = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+        step = make_train_step(optimizer, cfg)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(params, target)
+            torch.cuda.synchronize()
+        on_dev = [a for a in prof.key_averages()
+                  if a.device_type == DeviceType.CUDA]
+        busy_ms = sum(a.self_device_time_total for a in on_dev) / 1e3
+        top = [(a.key[:48], a.count, a.self_device_time_total / 1e3)
+               for a in sorted(on_dev,
+                               key=lambda a: -a.self_device_time_total)[:8]]
+        log(f"{kind} step split: forward {split[0]:.3f} ms, backward "
+            f"{split[1]:.3f} ms, SGD {split[2]:.3f} ms; profiled step: "
+            f"device busy {busy_ms:.3f} ms, "
+            f"{sum(a.count for a in on_dev)} device operations, idle share "
+            f"against the median timed step (derived) "
+            f"{1 - busy_ms / float(np.median(step_ms)):.3f}; top device "
+            f"ms: {top}")
+
+    opt = torch.optim.SGD(all_params, lr=LR)
+    k1.bin_intersect.launches = 0
+    k2.segment_sum.launches = 0
+    losses, step_ms = run_steps(opt, N_TRAIN_STEPS)
+    train_k1, train_k2 = (k1.bin_intersect.launches,
+                          k2.segment_sum.launches)
+    log(f"train steps (all leaves): ms {step_ms} losses {losses}; "
+        f"bin_intersect launches {train_k1}, segment_sum launches "
+        f"{train_k2} ({smi})")
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError("loss not finite")
+    for n, p in zip(names, all_params):
+        if not bool(torch.isfinite(p.grad).all()):
+            raise RuntimeError(f"gradient of {n} not finite")
+    if train_k1 < N_TRAIN_STEPS or train_k2 < N_TRAIN_STEPS:
+        raise RuntimeError("a training step did not launch both kernels")
+    split_and_profile(opt, "all-leaves", step_ms)
+
+    # ---- 7. the pose/light/camera-only step ----
+    train_tris.requires_grad_(False)
+    train_cam.requires_grad_(False)
+    train_cam.pos.requires_grad_(True)
+    opt = torch.optim.SGD([*train_pose.parameters(),
+                           *params["scene"].phong.parameters(),
+                           train_cam.pos], lr=LR)
+    k1.bin_intersect.launches = 0
+    k2.segment_sum.launches = 0
+    pose_losses, pose_ms = run_steps(opt, N_POSE_STEPS)
+    pose_k1, pose_k2 = k1.bin_intersect.launches, k2.segment_sum.launches
+    log(f"pose/light/camera-only steps: ms {pose_ms} losses {pose_losses}; "
+        f"bin_intersect launches {pose_k1}, segment_sum launches {pose_k2}")
+    if pose_k2 != 0 or pose_k1 < N_POSE_STEPS:
+        raise RuntimeError("the pose/light/camera-only step launched the "
+                           "segment sum, or not the bin intersect")
+    if not all(math.isfinite(x) for x in pose_losses):
+        raise RuntimeError("loss not finite")
+    split_and_profile(opt, "pose/light/camera-only", pose_ms)
+    del params, opt, train_tris, all_params
+
+    # ---- 8. telemetry (K3) on frame 0 ----
+    scene, cam = frames[0]
+    obj = scene.objects[0]
+    stats_cfgs = {e: dataclasses.replace(cfg, with_stats=True, bin_esub=e)
+                  for e in (1, 4)}
+    with torch.inference_mode():
+        o_obj = obj.pose.inv_apply(cam.pos)
+        proj = cam.projection().transformed(obj.pose)
+
+        def binned(c):
+            return intersect_binned(o_obj, None, obj.tris, proj, c, RES_H,
+                                    RES_W)
+        stats = {e: binned(c) for e, c in stats_cfgs.items()}
+        hit1, st1 = stats[1]
+        hit4, st4 = stats[4]
+        same_t = torch.equal(hit1.t.reshape(RES_H, RES_W), outs[0].hit_t)
+        same_tri = torch.equal(hit1.tri.reshape(RES_H, RES_W),
+                               outs[0].hit_tri)
+        agree4 = float((hit4.tri == hit1.tri).float().mean())
+        for e, (_, st) in stats.items():
+            log(f"stats esub {e}: entries {st['entries']} overflow "
+                f"{st['overflow']} cross {int(st['cross'])} steps mean "
+                f"{float(st['steps'].float().mean())} sum "
+                f"{int(st['steps'].sum())}; chunks mean "
+                f"{float(st['chunks'].float().mean())} sum "
+                f"{int(st['chunks'].sum())}")
+        log(f"esub 1 with stats == phase 3 frame 0: t {same_t} tri "
+            f"{same_tri}; esub 4 tri agreement with esub 1 {agree4}")
+        if not (same_t and same_tri):
+            raise RuntimeError("the telemetry switch changed K1's hits")
+        frame_stats_ms = cuda_ms(lambda: binned(stats_cfgs[1]), PLAIN_REPS)
+        frame_plain_ms = cuda_ms(lambda: binned(cfg), PLAIN_REPS)
+        rays, b = bin_object(o_obj, obj.tris, proj, cfg, RES_H, RES_W)
+        ops = (rays, b.geom, b.entry_tri, b.starts, chunk)
+        k1_ms = cuda_ms(lambda: k1.bin_intersect(*ops), KERNEL_REPS)
+        k3_ms = cuda_ms(lambda: k1.bin_intersect(*ops, with_steps=True),
+                        KERNEL_REPS)
+        k3_esub4_ms = cuda_ms(lambda: k1.bin_intersect(
+            *ops, esub=4, with_steps=True), KERNEL_REPS)
+        k3_plain_ms = cuda_ms(lambda: k1.bin_intersect_reference(
+            *ops, with_steps=True), PLAIN_REPS)
+        # K3 against its plain version on the headline operands, before its
+        # counts feed K1's bound: t, tri and steps bitwise equal, and the
+        # same t and tri without the steps output
+        for e in (1, 4):
+            got = k1.bin_intersect(*ops, esub=e, with_steps=True)
+            want = k1.bin_intersect_reference(*ops, esub=e, with_steps=True)
+            bare = k1.bin_intersect(*ops, esub=e)
+            torch.cuda.synchronize()
+            eq = [torch.equal(x, y) for x, y in zip(got, want)] + [
+                torch.equal(x, y) for x, y in zip(bare, want)]
+            log(f"K3 vs plain [headline frame 0, esub {e}]: t {eq[0]} tri "
+                f"{eq[1]} steps {eq[2]}; without steps: t {eq[3]} tri "
+                f"{eq[4]}")
+            if not all(eq):
+                raise RuntimeError(f"K3 and its plain version disagree at "
+                                   f"esub {e}")
+            if e == 1:
+                steps = got[2]
+        if not torch.equal(steps[:, 0], st1["steps"]):
+            raise RuntimeError("kernel steps differ from the frame's")
+        n_tiles, p = rays.shape[:2]
+        pairs = int(steps[:, 0].sum()) * chunk * p
+        k1_bytes = (rays.numel() * 4 + b.geom.numel() * 4
+                    + b.entry_tri.numel() * 4 + b.starts.numel() * 4
+                    + n_tiles * p * 8)
+    k1_ops_ms = (pairs * K1_OPS_PER_PAIR
+                 / (N_SMS * FP32_LANES * 2 * clock_mhz * 1e6) * 1e3)
+    k1_bytes_ms = k1_bytes / HBM_BYTES_PER_S * 1e3
+    k1_bound_ms = max(k1_ops_ms, k1_bytes_ms)
+    log(f"K1 scanned {pairs} ray-entry pairs ({int(steps[:, 0].sum())} "
+        f"blocks x {chunk} x {p}); bound {k1_bound_ms:.4f} ms (operations "
+        f"{k1_ops_ms:.4f} ms at {K1_OPS_PER_PAIR} FP32 ops a pair and "
+        f"{clock_mhz} MHz, bytes {k1_bytes_ms:.4f} ms); kernel "
+        f"{k1_ms:.4f} ms, with steps {k3_ms:.4f} ms, esub 4 with steps "
+        f"{k3_esub4_ms:.4f} ms, plain with steps {k3_plain_ms:.4f} ms; "
+        f"intersect_binned with stats {frame_stats_ms:.4f} ms, without "
+        f"{frame_plain_ms:.4f} ms ({smi})")
+
     print(json.dumps({"kernels": [{
         "name": "bin_intersect", "route": "cuda",
         "source": "cpp_cuda_raytracer_dev_torch/csrc/bin_intersect.cu",
         "replaces": "cpp_cuda_raytracer_dev_tpu/ops/pallas/bin_kernel3.py:43",
         "launches": launches, "max_abs_err": max_abs_err,
-        "ms": kernel_ms, "plain_ms": plain_ms}]}), flush=True)
+        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": k1_bound_ms,
+        "bound_by": ("operations" if k1_ops_ms >= k1_bytes_ms
+                     else "bytes"),
+        "library_ms": None,
+        "telemetry": {
+            "replaces": "cpp_cuda_raytracer_dev_tpu/ops/pallas/"
+                        "bin_kernel2.py:62",
+            "ms_without": k1_ms, "ms_with_steps": k3_ms,
+            "ms_esub4": k3_esub4_ms, "plain_ms": k3_plain_ms},
+        "launches_by_path": {"serve": launches, "train": train_k1,
+                             "train_pose_light_camera": pose_k1}}, {
+        "name": "segment_sum", "route": "cuda",
+        "source": "cpp_cuda_raytracer_dev_torch/csrc/segment_sum.cu",
+        "replaces": "cpp_cuda_raytracer_dev_tpu/ops/gather.py:71",
+        "launches": train_k2, "max_abs_err": k2_err,
+        "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
+        "bound_by": "bytes", "library_ms": k2_library_ms,
+        "backward_ms": k2_backward_ms,
+        "launches_by_path": {"serve": 0, "train": train_k2,
+                             "train_pose_light_camera": pose_k2}}]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

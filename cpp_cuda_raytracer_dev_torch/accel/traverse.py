@@ -86,7 +86,7 @@ def bin_object(o: torch.Tensor, tris, proj, config, res_h: int, res_w: int
 
 
 def intersect_binned(o: torch.Tensor, d: torch.Tensor, tris, proj, config,
-                     res_h: int, res_w: int) -> Hit:
+                     res_h: int, res_w: int):
     """Nearest hit per primary ray by screen-space binning + the
     bin-intersect kernel.
 
@@ -95,6 +95,12 @@ def intersect_binned(o: torch.Tensor, d: torch.Tensor, tris, proj, config,
     tile from ``proj``, so ``d`` is ignored (it keeps the call shape of the
     other methods). The entry table is sized from the live count, so the
     JAX package's ``bin_e_factor`` / ``bin_escalate`` have nothing to do.
+
+    With ``config.with_stats`` the kernel runs its telemetry switch (K3,
+    with ``config.bin_esub`` slices) and the result is (Hit, stats):
+    ``steps`` (nT,) slices scanned and ``chunks`` (nT,) blocks walked per
+    tile, ``entries`` (int), ``overflow`` (always 0: nothing is dropped)
+    and ``cross`` (camera-plane-crossing triangles).
     """
     del d
     th, tw = config.tile_h, config.tile_w
@@ -102,10 +108,16 @@ def intersect_binned(o: torch.Tensor, d: torch.Tensor, tris, proj, config,
         raise ValueError("method='bin' generates rays in row-major tile "
                          "order; sub_h/sub_w are a cluster-path option")
     rays, binned = bin_object(o, tris, proj, config, res_h, res_w)
-    t_tiles, tri_tiles = bin_intersect(rays, binned.geom, binned.entry_tri,
-                                       binned.starts, config.bin_chunk,
-                                       config.eps, config.draw_distance)
+    out = bin_intersect(rays, binned.geom, binned.entry_tri, binned.starts,
+                        config.bin_chunk, config.eps, config.draw_distance,
+                        esub=config.bin_esub if config.with_stats else 1,
+                        with_steps=config.with_stats)
     h2, w2 = -(-res_h // th) * th, -(-res_w // tw) * tw
-    t = _untile(t_tiles, h2, w2, th, tw, res_h, res_w).reshape(-1)
-    tri = _untile(tri_tiles, h2, w2, th, tw, res_h, res_w).reshape(-1)
-    return Hit(t=t, tri=tri, obj=torch.where(tri >= 0, 0, -1).to(torch.int32))
+    t = _untile(out[0], h2, w2, th, tw, res_h, res_w).reshape(-1)
+    tri = _untile(out[1], h2, w2, th, tw, res_h, res_w).reshape(-1)
+    hit = Hit(t=t, tri=tri, obj=torch.where(tri >= 0, 0, -1).to(torch.int32))
+    if config.with_stats:
+        return hit, {"steps": out[2][:, 0], "chunks": out[2][:, 1],
+                     "overflow": 0, "entries": binned.num_entries,
+                     "cross": binned.cross_tris}
+    return hit

@@ -15,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch import nn
 
 from ..ops import vecmath
 
@@ -46,16 +47,23 @@ class Projection:
             v=pose.inv_apply_vec(self.v))
 
 
-@dataclasses.dataclass
-class Camera:
-    pos: torch.Tensor        # (3,)
-    look_at: torch.Tensor    # (3,)
-    up: torch.Tensor         # (3,)
-    film_w: torch.Tensor     # scalar, metres
-    film_h: torch.Tensor     # scalar
-    focal: torch.Tensor      # scalar
-    res_w: int = 960
-    res_h: int = 540
+class Camera(nn.Module):
+    """Pinhole camera. Its six float leaves are ``nn.Parameter``s named by
+    the JAX pytree paths (``pos``, ``look_at``, ``up``, ``film_w``,
+    ``film_h``, ``focal``), so its gradients compare leaf by leaf with
+    ``jax.grad(loss, argnums=(0, 1))``. They are created frozen, as a
+    served camera is an input; ``camera.requires_grad_()`` makes them
+    trainable. ``res_w`` and ``res_h`` are ints."""
+
+    LEAVES = ("pos", "look_at", "up", "film_w", "film_h", "focal")
+
+    def __init__(self, pos, look_at, up, film_w, film_h, focal,
+                 res_w: int = 960, res_h: int = 540):
+        super().__init__()
+        for name, value in zip(self.LEAVES,
+                               (pos, look_at, up, film_w, film_h, focal)):
+            setattr(self, name, nn.Parameter(value, requires_grad=False))
+        self.res_w, self.res_h = res_w, res_h
 
     @classmethod
     def create(cls, res_w: int, res_h: int, pos, look_at, up,

@@ -5,6 +5,9 @@ Hit selection (triangle ids) is discrete and runs without gradients; the
 shading path re-derives the hit distance from the selected triangle's
 geometry, so autograd reaches vertices, poses, camera and Phong parameters
 at fixed topology.
+
+`render_differentiable` is the frame with autograd (the loss calls it);
+`render` is the same body under ``torch.inference_mode``, for serving.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ import dataclasses
 
 import torch
 
-from ..ops.gather import gather_rows
+from ..ops.gather import gather_rows, take_rows
 from ..ops.intersect import FixedOriginCache, Hit, mt_brute, mt_fixed_origin
 from ..ops.shade import compose_framebuffer, phong_radiance_c
 from ..utils.config import RenderConfig
@@ -45,6 +48,10 @@ def trace_rays(scene: Scene, origin: torch.Tensor, rmd: torch.Tensor,
     Each object moves the rays into its own frame (pose-on-the-ray,
     Trixel.cu:60-66); geometry never moves.
     """
+    if config.with_stats:
+        raise ValueError("with_stats makes the intersect paths return "
+                         "(Hit, stats); call intersect_binned directly for "
+                         "telemetry")
     best = Hit.miss(rmd.shape[0], config.draw_distance, device=rmd.device)
     for oi, obj in enumerate(scene.objects):
         d_obj = obj.pose.inv_apply_vec(rmd)
@@ -78,6 +85,7 @@ def shade_hits(scene: Scene, origin: torch.Tensor, rmd: torch.Tensor,
     Returns (radiance (R,3), normal (R,3), point (R,3), hit_mask (R,))."""
     num_r = rmd.shape[0]
     tri_idx = torch.clamp_min(hit.tri, 0)
+    gather = gather_rows if config.sorted_scatter else take_rows
     acc = [torch.zeros((num_r,), dtype=rmd.dtype, device=rmd.device)
            for _ in range(9)]
     dx, dy, dz = rmd[:, 0], rmd[:, 1], rmd[:, 2]
@@ -88,7 +96,7 @@ def shade_hits(scene: Scene, origin: torch.Tensor, rmd: torch.Tensor,
             [torch.stack([t_.p1x, t_.p1y, t_.p1z, t_.e1x, t_.e1y, t_.e1z,
                           t_.e2x, t_.e2y, t_.e2z], dim=1), t_.color],
             dim=1)                                           # (T, 12)
-        rows, = gather_rows((packed,), tri_idx)
+        rows, = gather((packed,), tri_idx)
         cr, cg, cb = rows[:, 9], rows[:, 10], rows[:, 11]
 
         # object-frame ray direction R^T d, componentwise
@@ -163,11 +171,11 @@ def render_rays(scene: Scene, origin: torch.Tensor, rmd: torch.Tensor,
                 normal=normal, point=point)
 
 
-@torch.inference_mode()
-def render(scene: Scene, camera: Camera,
-           config: RenderConfig = RenderConfig()) -> RenderOutput:
-    """One forward frame on the scene's device: the serving entry point,
-    run under ``torch.inference_mode``."""
+def render_differentiable(scene: Scene, camera: Camera,
+                          config: RenderConfig = RenderConfig()
+                          ) -> RenderOutput:
+    """One frame on the scene's device, differentiable with respect to the
+    scene's and the camera's parameters (the JAX package's ``render``)."""
     rmd = camera.ray_directions()
     proj = camera.projection() if config.method == "bin" else None
     flat = render_rays(scene, camera.pos, rmd, config, camera.res_h,
@@ -175,3 +183,11 @@ def render(scene: Scene, camera: Camera,
     h, w = camera.res_h, camera.res_w
     return RenderOutput(**{k: v.reshape(h, w, *v.shape[1:])
                            for k, v in flat.items()})
+
+
+@torch.inference_mode()
+def render(scene: Scene, camera: Camera,
+           config: RenderConfig = RenderConfig()) -> RenderOutput:
+    """One forward frame on the scene's device: the serving entry point,
+    run under ``torch.inference_mode``."""
+    return render_differentiable(scene, camera, config)

@@ -1,6 +1,8 @@
 """Bin-intersect: the nearest hit per primary ray over a tile's
 depth-sorted entry blocks (kernel K1 of the JAX package,
-``ops/pallas/bin_kernel3.py``).
+``ops/pallas/bin_kernel3.py``), with the telemetry switch of kernel K3
+(``ops/pallas/bin_kernel2.py``): ``esub`` gated slices per block and
+per-tile scan counts.
 
 - `bin_intersect` is the wrapper. For CUDA tensors it launches the
   hand-written kernel in ``csrc/bin_intersect.cu`` and raises if the launch
@@ -8,76 +10,50 @@ depth-sorted entry blocks (kernel K1 of the JAX package,
   back from the card to the plain version.
 - `bin_intersect_reference` is the plain PyTorch version with the same
   contract. It processes round k, the k-th block of every tile, at once
-  (in tile groups to bound memory) and applies the same gate per round, so
-  it scans the same blocks in the same order as the kernel and agrees with
-  it bit for bit.
+  (in tile groups to bound memory) and applies the same gate per round and
+  slice, so it scans the same entries in the same order as the kernel and
+  agrees with it bit for bit.
 - `bin_intersect.launches` counts kernel launches.
 
-The kernel is compiled with nvcc on first use into ``build/kernels/`` at the
-repository root, keyed on a hash of its source and flags, and bound with
-ctypes through a plain C entry point.
+The kernel is built by `._build` (nvcc at first use, ctypes).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from ...utils.dtypes import DEFAULT_DRAW_DISTANCE, MT_EPSILON
+from . import _build
 
 GEOM_ROWS = 11            # entry-table rows: A(3) | B(3) | C(3) | TD | depth
 _MISS_T = 3.0e38
 _NO_TRI = torch.iinfo(torch.int32).max
 _PAIRS = 1 << 24          # ray-entry pairs per group of the plain version
-
-_SRC = Path(__file__).resolve().parents[2] / "csrc" / "bin_intersect.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
-_lib = {}
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME)")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def build() -> tuple[Path, str]:
-    """Compile the kernel if this source and these flags are not built yet.
-    Returns (shared library, compiler output)."""
-    key = hashlib.sha256(_SRC.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"bin_intersect_{key}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                         capture_output=True, text=True, check=False)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, lib)
-    return lib, res.stdout + res.stderr
+_fn = []
 
 
 def _launcher():
-    if "fn" not in _lib:
-        path, _ = build()
-        fn = ctypes.CDLL(str(path)).bin_intersect_launch
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+    if not _fn:
+        fn = _build.load("bin_intersect").bin_intersect_launch
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                        + [ctypes.c_float] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _lib["fn"] = fn
-    return _lib["fn"]
+        _fn.append(fn)
+    return _fn[0]
+
+
+def effective_esub(chunk: int, esub: int) -> int:
+    """The slice count the JAX kernel really uses: it halves ``esub`` until
+    it divides ``chunk`` into slices of a multiple of 128 entries
+    (bin_kernel2.py:174-175), so at chunk 128 every esub means 1."""
+    if esub < 1:
+        raise ValueError(f"esub {esub} must be >= 1")
+    while esub > 1 and (chunk % esub or (chunk // esub) % 128):
+        esub //= 2
+    return esub
 
 
 def _constants(eps: float, draw_distance: float):
@@ -115,7 +91,8 @@ def _check(rays, geom, entry_tri, starts, chunk):
 def bin_intersect(rays: torch.Tensor, geom: torch.Tensor,
                   entry_tri: torch.Tensor, starts: torch.Tensor,
                   chunk: int = 512, eps: float = MT_EPSILON,
-                  draw_distance: float = DEFAULT_DRAW_DISTANCE):
+                  draw_distance: float = DEFAULT_DRAW_DISTANCE,
+                  esub: int = 1, with_steps: bool = False):
     """Nearest hit per ray over binned entries.
 
     rays: (nT, P, 4) f32 [dx, dy, dz, scene-exit bound] per tile;
@@ -124,12 +101,15 @@ def bin_intersect(rays: torch.Tensor, geom: torch.Tensor,
     per tile. Every block a tile reaches, starts[t] // chunk through
     (starts[t+1] - 1) // chunk, must lie inside the table (bin_triangles
     pads it with a dead chunk). Returns (t (nT, P) f32, draw distance on a
-    miss; tri (nT, P) i32, -1 on a miss).
+    miss; tri (nT, P) i32, -1 on a miss), and with ``with_steps`` also
+    steps (nT, 2) i32 = [slices scanned, blocks walked] per tile. ``esub``
+    splits each block into gated slices (`effective_esub`).
     """
     _check(rays, geom, entry_tri, starts, chunk)
+    esub = effective_esub(chunk, esub)
     if rays.device.type == "cpu":
         return bin_intersect_reference(rays, geom, entry_tri, starts, chunk,
-                                       eps, draw_distance)
+                                       eps, draw_distance, esub, with_steps)
     if rays.device.type != "cuda":
         raise ValueError(f"no bin_intersect kernel for {rays.device}")
     n_t, p, _ = rays.shape
@@ -142,19 +122,23 @@ def bin_intersect(rays: torch.Tensor, geom: torch.Tensor,
         raise ValueError("rays must be 16-byte aligned (read as float4)")
     out_t = torch.empty((n_t, p), dtype=torch.float32, device=rays.device)
     out_tri = torch.empty((n_t, p), dtype=torch.int32, device=rays.device)
+    steps = (torch.empty((n_t, 2), dtype=torch.int32, device=rays.device)
+             if with_steps else None)
+    out = (out_t, out_tri, steps) if with_steps else (out_t, out_tri)
     if n_t == 0:
-        return out_t, out_tri
+        return out
     eps_f, eps2_det, draw = _constants(eps, draw_distance)
     stream = torch.cuda.current_stream(rays.device).cuda_stream
     err = _launcher()(rays.data_ptr(), geom.data_ptr(), entry_tri.data_ptr(),
                       starts.data_ptr(), out_t.data_ptr(), out_tri.data_ptr(),
-                      n_t, p, geom.shape[1], chunk, eps_f, eps2_det, draw,
-                      stream)
+                      None if steps is None else steps.data_ptr(),
+                      n_t, p, geom.shape[1], chunk, esub, eps_f, eps2_det,
+                      draw, stream)
     if err != 0:
         raise RuntimeError(f"bin_intersect kernel launch failed: CUDA error "
                            f"{err}")
     bin_intersect.launches += 1
-    return out_t, out_tri
+    return out
 
 
 bin_intersect.launches = 0
@@ -163,9 +147,12 @@ bin_intersect.launches = 0
 def bin_intersect_reference(rays: torch.Tensor, geom: torch.Tensor,
                             entry_tri: torch.Tensor, starts: torch.Tensor,
                             chunk: int = 512, eps: float = MT_EPSILON,
-                            draw_distance: float = DEFAULT_DRAW_DISTANCE):
+                            draw_distance: float = DEFAULT_DRAW_DISTANCE,
+                            esub: int = 1, with_steps: bool = False):
     """Plain PyTorch version of `bin_intersect` (same contract, same
     result bit for bit)."""
+    esub = effective_esub(chunk, esub)
+    el = chunk // esub
     eps_f, eps2_det, draw = _constants(eps, draw_distance)
     n_t, p, _ = rays.shape
     dev = rays.device
@@ -174,39 +161,46 @@ def bin_intersect_reference(rays: torch.Tensor, geom: torch.Tensor,
     nblk = torch.where(s1 > s0, (s1 - 1) // chunk - first + 1, 1)
     g = geom.view(GEOM_ROWS, -1, chunk)            # (11, blocks, chunk)
     ids = entry_tri.view(-1, chunk)
-    dmin = g[10].amin(dim=1)                       # per-block min depth
+    dmin = g[10].view(-1, esub, el).amin(dim=2)    # per-slice min depth
     bound = rays[..., 3]
     best_t = torch.full((n_t, p), draw, dtype=torch.float32, device=dev)
     best_tri = torch.full((n_t, p), -1, dtype=torch.int32, device=dev)
-    group = max(1, _PAIRS // (p * chunk))
+    scanned = torch.zeros(n_t, dtype=torch.int32, device=dev)
+    group = max(1, _PAIRS // (p * el))
     rounds = int(nblk.max()) if n_t else 0
     for k in range(rounds):
-        tiles = torch.nonzero(nblk > k).squeeze(1)
-        blk = first[tiles] + k
-        wb = torch.minimum(best_t[tiles], bound[tiles]).amax(dim=1)
-        go = dmin[blk] < wb                        # the kernel's gate
-        tiles, blk = tiles[go], blk[go]
-        for i in range(0, tiles.shape[0], group):
-            tg, bg = tiles[i:i + group], blk[i:i + group]
-            gg = g[:, bg, None, :]                 # (11, n, 1, chunk)
-            r = rays[tg]
-            dx, dy, dz = r[..., 0:1], r[..., 1:2], r[..., 2:3]  # (n, P, 1)
-            det = dx * gg[0] + dy * gg[1] + dz * gg[2]          # (n, P, chunk)
-            up = dx * gg[3] + dy * gg[4] + dz * gg[5]
-            vp = dx * gg[6] + dy * gg[7] + dz * gg[8]
-            td = gg[9]
-            dd2 = det * det
-            qq = torch.minimum(up * det, vp * det)
-            qq = torch.minimum(qq, (det - up - vp) * det)
-            qq = torch.minimum(qq, td * det - eps_f * dd2)
-            ok = (qq >= 0.0) & (dd2 >= eps2_det)
-            tt = torch.where(ok, td / torch.where(det == 0.0, 1e-30, det),
-                             _MISS_T)
-            tmin = tt.amin(dim=2)
-            tri = torch.where(tt == tmin[..., None], ids[bg][:, None, :],
-                              _NO_TRI).amin(dim=2)
-            cur_t, cur_tri = best_t[tg], best_tri[tg]
-            better = tmin < cur_t
-            best_t[tg] = torch.where(better, tmin, cur_t)
-            best_tri[tg] = torch.where(better, tri, cur_tri)
+        tiles_k = torch.nonzero(nblk > k).squeeze(1)
+        blk_k = first[tiles_k] + k
+        for sl in range(esub):
+            wb = torch.minimum(best_t[tiles_k], bound[tiles_k]).amax(dim=1)
+            go = dmin[blk_k, sl] < wb              # the kernel's gate
+            tiles, blk = tiles_k[go], blk_k[go]
+            scanned[tiles] += 1
+            cols = slice(sl * el, (sl + 1) * el)
+            for i in range(0, tiles.shape[0], group):
+                tg, bg = tiles[i:i + group], blk[i:i + group]
+                gg = g[:, bg, None, cols]          # (11, n, 1, el)
+                r = rays[tg]
+                dx, dy, dz = r[..., 0:1], r[..., 1:2], r[..., 2:3]  # (n, P, 1)
+                det = dx * gg[0] + dy * gg[1] + dz * gg[2]          # (n, P, el)
+                up = dx * gg[3] + dy * gg[4] + dz * gg[5]
+                vp = dx * gg[6] + dy * gg[7] + dz * gg[8]
+                td = gg[9]
+                dd2 = det * det
+                qq = torch.minimum(up * det, vp * det)
+                qq = torch.minimum(qq, (det - up - vp) * det)
+                qq = torch.minimum(qq, td * det - eps_f * dd2)
+                ok = (qq >= 0.0) & (dd2 >= eps2_det)
+                tt = torch.where(ok, td / torch.where(det == 0.0, 1e-30, det),
+                                 _MISS_T)
+                tmin = tt.amin(dim=2)
+                tri = torch.where(tt == tmin[..., None],
+                                  ids[bg][:, None, cols], _NO_TRI).amin(dim=2)
+                cur_t, cur_tri = best_t[tg], best_tri[tg]
+                better = tmin < cur_t
+                best_t[tg] = torch.where(better, tmin, cur_t)
+                best_tri[tg] = torch.where(better, tri, cur_tri)
+    if with_steps:
+        return best_t, best_tri, torch.stack([scanned, nblk.to(torch.int32)],
+                                             dim=1)
     return best_t, best_tri

@@ -47,7 +47,8 @@ class RenderConfig:
     sub_w: int = 0
     escalate_tiles: int = 64
     escalate_factor: int = 4
-    # Per-tile scan telemetry (kernel K3); not ported yet.
+    # Per-tile scan telemetry (kernel K3): intersect_binned then returns
+    # (Hit, stats); trace_rays refuses it, as in the JAX package.
     with_stats: bool = False
     debug_mode: int = 0
     mt_precision: str = "highest"
@@ -60,7 +61,8 @@ class RenderConfig:
     bin_e_factor: float = 1.2
     # Only "float32": the bf16 preview of kernel K1 is not ported.
     bin_mt_dtype: str = "float32"
-    # Unused, as on the JAX package's gen-6 path (ROADMAP F5).
+    # Gated entry slices per block (kernel K3); read only under
+    # with_stats, as in the JAX package (its gen-6 path ignores it, F5).
     bin_esub: int = 1
     # Unused: there is no capacity to escalate (see bin_e_factor).
     bin_escalate: bool = True
@@ -71,8 +73,9 @@ class RenderConfig:
     # --- raster path, not ported yet ---
     raster_span: int = 4
     raster_ovf_cap: int = 512
-    # Shading-gather backward choice of the JAX package; the port's forward
-    # is one index_select either way.
+    # Shading-gather backward: True sorts the ids and sums segments with
+    # kernel K2 (ops/gather.py); False leaves index_select's own
+    # scatter-add backward, as the JAX package then uses jnp.take.
     sorted_scatter: bool = True
 
     def __post_init__(self):
@@ -82,10 +85,6 @@ class RenderConfig:
                 f"{_LATER_METHODS[self.method]}")
         if self.method not in _PORTED_METHODS:
             raise ValueError(f"unknown intersect method {self.method!r}")
-        if self.with_stats:
-            raise NotImplementedError(
-                "with_stats is the bin kernel's telemetry (kernel K3), "
-                "ROADMAP queue 2; not ported yet")
         if self.bin_mt_dtype != "float32":
             raise NotImplementedError(
                 "bin_mt_dtype='bfloat16' (the approximate preview of "

@@ -1,17 +1,19 @@
-"""Scene and camera from the JAX package's parameters, as numpy arrays.
+"""Scene and camera to and from the JAX package's parameters, as numpy
+arrays.
 
-The input is a dict of numpy arrays keyed by pytree path, with the path's
-entries joined by dots: ``objects.0.tris.p1x``, ``objects.0.pose.quat``,
+The dict holds numpy arrays keyed by pytree path, with the path's entries
+joined by dots: ``objects.0.tris.p1x``, ``objects.0.pose.quat``,
 ``phong.light_pos``, ``pos``, ``film_w``. `path_dict` makes that dict from
 ``jax.tree_util.tree_flatten_with_path(tree)[0]`` without importing JAX.
-The port's module attributes follow the same paths, so
-``Scene.state_dict()`` has the same keys.
+The port's module attributes follow the same paths, so `params_to_numpy`
+(parameters or their gradients) gives the same keys back.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..models.camera import Camera
 from ..models.scene import (TRI_FIELDS, PhongParams, Scene, SceneObject,
@@ -20,7 +22,6 @@ from ..ops.quaternion import Pose
 
 _PHONG_FIELDS = ("light_pos", "light_color", "diffuse", "specular",
                  "exponent")
-_CAMERA_FIELDS = ("pos", "look_at", "up", "film_w", "film_h", "focal")
 
 
 def _key_name(k) -> str:
@@ -57,5 +58,18 @@ def camera_from_numpy(d: dict, device) -> Camera:
     """The JAX Camera's leaves plus its static ``res_w`` and ``res_h``
     (which are not pytree leaves) as ints."""
     return Camera(**{f: torch.tensor(np.asarray(d[f]), device=device)
-                     for f in _CAMERA_FIELDS},
+                     for f in Camera.LEAVES},
                   res_w=int(d["res_w"]), res_h=int(d["res_h"]))
+
+
+def params_to_numpy(module: nn.Module, grad: bool = False
+                    ) -> dict[str, np.ndarray]:
+    """A Scene's or a Camera's parameters, or with ``grad`` their ``.grad``
+    (zeros where there is none), as numpy arrays keyed by the JAX pytree
+    paths that `scene_from_numpy` / `camera_from_numpy` read."""
+    out = {}
+    for name, p in module.named_parameters():
+        x = p if not grad else (p.grad if p.grad is not None
+                                else torch.zeros_like(p))
+        out[name] = x.detach().cpu().numpy()
+    return out

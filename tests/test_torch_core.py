@@ -53,8 +53,11 @@ def test_render_config_translates_one_to_one():
     for method in ("grid", "pallas", "pallas2", "kd", "raster"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             RenderConfig(method=method)
-    with pytest.raises(NotImplementedError, match="K3"):
-        RenderConfig(with_stats=True)
+    # the bin kernel's telemetry switch (K3) is ported; its bf16 preview
+    # mode is not
+    RenderConfig(method="bin", with_stats=True, bin_esub=4)
+    with pytest.raises(NotImplementedError, match="K1"):
+        RenderConfig(method="bin", bin_mt_dtype="bfloat16")
     with pytest.raises(ValueError):
         RenderConfig(method="nope")
 
