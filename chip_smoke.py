@@ -3,15 +3,19 @@
 
     python3 chip_smoke.py
 
-Drives the port's ``method="bin"`` frame and its training step at the
-headline size: the dragon-class mesh (``dragon_class_mesh(800_000)``,
-800,130 triangles) at 960x540, 16x32 tiles, bin_chunk 512, backface cull,
-the bench camera (pos (0, 0, -3), look-at the origin, film_h 0.024, focal
-0.055).
+Drives the port's ``method="bin"`` frame and its training step, and the
+cluster paths ``method="pallas2"`` and ``"pallas"``, at the headline size:
+the dragon-class mesh (``dragon_class_mesh(800_000)``, 800,130 triangles)
+at 960x540, 16x32 tiles, the bench camera (pos (0, 0, -3), look-at the
+origin, film_h 0.024, focal 0.055); bin_chunk 512 and backface cull for
+the bin path; for the cluster paths ``bench.py --method pallas2``'s
+configuration: 128-triangle clusters (8,192), 64 candidates a tile, a
+two-level cull through 24 groups of 32 clusters, escalation of the 64
+worst tiles at 4x the candidates.
 
 Phases (any failure raises and the process exits non-zero):
   1. the card (nvidia-smi name, power limit and maximum SM clock), versions,
-     the build of both kernels (one nvcc per source, in parallel);
+     the build of every kernel (one nvcc per source, in parallel);
   2. the bin-intersect kernel against its plain PyTorch version on the same
      binned tensors (a 96x64 sphere and the headline frame): triangle ids
      equal and t bitwise equal; both timed with CUDA events;
@@ -44,8 +48,23 @@ Phases (any failure raises and the process exits non-zero):
      kernel against its plain version on frame 0's operands at esub 1 and
      4 (t, tri and steps bitwise equal); the ray-entry pairs K1 scanned
      give its bound; kernel and frame timed with and without the
-     telemetry.
-Prints a JSON line of per-kernel results, then, as the last line,
+     telemetry;
+  9. the cluster paths: build the ClusterAccel (seconds, clusters); the
+     tile-intersect kernels K4 and K5 against their plain versions on the
+     same operands (a 96x64 sphere, headline frame 0, and a grazing view
+     with 4 candidates a tile whose overflow forces escalation: the first
+     pass and the escalation pass), ids equal and t bitwise equal, timed
+     with CUDA events; 8 "pallas2" and 3 "pallas" frames through ``render``
+     at phase 3's cameras and poses after resetting both launch counters,
+     which must show the frames went through the kernels; frame 0 of each
+     and one "grid" frame against phase 4's oracle rays (agreement >=
+     0.999); one profiled frame of each path (device busy ms, device
+     operations); one "pallas2" training step (every gradient finite); the
+     telemetry of frame 0 (candidates visited, rays that passed each box
+     test, residual overflow); each candidate's rays past its box test,
+     times its cluster's triangle count, give both kernels' bounds.
+Each phase prints its seconds. Prints a JSON line of per-kernel results,
+then, as the last line,
 ``{"ok": true, "device": {...}}``. Needs a CUDA device and never falls back
 to the CPU.
 """
@@ -75,6 +94,9 @@ LR = 1e-4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 N_SMS, FP32_LANES = 132, 128   # per SM; peak = SMs x lanes x 2 x clock
 K1_OPS_PER_PAIR = 31           # csrc/bin_intersect.cu, "Bound"
+K4_OPS_PER_PAIR = 29           # csrc/tile_intersect.cu, "Bound"
+K5_OPS_PER_PAIR = 26
+N_CLUSTER_FRAMES = {"pallas2": 8, "pallas": 3}
 
 
 def log(msg: str) -> None:
@@ -96,6 +118,37 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_profile(fn):
+    """Run ``fn()`` once under torch.profiler. Returns (device busy ms,
+    device operations, the 8 largest device kernels as (name, count, ms)).
+    Only device events count: an aten op's own device time repeats its
+    kernels'."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    on_dev = [a for a in prof.key_averages()
+              if a.device_type == DeviceType.CUDA]
+    on_dev.sort(key=lambda a: -a.self_device_time_total)
+    top = [(a.key[:48], a.count, a.self_device_time_total / 1e3)
+           for a in on_dev[:8]]
+    return (sum(a.self_device_time_total for a in on_dev) / 1e3,
+            sum(a.count for a in on_dev), top)
+
+
+def phase_timer():
+    """phase_done(n) logs the seconds since the previous call."""
+    last = [time.perf_counter()]
+
+    def phase_done(n: int) -> None:
+        now = time.perf_counter()
+        log(f"phase {n}: {now - last[0]:.1f} s")
+        last[0] = now
+    return phase_done
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -112,6 +165,7 @@ def main() -> None:
                                                             uv_sphere)
 
     dev = torch.device("cuda", 0)
+    phase_done = phase_timer()
 
     # ---- 1. the card, versions, build ----
     smi = subprocess.run(
@@ -130,7 +184,7 @@ def main() -> None:
         check=True, timeout=60).stdout.split()[0])
     log(f"max SM clock {clock_mhz} MHz")
     t0 = time.perf_counter()
-    built = _build.build("bin_intersect", "segment_sum")
+    built = _build.build("bin_intersect", "segment_sum", "tile_intersect")
     log(f"built {', '.join(lib.name for lib, _ in built.values())} in "
         f"{time.perf_counter() - t0:.2f} s")
     for _, build_log in built.values():
@@ -141,6 +195,7 @@ def main() -> None:
     cfg = RenderConfig(method="bin", tile_h=16, tile_w=32, bin_chunk=512,
                        backface_cull=True)
     chunk = cfg.bin_chunk
+    phase_done(1)
 
     # ---- 2. kernel vs plain version on identical binned tensors ----
     def binned_case(tv, res_w, res_h, cull):
@@ -186,6 +241,7 @@ def main() -> None:
         f"{rays.shape[1]} rays, {b.num_entries} entries, chunk {chunk}): "
         f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms ({smi})")
     del rays, b, kt, ktri, rt, rtri
+    phase_done(2)
 
     # ---- 3. serve frames through the port's entry point ----
     tris = Triangles.from_vertices(headline_tv, device=dev)
@@ -231,6 +287,7 @@ def main() -> None:
     if launches < N_FRAMES:
         raise RuntimeError(f"bin_intersect launched {launches} times for "
                            f"{N_FRAMES} frames")
+    phase_done(3)
 
     # ---- 4. frame 0 against the oracle on sampled rays ----
     scene, cam = frames[0]
@@ -250,6 +307,7 @@ def main() -> None:
         f"{mism.numel()} with |dt|/t {rel}")
     if agree < MIN_AGREE:
         raise RuntimeError(f"agreement {agree} < {MIN_AGREE}")
+    phase_done(4)
 
     # ---- 5. K2 against its plain version on the card ----
     from cpp_cuda_raytracer_dev_torch import render_differentiable
@@ -363,6 +421,7 @@ def main() -> None:
         f"kernel) {k2_backward_ms:.4f} ms, bound {k2_bound_ms:.4f} ms "
         f"({k2_bytes} bytes) ({smi})")
     del captured, ct_sorted, idx_sorted, block, idx, got, again, plain
+    phase_done(5)
 
     # ---- 6. training at the headline size ----
     w = torch.linspace(0.3, 1.7, RES_H * RES_W * 3,
@@ -401,11 +460,7 @@ def main() -> None:
 
     def split_and_profile(optimizer, kind, step_ms):
         """One more step split by CUDA events into forward (loss),
-        backward and SGD, then one under torch.profiler: device busy ms
-        (device events only; an aten op's own device time repeats its
-        kernels') and device operations a step."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
+        backward and SGD, then one profiled step (`device_profile`)."""
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         optimizer.zero_grad(set_to_none=True)
         ev[0].record()
@@ -418,21 +473,11 @@ def main() -> None:
         torch.cuda.synchronize()
         split = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
         step = make_train_step(optimizer, cfg)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            step(params, target)
-            torch.cuda.synchronize()
-        on_dev = [a for a in prof.key_averages()
-                  if a.device_type == DeviceType.CUDA]
-        busy_ms = sum(a.self_device_time_total for a in on_dev) / 1e3
-        top = [(a.key[:48], a.count, a.self_device_time_total / 1e3)
-               for a in sorted(on_dev,
-                               key=lambda a: -a.self_device_time_total)[:8]]
+        busy_ms, n_ops, top = device_profile(lambda: step(params, target))
         log(f"{kind} step split: forward {split[0]:.3f} ms, backward "
             f"{split[1]:.3f} ms, SGD {split[2]:.3f} ms; profiled step: "
-            f"device busy {busy_ms:.3f} ms, "
-            f"{sum(a.count for a in on_dev)} device operations, idle share "
-            f"against the median timed step (derived) "
+            f"device busy {busy_ms:.3f} ms, {n_ops} device operations, idle "
+            f"share against the median timed step (derived) "
             f"{1 - busy_ms / float(np.median(step_ms)):.3f}; top device "
             f"ms: {top}")
 
@@ -453,6 +498,7 @@ def main() -> None:
     if train_k1 < N_TRAIN_STEPS or train_k2 < N_TRAIN_STEPS:
         raise RuntimeError("a training step did not launch both kernels")
     split_and_profile(opt, "all-leaves", step_ms)
+    phase_done(6)
 
     # ---- 7. the pose/light/camera-only step ----
     train_tris.requires_grad_(False)
@@ -474,6 +520,7 @@ def main() -> None:
         raise RuntimeError("loss not finite")
     split_and_profile(opt, "pose/light/camera-only", pose_ms)
     del params, opt, train_tris, all_params
+    phase_done(7)
 
     # ---- 8. telemetry (K3) on frame 0 ----
     scene, cam = frames[0]
@@ -553,6 +600,12 @@ def main() -> None:
         f"{k3_esub4_ms:.4f} ms, plain with steps {k3_plain_ms:.4f} ms; "
         f"intersect_binned with stats {frame_stats_ms:.4f} ms, without "
         f"{frame_plain_ms:.4f} ms ({smi})")
+    phase_done(8)
+
+    # ---- 9. the cluster paths (K4, K5) ----
+    cluster_kernels = run_cluster_paths(dev, headline_tv, frames, idx_t, ref,
+                                        smi, clock_mhz)
+    phase_done(9)
 
     print(json.dumps({"kernels": [{
         "name": "bin_intersect", "route": "cuda",
@@ -578,11 +631,317 @@ def main() -> None:
         "bound_by": "bytes", "library_ms": k2_library_ms,
         "backward_ms": k2_backward_ms,
         "launches_by_path": {"serve": 0, "train": train_k2,
-                             "train_pose_light_camera": pose_k2}}]}),
-          flush=True)
+                             "train_pose_light_camera": pose_k2}},
+        *cluster_kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def run_cluster_paths(dev, headline_tv, frames, idx_t, ref, smi, clock_mhz):
+    """Phase 9 (see the module docstring): the cluster paths at the
+    headline size. Returns the kernels line's entries for K4 and K5."""
+    from cpp_cuda_raytracer_dev_torch import (Camera, ClusterAccel, Pose,
+                                              RenderConfig, Scene,
+                                              SceneObject, Triangles, render)
+    from cpp_cuda_raytracer_dev_torch.accel import traverse as tr
+    from cpp_cuda_raytracer_dev_torch.ops.cuda import segment_sum as k2
+    from cpp_cuda_raytracer_dev_torch.ops.cuda import tile_intersect as k45
+    from cpp_cuda_raytracer_dev_torch.ops.quaternion import from_axis_angle
+    from cpp_cuda_raytracer_dev_torch.parallel.render_pjit import \
+        make_train_step
+    from cpp_cuda_raytracer_dev_torch.utils.procgen import uv_sphere
+
+    cfgs = {"pallas2": RenderConfig(
+        method="pallas2", leaf_size=128, tile_h=16, tile_w=32,
+        max_candidates=64, group_size=32, max_groups=24, escalate_tiles=64,
+        escalate_factor=4)}
+    cfgs["pallas"] = dataclasses.replace(cfgs["pallas2"], method="pallas")
+    c2 = cfgs["pallas2"]
+    kernels = {"K4": (k45.tile_intersect_v2, k45.tile_intersect_v2_reference),
+               "K5": (k45.tile_intersect, k45.tile_intersect_reference)}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    tris = frames[0][0].objects[0].tris
+    t0 = time.perf_counter()
+    accel = ClusterAccel.build(tris, leaf_size=c2.leaf_size, cache=False)
+    torch.cuda.synchronize()
+    fill = (accel.slot_mat >= 0).sum(dim=1).float()
+    log(f"ClusterAccel: {accel.num_clusters} clusters of at most "
+        f"{int(fill.max())} triangles (mean {float(fill.mean()):.2f}), "
+        f"{accel.geom9.shape[2]} slots, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    n_slots = accel.slot_mat.shape[1]
+
+    def camera(pos, w, h):
+        return Camera.create(w, h, pos=list(pos), look_at=[0.0, 0.0, 0.0],
+                             up=[0.0, 1.0, 0.0], film_h=0.024, focal=0.055,
+                             device=dev)
+
+    def operands(scene, cam, acc, c, res_w, res_h):
+        """The kernels' operands for the first pass and the escalation
+        pass of a pallas2 frame (intersect_clustered_pallas_v2's steps)."""
+        obj = scene.objects[0]
+        o = obj.pose.inv_apply(cam.pos)
+        d = obj.pose.inv_apply_vec(cam.ray_directions())
+        k = min(c.max_candidates, acc.num_clusters)
+        tiles, _ = tr._tile_rays(d, res_h, res_w, c.tile_h, c.tile_w)
+        cand, count, ovf = tr._cull(o, tiles, acc, c, k)
+        root = torch.cat([o, acc.bounds_min.amin(dim=0),
+                          acc.bounds_max.amax(dim=0)])
+        first = (tiles.transpose(1, 2).contiguous(), cand, count,
+                 tr._candidate_boxes(o, acc, cand, count), root, acc.geom9,
+                 acc.slot_mat)
+        etile = torch.sort(ovf, descending=True,
+                           stable=True).indices[:c.escalate_tiles]
+        et = tiles[etile]
+        cand2, count2, ovf2 = tr.cull_tiles(
+            o, et, acc, c.tile_h, c.tile_w,
+            min(k * c.escalate_factor, acc.num_clusters))
+        second = (et.transpose(1, 2).contiguous(), cand2, count2,
+                  tr._candidate_boxes(o, acc, cand2, count2), root,
+                  acc.geom9, acc.slot_mat)
+        return first, second, ovf, ovf2
+
+    # kernels against their plain versions on identical operands
+    sphere_tris = Triangles.from_vertices(uv_sphere(50, 50), device=dev)
+    cases = [
+        ("sphere 96x64", Scene([SceneObject(sphere_tris)]),
+         camera((0.0, 0.0, -3.0), 96, 64),
+         ClusterAccel.build(sphere_tris, leaf_size=128, cache=False), c2, 96,
+         64),
+        ("dragon-class frame 0", *frames[0], accel, c2, RES_W, RES_H),
+        ("dragon-class grazing, 4 candidates", Scene([SceneObject(tris)]),
+         camera((1.8, 0.3, 1.6), RES_W, RES_H), accel,
+         dataclasses.replace(c2, max_candidates=4), RES_W, RES_H)]
+    max_err = {"K4": 0.0, "K5": 0.0}
+    with torch.inference_mode():
+        for name, scene, cam, acc, c, w, h in cases:
+            first, second, ovf, ovf2 = operands(scene, cam, acc, c, w, h)
+            log(f"cluster operands [{name}]: {first[0].shape[0]} tiles, "
+                f"K {first[1].shape[1]}, count mean "
+                f"{float(first[2].float().mean()):.2f}, overflow tiles "
+                f"{int((ovf > 0).sum())} (max {int(ovf.max())}); escalation "
+                f"pass {second[0].shape[0]} tiles at K {second[1].shape[1]}, "
+                f"overflow left on {int((ovf2 > 0).sum())}")
+            if name == "dragon-class frame 0":
+                frame0 = first
+            for kname, (fn, plain) in kernels.items():
+                for pname, ops in (("first pass", first),
+                                   ("escalation pass", second)):
+                    got = fn(*ops)
+                    torch.cuda.synchronize()
+                    want = plain(*ops)
+                    torch.cuda.synchronize()
+                    eq = [torch.equal(x, y) for x, y in zip(got, want)]
+                    err = float((got[0] - want[0]).abs().max())
+                    max_err[kname] = max(max_err[kname], err)
+                    log(f"{kname} vs plain [{name}, {pname}]: t_bitwise_equal "
+                        f"{eq[0]} tri_equal {eq[1]} steps_equal {eq[2]} "
+                        f"max_abs_err {err} hit_rate "
+                        f"{float((got[1] >= 0).float().mean()):.6f} "
+                        f"candidates visited {int(got[2][:, 0].sum())}")
+                    if not all(eq):
+                        raise RuntimeError(f"{kname} and its plain version "
+                                           f"disagree on {name}, {pname}")
+        ms = {}
+        for kname, (fn, plain) in kernels.items():
+            ms[kname] = (cuda_ms(lambda: fn(*frame0), KERNEL_REPS),
+                         cuda_ms(lambda: plain(*frame0), PLAIN_REPS))
+            log(f"{kname} at headline frame 0 ({frame0[0].shape[0]} tiles x "
+                f"{frame0[0].shape[2]} rays, K {frame0[1].shape[1]}): kernel "
+                f"{ms[kname][0]:.4f} ms, plain {ms[kname][1]:.4f} ms ({smi})")
+
+    # serve frames through the entry point, one path at a time
+    served, launches = {}, {}
+    for method, n in N_CLUSTER_FRAMES.items():
+        k45.tile_intersect_v2.launches = 0
+        k45.tile_intersect.launches = 0
+        frame_ms, outs = [], []
+        for scene, cam in frames[:n]:
+            start.record()
+            out = render(scene, cam, cfgs[method], accel=(accel,))
+            end.record()
+            torch.cuda.synchronize()
+            frame_ms.append(start.elapsed_time(end))
+            outs.append(out)
+        launches[method] = (k45.tile_intersect_v2.launches,
+                            k45.tile_intersect.launches)
+        served[method] = outs
+        for i, out in enumerate(outs):
+            hit = out.hit_tri >= 0
+            if out.image.shape != (RES_H, RES_W, 3) or not all(
+                    bool(torch.isfinite(getattr(out, f)).all())
+                    for f in ("radiance", "hit_t", "normal", "point")):
+                raise RuntimeError(f"{method} frame {i}: bad shape or "
+                                   "non-finite output")
+            if float(hit.float().mean()) < 0.5:
+                raise RuntimeError(f"{method} frame {i}: hit rate below 0.5")
+        log(f"{method} frames: ms {[round(x, 3) for x in frame_ms]}, median "
+            f"{float(np.median(frame_ms)):.3f} ms; K4 launches "
+            f"{launches[method][0]}, K5 launches {launches[method][1]} "
+            f"({smi})")
+        busy_ms, n_ops, top = device_profile(
+            lambda: render(*frames[0], cfgs[method], accel=(accel,)))
+        log(f"{method} profiled frame: device busy {busy_ms:.3f} ms, {n_ops} "
+            f"device operations, idle share against the median frame "
+            f"(derived) {1 - busy_ms / float(np.median(frame_ms)):.3f}; top "
+            f"device ms: {top}")
+    if launches["pallas2"][0] < N_CLUSTER_FRAMES["pallas2"] or \
+            launches["pallas2"][1] != 0:
+        raise RuntimeError(f"pallas2 frames launched K4/K5 "
+                           f"{launches['pallas2']} times")
+    if launches["pallas"][1] < N_CLUSTER_FRAMES["pallas"] or \
+            launches["pallas"][0] != 0:
+        raise RuntimeError(f"pallas frames launched K4/K5 "
+                           f"{launches['pallas']} times")
+
+    # frame 0 of each method, and one grid frame, against the oracle rays
+    with torch.inference_mode():
+        scene, cam = frames[0]
+        start.record()
+        grid_out = render(scene, cam, dataclasses.replace(c2, method="grid"),
+                          accel=(accel,))
+        end.record()
+        torch.cuda.synchronize()
+        log(f"grid frame 0: {start.elapsed_time(end):.3f} ms")
+        agree = {}
+        for method, out in (("pallas2", served["pallas2"][0]),
+                            ("pallas", served["pallas"][0]),
+                            ("grid", grid_out)):
+            got_tri = out.hit_tri.reshape(-1)[idx_t]
+            got_t = out.hit_t.reshape(-1)[idx_t]
+            agree[method] = float((got_tri == ref.tri).float().mean())
+            mism = (got_tri != ref.tri).nonzero().squeeze(1)
+            rel = ((got_t[mism] - ref.t[mism]).abs() / ref.t[mism]).tolist()
+            log(f"{method} frame 0 oracle agreement {agree[method]:.6f} on "
+                f"{N_SAMPLE} rays; mismatches {mism.numel()} with |dt|/t "
+                f"{rel}")
+        same = float((served["pallas2"][0].hit_tri
+                      == served["pallas"][0].hit_tri).float().mean())
+        log(f"pallas2 vs pallas frame 0: hit ids equal on {same:.6f}")
+    if min(agree.values()) < MIN_AGREE:
+        raise RuntimeError(f"cluster-path oracle agreement {agree}")
+
+    # one pallas2 training step from a pose turned by 1 degree
+    target = served["pallas2"][0].radiance.clone()
+    ttris = Triangles.from_vertices(headline_tv, device=dev)
+    tpose = Pose(from_axis_angle([0.0, 1.0, 0.0], math.radians(1.0),
+                                 device=dev), torch.zeros(3, device=dev))
+    tcam = camera((0.0, 0.0, -3.0), RES_W, RES_H).requires_grad_()
+    params = {"scene": Scene([SceneObject(ttris, tpose)]), "camera": tcam}
+    leaves = [*params["scene"].named_parameters(),
+              *(("camera." + n, p) for n, p in tcam.named_parameters())]
+    opt = torch.optim.SGD([p for _, p in leaves], lr=LR)
+    step = make_train_step(opt, c2, accel=(accel,))
+    k45.tile_intersect_v2.launches = 0
+    k2.segment_sum.launches = 0
+    start.record()
+    loss = float(step(params, target))
+    end.record()
+    torch.cuda.synchronize()
+    train_k4 = k45.tile_intersect_v2.launches
+    train_k2 = k2.segment_sum.launches
+    log(f"pallas2 training step: {start.elapsed_time(end):.3f} ms, loss "
+        f"{loss}, K4 launches {train_k4}, segment_sum launches {train_k2} "
+        f"({smi})")
+    bad = [n for n, p in leaves
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    if bad or not math.isfinite(loss) or train_k4 < 1 or train_k2 < 1:
+        raise RuntimeError(f"pallas2 training step: non-finite or missing "
+                           f"gradients {bad}, or a kernel did not launch")
+    del params, opt, step, leaves, ttris
+
+    # telemetry of frame 0: one sub-tile per ray counts the rays that pass
+    # each box test; sub-tiles never change a hit
+    with torch.inference_mode():
+        scene, cam = frames[0]
+        obj = scene.objects[0]
+        hit_s, st = tr.intersect_clustered_pallas_v2(
+            obj.pose.inv_apply(cam.pos),
+            obj.pose.inv_apply_vec(cam.ray_directions()), accel,
+            dataclasses.replace(c2, with_stats=True, debug_mode=1, sub_h=1,
+                                sub_w=1), RES_H, RES_W)
+        out0 = served["pallas2"][0]
+        if not (torch.equal(hit_s.t, out0.hit_t.reshape(-1))
+                and torch.equal(hit_s.tri, out0.hit_tri.reshape(-1))):
+            raise RuntimeError("the telemetry changed K4's hits")
+        p = frame0[0].shape[2]
+        tele = {k: fn(*frame0, n_sub=p, count_subs=True)[2]
+                for k, (fn, _) in kernels.items()}
+        if not torch.equal(tele["K4"], torch.stack([st["steps"],
+                                                    st["mt_subs"]], 1)):
+            raise RuntimeError("K4's telemetry differs from the frame's")
+        ovf = st["overflow"]
+        log(f"pallas2 frame 0 stats: candidates visited mean "
+            f"{float(st['steps'].float().mean()):.3f} (count mean "
+            f"{float(st['count'].float().mean()):.3f}), rays past a box test "
+            f"{int(st['mt_subs'].sum())}, residual overflow tiles "
+            f"{int((ovf > 0).sum())} max {int(ovf.max())}")
+        # the work the function needs: each ray past a candidate's box test
+        # against that cluster's triangles, not its padding slots. A walk cut
+        # to its first k candidates takes the same steps up to k, so the
+        # ray counts at count = min(count, k) for k = 0..K differ by the rays
+        # past each candidate's box test
+        cand_l = frame0[1].long().clamp_min(0)
+        tri_fill = (accel.slot_mat >= 0).sum(dim=1)[cand_l]      # (nT, K)
+        entries = {}
+        for kname, ops_pair in (("K4", K4_OPS_PER_PAIR),
+                                ("K5", K5_OPS_PER_PAIR)):
+            fn = kernels[kname][0]
+            past = torch.stack([fn(
+                *frame0[:2], frame0[2].clamp_max(k), *frame0[3:], n_sub=p,
+                count_subs=True)[2][:, 1] for k in range(
+                    frame0[1].shape[1] + 1)], dim=1)
+            if not torch.equal(past[:, -1], tele[kname][:, 1]):
+                raise RuntimeError(f"{kname}'s cut walks disagree with its "
+                                   "telemetry")
+            rays_k = past.diff(dim=1).long()                     # (nT, K)
+            pairs = int((rays_k * tri_fill).sum())
+            read = frame0[1][rays_k > 0].long().unique()
+            read_tris = int((accel.slot_mat[read] >= 0).sum())
+            n_t = frame0[0].shape[0]
+            nbytes = (sum(x.numel() for x in frame0[:5]) * 4
+                      + read_tris * 10 * 4 + n_t * (p * 8 + 8))
+            ops_ms = (pairs * ops_pair
+                      / (N_SMS * FP32_LANES * 2 * clock_mhz * 1e6) * 1e3)
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            log(f"{kname} on frame 0: {pairs} (ray, triangle) pairs past the "
+                f"box test ({int(tele[kname][:, 1].sum())} rays x "
+                f"{pairs / max(1, int(tele[kname][:, 1].sum())):.2f} "
+                f"triangles; {int(tele[kname][:, 1].sum()) * n_slots} with "
+                f"the {n_slots} slots), {read.numel()} clusters of "
+                f"{read_tris} triangles read; bound "
+                f"{max(ops_ms, bytes_ms):.4f} ms (operations {ops_ms:.4f} ms "
+                f"at {ops_pair} FP32 ops a pair and {clock_mhz} MHz, bytes "
+                f"{bytes_ms:.4f} ms); kernel {ms[kname][0]:.4f} ms ({smi})")
+            entries[kname] = (max(ops_ms, bytes_ms),
+                              "operations" if ops_ms >= bytes_ms else "bytes")
+
+    return [{
+        "name": "tile_intersect_v2", "route": "cuda",
+        "source": "cpp_cuda_raytracer_dev_torch/csrc/tile_intersect.cu",
+        "replaces": "cpp_cuda_raytracer_dev_tpu/ops/pallas/"
+                    "intersect_kernel_v2.py:58",
+        "launches": launches["pallas2"][0], "max_abs_err": max_err["K4"],
+        "ms": ms["K4"][0], "plain_ms": ms["K4"][1],
+        "bound_ms": entries["K4"][0], "bound_by": entries["K4"][1],
+        "library_ms": None,
+        "launches_by_path": {"serve_pallas2": launches["pallas2"][0],
+                             "serve_pallas": launches["pallas"][0],
+                             "train_pallas2": train_k4}}, {
+        "name": "tile_intersect", "route": "cuda",
+        "source": "cpp_cuda_raytracer_dev_torch/csrc/tile_intersect.cu",
+        "replaces": "cpp_cuda_raytracer_dev_tpu/ops/pallas/"
+                    "intersect_kernel.py:55",
+        "launches": launches["pallas"][1], "max_abs_err": max_err["K5"],
+        "ms": ms["K5"][0], "plain_ms": ms["K5"][1],
+        "bound_ms": entries["K5"][0], "bound_by": entries["K5"][1],
+        "library_ms": None,
+        "launches_by_path": {"serve_pallas2": launches["pallas2"][1],
+                             "serve_pallas": launches["pallas"][1],
+                             "train_pallas2": 0}}]
 
 
 if __name__ == "__main__":

@@ -1,14 +1,17 @@
 """PyTorch/CUDA port of the differentiable ray tracer.
 
 A second package beside ``cpp_cuda_raytracer_dev_tpu`` (the JAX reference),
-with the same module paths. It renders the ``method="bin"`` primary-ray
-frame and takes training steps through it (``parallel/render_pjit.py``).
-Its kernels are CUDA C++ written for Hopper: the bin intersect with its
-telemetry switch (``csrc/bin_intersect.cu``) and the gather backward's
-segment sum (``csrc/segment_sum.cu``). The package imports ``torch`` and
-never JAX.
+with the same module paths. It renders primary-ray frames by the
+``method="bin"`` path and by the cluster paths ("grid", "pallas",
+"pallas2", over a `ClusterAccel`), and takes training steps through them
+(``parallel/render_pjit.py``). Its kernels are CUDA C++ written for Hopper:
+the bin intersect with its telemetry switch (``csrc/bin_intersect.cu``),
+the gather backward's segment sum (``csrc/segment_sum.cu``) and the
+cluster paths' tile intersects K4 and K5 (``csrc/tile_intersect.cu``). The
+package imports ``torch`` and never JAX.
 """
 
+from .accel.traverse import ClusterAccel
 from .models.camera import Camera, Projection
 from .models.renderer import RenderOutput, render, render_differentiable
 from .models.scene import PhongParams, Scene, SceneObject, Triangles
@@ -17,7 +20,7 @@ from .ops.quaternion import Pose
 from .utils.config import RenderConfig
 
 __all__ = [
-    "Camera", "FixedOriginCache", "Hit", "PhongParams", "Pose", "Projection",
+    "Camera", "ClusterAccel", "FixedOriginCache", "Hit", "PhongParams", "Pose", "Projection",
     "RenderConfig", "RenderOutput", "Scene", "SceneObject", "Triangles",
     "mt_brute", "mt_fixed_origin", "render", "render_differentiable",
 ]

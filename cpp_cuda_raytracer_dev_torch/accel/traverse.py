@@ -1,15 +1,472 @@
-"""The bin path's traversal (the JAX package's ``accel/traverse.py``
-``_ray_table``, ``_untile`` and ``intersect_binned``): per-tile ray table,
-screen-space binning, the bin-intersect kernel, and back to image order.
+"""Ray traversal (the JAX package's ``accel/traverse.py``): the cluster
+paths and the bin path.
+
+Cluster paths (``method`` "grid", "pallas", "pallas2"): `ClusterAccel`
+stops the KD build (accel/kd_build.py) at wide leaves, "clusters" of up to
+``leaf_size`` triangles in padded slots. Per ray tile (a rectangle of
+coherent primary rays) every cluster AABB is tested against the tile's
+4-plane frustum (`cull_tiles`, or `cull_tiles_hier` through groups of
+clusters first), the nearest ``max_candidates`` visible clusters are kept,
+and the tile's rays are intersected with them: by dense plain PyTorch
+(`intersect_clustered`, "grid"), by kernel K5 (`intersect_clustered_pallas`,
+"pallas") or by kernel K4 with its early exit and an exact second pass
+over the tiles whose candidate list overflowed
+(`intersect_clustered_pallas_v2`, "pallas2"). The cull is vectorised over
+tiles, as the JAX package's ``vmap`` is; candidate order is a stable sort,
+as ``jax.lax.top_k``'s is, so equal keys keep the lower cluster first.
+
+Bin path (``method="bin"``): per-tile ray table, screen-space binning, the
+bin-intersect kernel K1, and back to image order.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
+from ..ops import vecmath
 from ..ops.cuda.bin_intersect import bin_intersect
+from ..ops.cuda.tile_intersect import tile_intersect, tile_intersect_v2
 from ..ops.intersect import Hit
 from .binning import BinnedScene, bin_triangles
+from .kd_build import build_kd
+
+_CULL_ELEMS = 1 << 25     # (tile, plane, cluster) distances per cull group
+_GRID_PAIRS = 1 << 25     # (ray, slot) pairs per tile group of the grid path
+_FAR = 3.0e38
+
+
+@dataclasses.dataclass
+class ClusterAccel:
+    """Wide-leaf KD clusters with padded triangle slots, on the triangles'
+    device.
+
+    One geometry layout serves both kernels and the grid path: ``geom9``
+    (C, 9, Lpad) with rows p1.xyz | e1.xyz | e2.xyz and the slots on the
+    last axis, padded with zeros to a multiple of 128 (the JAX package's
+    ``geom9_t``); `geom_t` is its (C, L, 9) view (the JAX ``geom_t``).
+    Padding slots have ``slot_mat`` -1 and zero geometry (det = 0, never
+    hit).
+    """
+
+    bounds_min: torch.Tensor   # (C, 3) float32
+    bounds_max: torch.Tensor   # (C, 3)
+    centers: torch.Tensor      # (C, 3)
+    geom9: torch.Tensor        # (C, 9, Lpad) float32
+    slot_mat: torch.Tensor     # (C, L) int32 triangle id, -1 = padding
+    leaf_size: int
+
+    @property
+    def num_clusters(self) -> int:
+        return self.bounds_min.shape[0]
+
+    @property
+    def geom_t(self) -> torch.Tensor:
+        """(C, L, 9) view of the slot geometry."""
+        return self.geom9[:, :, :self.slot_mat.shape[1]].transpose(1, 2)
+
+    @property
+    def slot_tri(self) -> torch.Tensor:
+        return self.slot_mat.reshape(-1)
+
+    @classmethod
+    def build(cls, tris, leaf_size: int = 128,
+              cache: bool = True) -> "ClusterAccel":
+        """Host-side build (numpy): KD build -> leaf extraction -> padding,
+        then one copy to the triangles' device. With ``cache`` the KD tree
+        is loaded from or saved to the disk cache (utils/cache.py)."""
+        p1, e1, e2 = (x.detach().cpu().numpy() for x in
+                      (tris.p1, tris.e1, tris.e2))
+        v = np.stack([p1, p1 + e1, p1 + e2], axis=1)
+        amin, amax = v.min(axis=1), v.max(axis=1)
+        if cache:
+            from ..utils.cache import build_kd_cached
+            tree = build_kd_cached(amin, amax, min_node_size=leaf_size)
+        else:
+            tree = build_kd(amin, amax, min_node_size=leaf_size)
+        leaf_ids = np.nonzero(tree.is_leaf)[0]
+        c = leaf_ids.shape[0]
+        ln = leaf_size
+        starts = tree.leaf_start[leaf_ids].astype(np.int64)    # (C,)
+        counts = tree.leaf_count[leaf_ids].astype(np.int64)
+        lane = np.arange(ln, dtype=np.int64)[None, :]          # (1, L)
+        valid = lane < counts[:, None]                         # (C, L)
+        pos = np.minimum(starts[:, None] + lane, p1.shape[0] - 1)
+        ids = tree.perm[pos]                                   # (C, L)
+        slot_tri = np.where(valid, ids, -1).astype(np.int32)
+        v3 = valid[:, :, None]
+        sp1 = np.where(v3, p1[ids], 0.0).astype(np.float32)
+        se1 = np.where(v3, e1[ids], 0.0).astype(np.float32)
+        se2 = np.where(v3, e2[ids], 0.0).astype(np.float32)
+        bmin = tree.bounds_min[leaf_ids]
+        bmax = tree.bounds_max[leaf_ids]
+        geom_t = np.concatenate([sp1, se1, se2], axis=2)  # (C, L, 9)
+        lpad = (-ln) % 128
+        geom9 = np.transpose(geom_t, (0, 2, 1))           # (C, 9, L)
+        if lpad:
+            geom9 = np.concatenate(
+                [geom9, np.zeros((c, 9, lpad), np.float32)], axis=2)
+        dev = tris.p1x.device
+
+        def t(x):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        return cls(bounds_min=t(bmin), bounds_max=t(bmax),
+                   centers=t((bmin + bmax) / 2.0), geom9=t(geom9),
+                   slot_mat=t(slot_tri), leaf_size=leaf_size)
+
+
+def _tile_rays(d: torch.Tensor, res_h: int, res_w: int, th: int, tw: int,
+               sh: int = 0, sw: int = 0):
+    """(R, 3) row-major rays -> (nT, P, 3) tiles + untile metadata, the
+    image padded to whole tiles by repeating its edge.
+
+    With sh/sw set, rays within a tile are ordered sub-tile-major: each
+    (sh, sw) sub-tile occupies a contiguous run of the P axis."""
+    hp = (-res_h) % th
+    wp = (-res_w) % tw
+    img = d.reshape(res_h, res_w, 3)
+    if hp or wp:
+        rows = torch.arange(res_h + hp, device=d.device).clamp_max(res_h - 1)
+        cols = torch.arange(res_w + wp, device=d.device).clamp_max(res_w - 1)
+        img = img[rows][:, cols]
+    h2, w2 = res_h + hp, res_w + wp
+    if sh and sw and (sh, sw) != (th, tw):
+        tiles = (img.reshape(h2 // th, th // sh, sh, w2 // tw, tw // sw, sw,
+                             3)
+                 .permute(0, 3, 1, 4, 2, 5, 6)
+                 .reshape(-1, th * tw, 3))
+    else:
+        sh, sw = 0, 0
+        tiles = (img.reshape(h2 // th, th, w2 // tw, tw, 3)
+                 .permute(0, 2, 1, 3, 4)
+                 .reshape(-1, th * tw, 3))
+    return tiles, (h2, w2, th, tw, hp, wp, sh, sw)
+
+
+def _untile(x: torch.Tensor, meta, res_h: int, res_w: int) -> torch.Tensor:
+    """(nT, P, ...) per-tile values -> (res_h, res_w, ...) image order."""
+    h2, w2, th, tw, _, _, sh, sw = meta
+    tail = tuple(x.shape[2:])
+    if sh and sw:
+        full = (x.reshape(h2 // th, w2 // tw, th // sh, tw // sw, sh, sw,
+                          *tail)
+                .permute(0, 2, 4, 1, 3, 5, *range(6, x.dim() + 4)))
+    else:
+        full = (x.reshape(h2 // th, w2 // tw, th, tw, *tail)
+                .permute(0, 2, 1, 3, *range(4, x.dim() + 2)))
+    return full.reshape(h2, w2, *tail)[:res_h, :res_w]
+
+
+def _corner_idx(th: int, tw: int, sh: int = 0, sw: int = 0):
+    """P-axis positions of the tile's 4 corner rays (00, 01, 10, 11) under
+    row-major or sub-tile-major ray ordering (see _tile_rays)."""
+    if not (sh and sw):
+        return 0, tw - 1, (th - 1) * tw, th * tw - 1
+    sub = sh * sw
+    c01 = (tw // sw - 1) * sub + (sw - 1)
+    c10 = (th // sh - 1) * (tw // sw) * sub + (sh - 1) * sw
+    return 0, c01, c10, th * tw - 1
+
+
+def _tile_frustum_visible(o: torch.Tensor, tiles: torch.Tensor,
+                          bmin: torch.Tensor, bmax: torch.Tensor,
+                          th: int, tw: int, sh: int = 0, sw: int = 0):
+    """Visibility of cluster AABBs from each tile's ray cone.
+
+    tiles: (n, P, 3); bmin/bmax: (C, 3) shared by all tiles or (n, C, 3)
+    per tile. Directions are affine in pixel coordinates, so the 4 corner
+    rays bound the cone; each side plane passes through the origin, and a
+    box is outside when its corner furthest along the plane's inward
+    normal is behind it. Returns (visible (n, C), tnear (n, C)), tnear the
+    box centre's distance along the tile's mean direction.
+    """
+    i00, i01, i10, i11 = _corner_idx(th, tw, sh, sw)
+    c00, c01, c10, c11 = (tiles[:, i] for i in (i00, i01, i10, i11))
+    center = tiles.mean(dim=1)                              # (n, 3)
+    corners = torch.stack([c00, c01, c11, c10], dim=1)      # (n, 4, 3)
+    nxt = torch.stack([c01, c11, c10, c00], dim=1)
+    normals = vecmath.cross(corners, nxt)
+    flip = torch.sign(vecmath.dot(normals, center[:, None, :]))[..., None]
+    normals = normals * torch.where(flip == 0, 1.0, flip)
+    if bmin.dim() == 2:
+        bmin, bmax = bmin[None], bmax[None]                 # (1|n, C, 3)
+    # the p-vertex distance per plane, summed over x, y, z in turn, so no
+    # (n, 4, C, 3) temporary is made
+    dist = None
+    for a in range(3):
+        n_a = normals[:, :, a, None]                        # (n, 4, 1)
+        lo = (bmin[..., a] - o[a])[:, None, :]              # (1|n, 1, C)
+        hi = (bmax[..., a] - o[a])[:, None, :]
+        term = n_a * torch.where(n_a > 0, hi, lo)
+        dist = term if dist is None else dist + term
+    visible = (dist >= 0.0).all(dim=1)
+    tnear = vecmath.dot((bmin + bmax) / 2.0 - o, center[:, None, :])
+    return visible, tnear
+
+
+def _nearest_k(key: torch.Tensor, k: int) -> torch.Tensor:
+    """Column indices of the k smallest keys per row, ascending; equal keys
+    keep the lower index first (``jax.lax.top_k(-key, k)``'s order)."""
+    return torch.sort(key, dim=1, stable=True).indices[:, :k]
+
+
+def _cull_group(per_tile: int) -> int:
+    """Tiles per cull group, for ``per_tile`` plane distances a tile."""
+    return max(1, _CULL_ELEMS // max(per_tile, 1))
+
+
+def cull_tiles(o: torch.Tensor, tiles: torch.Tensor, accel: ClusterAccel,
+               th: int, tw: int, k: int, sh: int = 0, sw: int = 0):
+    """Frustum-cull every cluster against every tile's ray cone.
+
+    tiles: (nT, P, 3). Returns (cand (nT, K) int32 nearest-first, count
+    (nT,) int32 visible clusters clamped to K, overflow (nT,) int32 visible
+    clusters past K).
+    """
+    out = []
+    step = _cull_group(4 * accel.num_clusters)
+    for i in range(0, tiles.shape[0], step):
+        visible, tnear = _tile_frustum_visible(
+            o, tiles[i:i + step], accel.bounds_min, accel.bounds_max, th, tw,
+            sh, sw)
+        cand = _nearest_k(torch.where(visible, tnear, torch.inf), k)
+        nvis = visible.sum(dim=1, dtype=torch.int32)
+        out.append((cand.to(torch.int32), torch.clamp_max(nvis, k),
+                    torch.clamp_min(nvis - k, 0)))
+    return tuple(torch.cat(x) for x in zip(*out))
+
+
+def cull_tiles_hier(o: torch.Tensor, tiles: torch.Tensor, accel: ClusterAccel,
+                    th: int, tw: int, k: int, group: int, kg: int,
+                    sh: int = 0, sw: int = 0):
+    """Two-level frustum cull: groups of `group` consecutive clusters (KD
+    leaf order, so spatially coherent) are tested first; only the nearest
+    `kg` visible groups have their member clusters tested. Same contract as
+    `cull_tiles`; the clusters of visible groups past the `kg` budget count
+    as overflow (an upper bound), so escalation picks those tiles up.
+    """
+    c = accel.num_clusters
+    dev = accel.bounds_min.device
+    pad = (-c) % group
+    gmin, gmax = accel.bounds_min, accel.bounds_max
+    if pad:
+        gmin = torch.cat([gmin, torch.full((pad, 3), _FAR, device=dev)])
+        gmax = torch.cat([gmax, torch.full((pad, 3), -_FAR, device=dev)])
+    ng = gmin.shape[0] // group
+    gb_min = gmin.reshape(ng, group, 3).amin(dim=1)        # (G, 3)
+    gb_max = gmax.reshape(ng, group, 3).amax(dim=1)
+    kg = min(kg, ng)
+    if k > kg * group:
+        raise ValueError(f"max_candidates {k} exceeds max_groups x "
+                         f"group_size = {kg * group}")
+    lane = torch.arange(group, device=dev)
+    out = []
+    step = _cull_group(4 * max(ng, kg * group))
+    for i in range(0, tiles.shape[0], step):
+        tg = tiles[i:i + step]
+        gvis, gnear = _tile_frustum_visible(o, tg, gb_min, gb_max, th, tw,
+                                            sh, sw)
+        gsel = _nearest_k(torch.where(gvis, gnear, torch.inf), kg)
+        gsel_valid = gvis.gather(1, gsel)
+        cl_raw = (gsel[:, :, None] * group + lane).reshape(tg.shape[0], -1)
+        cl = cl_raw.clamp_max(c - 1)                       # clamp pad tail
+        visible, tnear = _tile_frustum_visible(
+            o, tg, accel.bounds_min[cl], accel.bounds_max[cl], th, tw, sh, sw)
+        visible = (visible & (cl_raw < c)
+                   & gsel_valid.repeat_interleave(group, dim=1))
+        sel = _nearest_k(torch.where(visible, tnear, torch.inf), k)
+        cand = cl.gather(1, sel)
+        nvis = visible.sum(dim=1, dtype=torch.int32)
+        ngvis = gvis.sum(dim=1, dtype=torch.int32)
+        out.append((cand.to(torch.int32), torch.clamp_max(nvis, k),
+                    torch.clamp_min(nvis - k, 0)
+                    + torch.clamp_min(ngvis - kg, 0) * group))
+    return tuple(torch.cat(x) for x in zip(*out))
+
+
+def _cull(o, tiles, accel, config, k, sh=0, sw=0):
+    if config.max_groups > 0:
+        return cull_tiles_hier(o, tiles, accel, config.tile_h, config.tile_w,
+                               k, config.group_size, config.max_groups, sh,
+                               sw)
+    return cull_tiles(o, tiles, accel, config.tile_h, config.tile_w, k, sh,
+                      sw)
+
+
+def _candidate_boxes(o: torch.Tensor, accel: ClusterAccel, cand: torch.Tensor,
+                     count: torch.Tensor) -> torch.Tensor:
+    """(nT, K) candidates -> (nT, K, 8) AABBs (bmin | bmax) with the
+    suffix-min conservative origin-to-AABB distance in column 6.
+
+    For unit directions the distance bounds any hit t inside the cluster
+    from below; its suffix minimum over the nearest-first order is K4's
+    loop-exit certificate. Candidates past ``count`` get 3e38."""
+    gap = torch.clamp_min(torch.maximum(accel.bounds_min - o,
+                                        o - accel.bounds_max), 0.0)
+    dist_c = torch.sqrt((gap * gap).sum(dim=-1))            # (C,)
+    box8 = torch.cat([accel.bounds_min, accel.bounds_max, dist_c[:, None],
+                      torch.zeros_like(dist_c)[:, None]], dim=1)  # (C, 8)
+    boxes = box8[cand.long()]                               # (nT, K, 8)
+    kk = torch.arange(cand.shape[1], device=cand.device)
+    dist = torch.where(kk < count[:, None], boxes[:, :, 6], _FAR)
+    boxes[:, :, 6] = torch.flip(torch.cummin(torch.flip(dist, [1]), dim=1)
+                                .values, [1])
+    return boxes
+
+
+def _hit(t_tiles, tri_tiles, meta, res_h, res_w) -> Hit:
+    t = _untile(t_tiles, meta, res_h, res_w).reshape(-1)
+    tri = _untile(tri_tiles, meta, res_h, res_w).reshape(-1)
+    return Hit(t=t, tri=tri, obj=torch.where(tri >= 0, 0, -1).to(torch.int32))
+
+
+def intersect_clustered(o: torch.Tensor, d: torch.Tensor, tris,
+                        accel: ClusterAccel, config, res_h: int,
+                        res_w: int) -> Hit:
+    """Nearest hit via the flat tile frustum cull and a dense MT over each
+    tile's K candidates x L slots, in plain PyTorch ("grid").
+
+    o: (3,) object-frame origin; d: (R, 3) object-frame unit directions in
+    row-major image order (R = res_h * res_w). ``tris`` is unused (it keeps
+    the JAX signature). Tiles run in groups that bound the (ray, slot)
+    temporaries, as the JAX package's ``lax.map(batch_size=8)`` does; the
+    dot products are elementwise sums, so no TF32 can enter.
+    """
+    del tris
+    th, tw = config.tile_h, config.tile_w
+    k = min(config.max_candidates, accel.num_clusters)
+    ln = accel.slot_mat.shape[1]
+    eps, draw = config.eps, config.draw_distance
+
+    # per-frame, per-object fixed-origin MT constants for every slot
+    g = accel.geom_t.reshape(-1, 9)
+    p1, e1, e2 = g[:, 0:3], g[:, 3:6], g[:, 6:9]
+    tvec = o[None, :] - p1
+    m_det = vecmath.cross(e2, e1)                           # (S, 3)
+    m_u = vecmath.cross(e2, tvec)
+    m_v = vecmath.cross(tvec, e1)
+    tdet = vecmath.dot(e2, m_v)                             # (S,)
+    slot_tri = accel.slot_tri
+
+    tiles, meta = _tile_rays(d, res_h, res_w, th, tw)
+    cand, count, _ = cull_tiles(o, tiles, accel, th, tw, k)
+    p = tiles.shape[1]
+    lane = torch.arange(ln, device=d.device)
+    # the cull sorts visible clusters first, so candidate j is valid iff
+    # j < count
+    cand_valid = torch.arange(k, device=d.device) < count[:, None]
+    t_out, tri_out = [], []
+    step = max(1, _GRID_PAIRS // (p * k * ln))
+    for i in range(0, tiles.shape[0], step):
+        tg = tiles[i:i + step]
+        n = tg.shape[0]
+        slot = (cand[i:i + step, :, None].long() * ln + lane).reshape(n, -1)
+        sl_tri = torch.where(cand_valid[i:i + step].repeat_interleave(ln, 1),
+                             slot_tri[slot], -1)            # (n, K*L)
+        md, mu, mv = m_det[slot], m_u[slot], m_v[slot]      # (n, K*L, 3)
+        td = tdet[slot]
+        dx, dy, dz = (tg[:, :, a, None] for a in range(3))  # (n, P, 1)
+
+        def dot3(m):
+            return (dx * m[:, None, :, 0] + dy * m[:, None, :, 1]
+                    + dz * m[:, None, :, 2])                # (n, P, K*L)
+        det = dot3(md)
+        inv = torch.reciprocal(det)
+        u = dot3(mu) * inv
+        v = dot3(mv) * inv
+        t = td[:, None, :] * inv
+        ok = ((det.abs() >= eps) & (u >= eps) & (v >= eps)
+              & (u + v <= 1.0 + eps) & (t >= eps) & (t < draw)
+              & (sl_tri[:, None, :] >= 0))
+        t = torch.where(ok, t, torch.inf)
+        tmin, amin = t.min(dim=2)
+        found = torch.isfinite(tmin)
+        tri_out.append(torch.where(found, sl_tri.gather(1, amin), -1))
+        t_out.append(torch.where(found, tmin, draw))
+    return _hit(torch.cat(t_out), torch.cat(tri_out).to(torch.int32), meta,
+                res_h, res_w)
+
+
+def intersect_clustered_pallas(o: torch.Tensor, d: torch.Tensor,
+                               accel: ClusterAccel, config, res_h: int,
+                               res_w: int) -> Hit:
+    """The "pallas" path: frustum cull -> kernel K5 (every candidate,
+    exact MT) -> untile."""
+    th, tw = config.tile_h, config.tile_w
+    k = min(config.max_candidates, accel.num_clusters)
+    tiles, meta = _tile_rays(d, res_h, res_w, th, tw)       # (nT, P, 3)
+    cand, count, _ = _cull(o, tiles, accel, config, k)
+    boxes = _candidate_boxes(o, accel, cand, count)
+    t_tiles, tri_tiles, _ = tile_intersect(
+        tiles.transpose(1, 2).contiguous(), cand, count, boxes,
+        o.contiguous(), accel.geom9, accel.slot_mat, config.eps,
+        config.draw_distance)
+    return _hit(t_tiles, tri_tiles, meta, res_h, res_w)
+
+
+def _run_v2_kernel(o, d_tiles, cand, count, accel: ClusterAccel, config,
+                   n_sub: int):
+    """Cull output -> K4 -> (t (nT, P), tri (nT, P), steps (nT, 2))."""
+    boxes = _candidate_boxes(o, accel, cand, count)
+    root = torch.cat([o, accel.bounds_min.amin(dim=0),
+                      accel.bounds_max.amax(dim=0)])
+    return tile_intersect_v2(d_tiles, cand, count, boxes, root, accel.geom9,
+                             accel.slot_mat, config.eps,
+                             config.draw_distance, n_sub=n_sub,
+                             count_subs=config.debug_mode == 1)
+
+
+def intersect_clustered_pallas_v2(o: torch.Tensor, d: torch.Tensor,
+                                  accel: ClusterAccel, config, res_h: int,
+                                  res_w: int):
+    """The "pallas2" path: frustum cull -> kernel K4 (nearest-first walk
+    with the suffix-min early exit), then an exact second pass over the
+    ``escalate_tiles`` tiles with the most overflow, flat-culled at
+    ``max_candidates * escalate_factor`` and spliced in. The pass always
+    runs (no host sync reads the overflow); overflow left after it is
+    reported, not hidden.
+
+    With ``config.with_stats`` returns (Hit, stats): ``steps`` (nT,)
+    candidates visited and ``mt_subs`` (nT,) sub-tile MT executions (with
+    ``debug_mode`` 1, else 0) of the first pass, ``count`` (nT,) and
+    ``overflow`` (nT,) after escalation.
+    """
+    th, tw = config.tile_h, config.tile_w
+    k = min(config.max_candidates, accel.num_clusters)
+    tiles, meta = _tile_rays(d, res_h, res_w, th, tw, config.sub_h,
+                             config.sub_w)
+    sh, sw = meta[6], meta[7]
+    n_sub = (th // sh) * (tw // sw) if (sh and sw) else 1
+    cand, count, overflow = _cull(o, tiles, accel, config, k, sh, sw)
+    t_tiles, tri_tiles, steps = _run_v2_kernel(
+        o, tiles.transpose(1, 2).contiguous(), cand, count, accel, config,
+        n_sub)
+
+    n_tiles = tiles.shape[0]
+    e = min(config.escalate_tiles, n_tiles)
+    k2 = min(k * max(config.escalate_factor, 1), accel.num_clusters)
+    if e > 0 and k2 > k and accel.num_clusters > k:
+        etile = torch.sort(overflow, descending=True,
+                           stable=True).indices[:e]
+        e_tiles = tiles[etile]
+        cand2, count2, ovf2 = cull_tiles(o, e_tiles, accel, th, tw, k2, sh,
+                                         sw)
+        t2, tri2, _ = _run_v2_kernel(
+            o, e_tiles.transpose(1, 2).contiguous(), cand2, count2, accel,
+            config, n_sub)
+        # escalated results are a superset of the first pass (a tile
+        # picked with overflow 0 recomputes the same answer)
+        t_tiles[etile] = t2
+        tri_tiles[etile] = tri2
+        overflow[etile] = ovf2
+
+    hit = _hit(t_tiles, tri_tiles, meta, res_h, res_w)
+    if config.with_stats:
+        return hit, {"steps": steps[:, 0], "mt_subs": steps[:, 1],
+                     "count": count, "overflow": overflow}
+    return hit
 
 
 def _ray_table(proj, o, bmin, bmax, n_tiles: int, n_tx: int,
@@ -50,20 +507,18 @@ def _ray_table(proj, o, bmin, bmax, n_tiles: int, n_tx: int,
     return torch.stack([*d, bnd], dim=-1).reshape(n_tiles, p, 4)
 
 
-def _untile(x: torch.Tensor, h2: int, w2: int, th: int, tw: int,
-            res_h: int, res_w: int) -> torch.Tensor:
-    """(nT, P) per-tile values -> (res_h, res_w) image order."""
-    full = (x.reshape(h2 // th, w2 // tw, th, tw).permute(0, 2, 1, 3)
-            .reshape(h2, w2))
-    return full[:res_h, :res_w]
+def _bin_meta(config, res_h: int, res_w: int):
+    """Untile metadata of the bin path's row-major tiles."""
+    th, tw = config.tile_h, config.tile_w
+    hp, wp = (-res_h) % th, (-res_w) % tw
+    return (res_h + hp, res_w + wp, th, tw, hp, wp, 0, 0)
 
 
 def bin_object(o: torch.Tensor, tris, proj, config, res_h: int, res_w: int
                ) -> tuple[torch.Tensor, BinnedScene]:
     """The kernel's operands for one object: the per-tile ray table and
     the binned entry table, at the image padded to whole tiles."""
-    th, tw = config.tile_h, config.tile_w
-    h2, w2 = -(-res_h // th) * th, -(-res_w // tw) * tw
+    h2, w2, th, tw = _bin_meta(config, res_h, res_w)[:4]
     n_tx = w2 // tw
     n_tiles = (h2 // th) * n_tx
     bmin, bmax = [], []
@@ -103,7 +558,6 @@ def intersect_binned(o: torch.Tensor, d: torch.Tensor, tris, proj, config,
     and ``cross`` (camera-plane-crossing triangles).
     """
     del d
-    th, tw = config.tile_h, config.tile_w
     if config.sub_h or config.sub_w:
         raise ValueError("method='bin' generates rays in row-major tile "
                          "order; sub_h/sub_w are a cluster-path option")
@@ -112,10 +566,7 @@ def intersect_binned(o: torch.Tensor, d: torch.Tensor, tris, proj, config,
                         config.bin_chunk, config.eps, config.draw_distance,
                         esub=config.bin_esub if config.with_stats else 1,
                         with_steps=config.with_stats)
-    h2, w2 = -(-res_h // th) * th, -(-res_w // tw) * tw
-    t = _untile(out[0], h2, w2, th, tw, res_h, res_w).reshape(-1)
-    tri = _untile(out[1], h2, w2, th, tw, res_h, res_w).reshape(-1)
-    hit = Hit(t=t, tri=tri, obj=torch.where(tri >= 0, 0, -1).to(torch.int32))
+    hit = _hit(out[0], out[1], _bin_meta(config, res_h, res_w), res_h, res_w)
     if config.with_stats:
         return hit, {"steps": out[2][:, 0], "chunks": out[2][:, 1],
                      "overflow": 0, "entries": binned.num_entries,

@@ -23,6 +23,8 @@ from ..utils.config import RenderConfig
 from .camera import Camera
 from .scene import Scene
 
+_CLUSTER_METHODS = ("grid", "pallas", "pallas2")
+
 
 @dataclasses.dataclass
 class RenderOutput:
@@ -39,19 +41,25 @@ class RenderOutput:
 
 @torch.no_grad()
 def trace_rays(scene: Scene, origin: torch.Tensor, rmd: torch.Tensor,
-               config: RenderConfig, band_h: int | None = None,
+               config: RenderConfig, accel=None, band_h: int | None = None,
                band_w: int | None = None, proj=None) -> Hit:
     """Nearest hit over all objects for unit rays ``rmd`` (R, 3) from
-    ``origin``; band_h * band_w == R (row-major) for the bin path, which
-    also needs the camera Projection ``proj`` (world frame).
+    ``origin``; band_h * band_w == R (row-major) for the tiled paths.
+    ``accel`` is a sequence of `ClusterAccel`, one per object, for the
+    cluster methods ("grid", "pallas", "pallas2"); the bin path needs the
+    camera Projection ``proj`` (world frame).
 
     Each object moves the rays into its own frame (pose-on-the-ray,
-    Trixel.cu:60-66); geometry never moves.
+    Trixel.cu:60-66); geometry never moves, so an accel built once serves
+    every pose.
     """
     if config.with_stats:
         raise ValueError("with_stats makes the intersect paths return "
-                         "(Hit, stats); call intersect_binned directly for "
-                         "telemetry")
+                         "(Hit, stats); call intersect_clustered_pallas_v2 "
+                         "/ intersect_binned directly for telemetry")
+    if config.method in _CLUSTER_METHODS and accel is None:
+        raise ValueError(f"method={config.method!r} needs accel, one "
+                         "ClusterAccel per object")
     best = Hit.miss(rmd.shape[0], config.draw_distance, device=rmd.device)
     for oi, obj in enumerate(scene.objects):
         d_obj = obj.pose.inv_apply_vec(rmd)
@@ -63,6 +71,18 @@ def trace_rays(scene: Scene, origin: torch.Tensor, rmd: torch.Tensor,
             cache = FixedOriginCache.build(o_obj, obj.tris)
             hit = mt_fixed_origin(d_obj, cache, config.draw_distance,
                                   config.eps, config.chunk)
+        elif config.method == "grid":
+            from ..accel.traverse import intersect_clustered
+            hit = intersect_clustered(o_obj, d_obj, obj.tris, accel[oi],
+                                      config, band_h, band_w)
+        elif config.method == "pallas":
+            from ..accel.traverse import intersect_clustered_pallas
+            hit = intersect_clustered_pallas(o_obj, d_obj, accel[oi],
+                                             config, band_h, band_w)
+        elif config.method == "pallas2":
+            from ..accel.traverse import intersect_clustered_pallas_v2
+            hit = intersect_clustered_pallas_v2(o_obj, d_obj, accel[oi],
+                                                config, band_h, band_w)
         elif config.method == "bin":
             from ..accel.traverse import intersect_binned
             if proj is None:
@@ -157,11 +177,11 @@ def shade_hits(scene: Scene, origin: torch.Tensor, rmd: torch.Tensor,
 
 
 def render_rays(scene: Scene, origin: torch.Tensor, rmd: torch.Tensor,
-                config: RenderConfig, band_h: int | None = None,
+                config: RenderConfig, accel=None, band_h: int | None = None,
                 band_w: int | None = None, proj=None) -> dict:
     """Flat-ray pipeline (trace + shade + compose); a dict of flat per-ray
     tensors. The trace runs without gradients (hit topology is discrete)."""
-    hit = trace_rays(scene, origin, rmd, config, band_h, band_w, proj)
+    hit = trace_rays(scene, origin, rmd, config, accel, band_h, band_w, proj)
     radiance, normal, point, hit_mask = shade_hits(scene, origin, rmd, hit,
                                                    config)
     image = compose_framebuffer(radiance, hit_mask, config.background_rgb)
@@ -172,13 +192,14 @@ def render_rays(scene: Scene, origin: torch.Tensor, rmd: torch.Tensor,
 
 
 def render_differentiable(scene: Scene, camera: Camera,
-                          config: RenderConfig = RenderConfig()
+                          config: RenderConfig = RenderConfig(), accel=None
                           ) -> RenderOutput:
     """One frame on the scene's device, differentiable with respect to the
-    scene's and the camera's parameters (the JAX package's ``render``)."""
+    scene's and the camera's parameters (the JAX package's ``render``).
+    ``accel``: one `ClusterAccel` per object, for the cluster methods."""
     rmd = camera.ray_directions()
     proj = camera.projection() if config.method == "bin" else None
-    flat = render_rays(scene, camera.pos, rmd, config, camera.res_h,
+    flat = render_rays(scene, camera.pos, rmd, config, accel, camera.res_h,
                        camera.res_w, proj=proj)
     h, w = camera.res_h, camera.res_w
     return RenderOutput(**{k: v.reshape(h, w, *v.shape[1:])
@@ -187,7 +208,8 @@ def render_differentiable(scene: Scene, camera: Camera,
 
 @torch.inference_mode()
 def render(scene: Scene, camera: Camera,
-           config: RenderConfig = RenderConfig()) -> RenderOutput:
+           config: RenderConfig = RenderConfig(), accel=None
+           ) -> RenderOutput:
     """One forward frame on the scene's device: the serving entry point,
     run under ``torch.inference_mode``."""
-    return render_differentiable(scene, camera, config)
+    return render_differentiable(scene, camera, config, accel)

@@ -25,24 +25,27 @@ def _single_device(mesh) -> None:
             "item 9 (sharding), not ported yet; pass mesh=None")
 
 
-def make_loss_fn(config: RenderConfig, mesh=None):
+def make_loss_fn(config: RenderConfig, mesh=None, accel=None):
     """L2 image loss ``mean((radiance - target)**2)`` against a target
-    (H, W, 3), differentiable with respect to (scene, camera)."""
+    (H, W, 3), differentiable with respect to (scene, camera). ``accel``:
+    one `ClusterAccel` per object for the cluster methods, built once and
+    held fixed (the traversal is discrete; gradients flow through the
+    shading only)."""
     _single_device(mesh)
 
     def loss_fn(params, target: torch.Tensor) -> torch.Tensor:
         rad = render_differentiable(params["scene"], params["camera"],
-                                    config).radiance
+                                    config, accel).radiance
         return torch.mean((rad - target) ** 2)
     return loss_fn
 
 
 def make_train_step(optimizer: torch.optim.Optimizer, config: RenderConfig,
-                    mesh=None):
+                    mesh=None, accel=None):
     """``step(params, target)``: zero the gradients, backpropagate the
     loss, step the optimizer (updating the parameters in place) and return
     the loss (detached)."""
-    loss_fn = make_loss_fn(config, mesh)
+    loss_fn = make_loss_fn(config, mesh, accel)
 
     def step(params, target: torch.Tensor) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)

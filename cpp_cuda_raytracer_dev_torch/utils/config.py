@@ -2,8 +2,7 @@
 
 The fields and their defaults are the same, so a configuration translates
 one to one. What the port does not run yet raises ``NotImplementedError``
-at construction, naming the ROADMAP item that brings it. Fields that only
-the unported cluster paths read are accepted and unused until then.
+at construction, naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -12,11 +11,8 @@ import dataclasses
 
 from .dtypes import DEFAULT_BACKGROUND_RGB, DEFAULT_DRAW_DISTANCE, MT_EPSILON
 
-_PORTED_METHODS = ("brute", "fixed", "bin")
+_PORTED_METHODS = ("brute", "fixed", "bin", "grid", "pallas", "pallas2")
 _LATER_METHODS = {
-    "grid": "ROADMAP queue 1 item 10 (cluster path)",
-    "pallas": "ROADMAP queue 1 item 10 (cluster path, kernel K5)",
-    "pallas2": "ROADMAP queue 1 item 10 (cluster path, kernel K4)",
     "kd": "ROADMAP queue 1 item 10 (KD path)",
     "raster": "ROADMAP queue 1 item 10 (scatter-min raster path)",
 }
@@ -30,27 +26,45 @@ class RenderConfig:
     background_rgb: tuple[int, int, int] = DEFAULT_BACKGROUND_RGB
     # MT acceptance epsilon (vector.cuh:10-13).
     eps: float = MT_EPSILON
-    # Intersection backend: "brute" (oracle), "fixed" (matmul-form brute)
-    # or "bin" (screen-space binning + the bin-intersect kernel).
+    # Intersection backend: "brute" (oracle), "fixed" (matmul-form brute),
+    # "bin" (screen-space binning + the bin-intersect kernel K1), or a
+    # cluster path over a ClusterAccel: "grid" (plain PyTorch), "pallas"
+    # (kernel K5) or "pallas2" (kernel K4).
     method: str = "fixed"
     # Triangle chunk for the brute paths (bounds rays x chunk memory).
     chunk: int = 2048
-    # --- cluster paths (grid / pallas / pallas2), not ported yet ---
+    # --- cluster paths (grid / pallas / pallas2) ---
+    # Triangles per KD leaf cluster (ClusterAccel.build).
     leaf_size: int = 128
-    # Ray-tile edge lengths in pixels; the bin path bins triangles to them.
+    # Ray-tile edge lengths in pixels: the cluster paths cull per tile, the
+    # bin path bins triangles to them.
     tile_h: int = 16
     tile_w: int = 32
+    # Candidate clusters kept per tile, nearest first.
     max_candidates: int = 48
+    # Two-level cull: the nearest `max_groups` visible groups of
+    # `group_size` consecutive clusters are tested cluster by cluster;
+    # 0 = flat cull.
     group_size: int = 32
     max_groups: int = 0
+    # pallas2 sub-tiles: rays ordered so each (sub_h, sub_w) sub-tile is a
+    # contiguous run; they change ray order and telemetry, never a hit.
     sub_h: int = 0
     sub_w: int = 0
+    # pallas2 overflow escalation: the `escalate_tiles` tiles with the
+    # most overflow are culled again, flat, at max_candidates *
+    # escalate_factor and their hits spliced in. 0 = off.
     escalate_tiles: int = 64
     escalate_factor: int = 4
-    # Per-tile scan telemetry (kernel K3): intersect_binned then returns
-    # (Hit, stats); trace_rays refuses it, as in the JAX package.
+    # Telemetry: intersect_binned (kernel K3) and
+    # intersect_clustered_pallas_v2 then return (Hit, stats); trace_rays
+    # refuses it, as in the JAX package.
     with_stats: bool = False
+    # pallas2 kernel debug: 1 counts sub-tile MT executions (stats
+    # "mt_subs"); the TPU floor probes 2 and 3 are not ported.
     debug_mode: int = 0
+    # Only "highest" (exact float32): "default" and "high" are bf16 pass
+    # counts of the TPU's matrix unit, not ported.
     mt_precision: str = "highest"
     # --- screen-space binning path (method="bin", accel/binning.py) ---
     # Entries per block of the depth-sorted entry table; the kernel scans
@@ -85,6 +99,16 @@ class RenderConfig:
                 f"{_LATER_METHODS[self.method]}")
         if self.method not in _PORTED_METHODS:
             raise ValueError(f"unknown intersect method {self.method!r}")
+        if self.mt_precision != "highest":
+            raise NotImplementedError(
+                f"mt_precision={self.mt_precision!r} (bf16 passes of the "
+                "TPU's matrix unit) is not ported: ROADMAP queue 1 item 10 "
+                "(cluster path leftovers)")
+        if self.debug_mode in (2, 3):
+            raise NotImplementedError(
+                f"debug_mode={self.debug_mode} (a TPU floor probe that "
+                "skips the MT) is not ported: ROADMAP queue 1 item 10 "
+                "(cluster path leftovers)")
         if self.bin_mt_dtype != "float32":
             raise NotImplementedError(
                 "bin_mt_dtype='bfloat16' (the approximate preview of "

@@ -7,6 +7,9 @@ joined by dots: ``objects.0.tris.p1x``, ``objects.0.pose.quat``,
 ``jax.tree_util.tree_flatten_with_path(tree)[0]`` without importing JAX.
 The port's module attributes follow the same paths, so `params_to_numpy`
 (parameters or their gradients) gives the same keys back.
+
+`cluster_accel_from_numpy` takes the JAX ``ClusterAccel``'s arrays, so a
+test can feed both packages the identical cluster structure.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..accel.traverse import ClusterAccel
 from ..models.camera import Camera
 from ..models.scene import (TRI_FIELDS, PhongParams, Scene, SceneObject,
                             Triangles)
@@ -73,3 +77,15 @@ def params_to_numpy(module: nn.Module, grad: bool = False
                                 else torch.zeros_like(p))
         out[name] = x.detach().cpu().numpy()
     return out
+
+
+def cluster_accel_from_numpy(d: dict, device) -> ClusterAccel:
+    """The JAX ``ClusterAccel``'s fields as numpy arrays (``bounds_min``,
+    ``bounds_max``, ``centers``, ``geom9_t``, ``slot_mat``) plus its static
+    ``leaf_size`` -> the port's ClusterAccel (``geom9_t`` becomes
+    ``geom9``; the JAX ``geom_t`` is the port's `geom_t` view of it)."""
+    def t(key):
+        return torch.tensor(np.asarray(d[key]), device=device)
+    return ClusterAccel(bounds_min=t("bounds_min"), bounds_max=t("bounds_max"),
+                        centers=t("centers"), geom9=t("geom9_t"),
+                        slot_mat=t("slot_mat"), leaf_size=int(d["leaf_size"]))

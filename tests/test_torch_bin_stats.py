@@ -119,7 +119,7 @@ def test_trace_rays_refuses_stats(both):
     scene = Scene([SceneObject(ptris, Pose.identity(device="cpu"))])
     with pytest.raises(ValueError, match="with_stats"):
         trace_rays(scene, o, torch.zeros(RES_W * RES_H, 3), _config(1),
-                   RES_H, RES_W, proj=pproj)
+                   None, RES_H, RES_W, proj=pproj)
 
 
 @pytest.mark.gpu

@@ -48,11 +48,18 @@ def test_render_config_translates_one_to_one():
     fj = [(f.name, f.default) for f in dataclasses.fields(J.RenderConfig)]
     fp = [(f.name, f.default) for f in dataclasses.fields(RenderConfig)]
     assert fj == fp
-    for method in ("brute", "fixed", "bin"):
+    for method in ("brute", "fixed", "bin", "grid", "pallas", "pallas2"):
         RenderConfig(method=method)
-    for method in ("grid", "pallas", "pallas2", "kd", "raster"):
+    for method in ("kd", "raster"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             RenderConfig(method=method)
+    # the cluster paths run float32 MT only, and count sub-tiles (debug
+    # mode 1) but not the TPU floor probes
+    RenderConfig(method="pallas2", debug_mode=1, with_stats=True)
+    for kw in (dict(mt_precision="high"), dict(mt_precision="default"),
+               dict(debug_mode=2), dict(debug_mode=3)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            RenderConfig(method="pallas2", **kw)
     # the bin kernel's telemetry switch (K3) is ported; its bf16 preview
     # mode is not
     RenderConfig(method="bin", with_stats=True, bin_esub=4)
