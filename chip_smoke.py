@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's ``method="bin"`` frame and its training step, and the
-cluster paths ``method="pallas2"`` and ``"pallas"``, at the headline size:
+Drives the port's ``method="bin"`` frame and its training step, the
+cluster paths ``method="pallas2"`` and ``"pallas"``, the per-tile bin
+kernel K6, and the apps ``render_cli`` and ``animate``, at the headline size:
 the dragon-class mesh (``dragon_class_mesh(800_000)``, 800,130 triangles)
 at 960x540, 16x32 tiles, the bench camera (pos (0, 0, -3), look-at the
 origin, film_h 0.024, focal 0.055); bin_chunk 512 and backface cull for
@@ -62,7 +63,26 @@ Phases (any failure raises and the process exits non-zero):
      operations); one "pallas2" training step (every gradient finite); the
      telemetry of frame 0 (candidates visited, rays that passed each box
      test, residual overflow); each candidate's rays past its box test,
-     times its cluster's triangle count, give both kernels' bounds.
+     times its cluster's triangle count, give both kernels' bounds;
+ 10. the per-tile bin kernel K6 at chunk 128 on the port's own binning:
+     its entry point (bin_object -> tile_operands -> kernel -> decode_enc)
+     on phase 3's 8 frames after resetting its launch counter, which must
+     show them; the kernel against its plain version on the 96x64 sphere
+     and headline frame 0 at debug_mode 0, 1 and 2 (t bitwise, enc, steps
+     and decoded ids equal; the same hits in every mode); its decoded ids
+     against K1's on frame 0, every differing ray printed and required to
+     be a tie by the mt_fixed_origin oracle (both triangles' t within 1e-5
+     of the oracle's); agreement with phase 4's oracle rays >= 0.999;
+     kernel and plain version timed with CUDA events; the chunks whose
+     gate opened and the walked chunks' constants give its bound;
+ 11. the entry points: the headline mesh written as a binary PLY under
+     build/chip_smoke/, then ``render_cli.main`` with ``--method bin`` and
+     ``pallas2`` at 960x540 and ``kd`` at 320x180 (a validation path with
+     no kernel), each PNG's hit/miss against the oracle on 4,096 sampled
+     rays of the same camera (agreement >= 0.999) and each kernel path's
+     launch counter moved; then ``animate.main`` for 30 ticks at 960x540
+     with ``--second-object --method bin --json-out``: two objects, K1
+     twice a frame, which its launch counter must show.
 Each phase prints its seconds. Prints a JSON line of per-kernel results,
 then, as the last line,
 ``{"ok": true, "device": {...}}``. Needs a CUDA device and never falls back
@@ -96,6 +116,12 @@ N_SMS, FP32_LANES = 132, 128   # per SM; peak = SMs x lanes x 2 x clock
 K1_OPS_PER_PAIR = 31           # csrc/bin_intersect.cu, "Bound"
 K4_OPS_PER_PAIR = 29           # csrc/tile_intersect.cu, "Bound"
 K5_OPS_PER_PAIR = 26
+K6_OPS_PER_PAIR = 29           # csrc/bin_tile_intersect.cu, "Bound"
+K6_OPS_PER_ENTRY = 52          # its constants (51) and depth minimum, a chunk
+K6_CHUNK = 128
+KD_RES = (320, 180)            # the KD path is a validation path, no kernel
+N_ANIMATE_TICKS = 30
+BACKGROUND = (240, 130, 0)
 N_CLUSTER_FRAMES = {"pallas2": 8, "pallas": 3}
 
 
@@ -184,7 +210,8 @@ def main() -> None:
         check=True, timeout=60).stdout.split()[0])
     log(f"max SM clock {clock_mhz} MHz")
     t0 = time.perf_counter()
-    built = _build.build("bin_intersect", "segment_sum", "tile_intersect")
+    built = _build.build("bin_intersect", "segment_sum", "tile_intersect",
+                         "bin_tile_intersect")
     log(f"built {', '.join(lib.name for lib, _ in built.values())} in "
         f"{time.perf_counter() - t0:.2f} s")
     for _, build_log in built.values():
@@ -534,7 +561,12 @@ def main() -> None:
         def binned(c):
             return intersect_binned(o_obj, None, obj.tris, proj, c, RES_H,
                                     RES_W)
+        k1.bin_intersect.telemetry_launches = 0
         stats = {e: binned(c) for e, c in stats_cfgs.items()}
+        k3_launches = k1.bin_intersect.telemetry_launches
+        if k3_launches < len(stats_cfgs):
+            raise RuntimeError(f"the telemetry frames launched K3 "
+                               f"{k3_launches} times")
         hit1, st1 = stats[1]
         hit4, st4 = stats[4]
         same_t = torch.equal(hit1.t.reshape(RES_H, RES_W), outs[0].hit_t)
@@ -566,6 +598,7 @@ def main() -> None:
         # K3 against its plain version on the headline operands, before its
         # counts feed K1's bound: t, tri and steps bitwise equal, and the
         # same t and tri without the steps output
+        k3_err = 0.0
         for e in (1, 4):
             got = k1.bin_intersect(*ops, esub=e, with_steps=True)
             want = k1.bin_intersect_reference(*ops, esub=e, with_steps=True)
@@ -573,6 +606,7 @@ def main() -> None:
             torch.cuda.synchronize()
             eq = [torch.equal(x, y) for x, y in zip(got, want)] + [
                 torch.equal(x, y) for x, y in zip(bare, want)]
+            k3_err = max(k3_err, float((got[0] - want[0]).abs().max()))
             log(f"K3 vs plain [headline frame 0, esub {e}]: t {eq[0]} tri "
                 f"{eq[1]} steps {eq[2]}; without steps: t {eq[3]} tri "
                 f"{eq[4]}")
@@ -592,6 +626,7 @@ def main() -> None:
                  / (N_SMS * FP32_LANES * 2 * clock_mhz * 1e6) * 1e3)
     k1_bytes_ms = k1_bytes / HBM_BYTES_PER_S * 1e3
     k1_bound_ms = max(k1_ops_ms, k1_bytes_ms)
+    k1_bound_by = "operations" if k1_ops_ms >= k1_bytes_ms else "bytes"
     log(f"K1 scanned {pairs} ray-entry pairs ({int(steps[:, 0].sum())} "
         f"blocks x {chunk} x {p}); bound {k1_bound_ms:.4f} ms (operations "
         f"{k1_ops_ms:.4f} ms at {K1_OPS_PER_PAIR} FP32 ops a pair and "
@@ -607,22 +642,31 @@ def main() -> None:
                                         smi, clock_mhz)
     phase_done(9)
 
+    # ---- 10. the per-tile bin kernel K6 ----
+    k6_kernel = run_bin_tile(dev, frames, idx_t, ref, cfg, smi, clock_mhz)
+    phase_done(10)
+
+    # ---- 11. the entry points: render_cli and animate ----
+    run_entry_points(dev, headline_tv, smi)
+    phase_done(11)
+
     print(json.dumps({"kernels": [{
         "name": "bin_intersect", "route": "cuda",
         "source": "cpp_cuda_raytracer_dev_torch/csrc/bin_intersect.cu",
         "replaces": "cpp_cuda_raytracer_dev_tpu/ops/pallas/bin_kernel3.py:43",
         "launches": launches, "max_abs_err": max_abs_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": k1_bound_ms,
-        "bound_by": ("operations" if k1_ops_ms >= k1_bytes_ms
-                     else "bytes"),
-        "library_ms": None,
-        "telemetry": {
-            "replaces": "cpp_cuda_raytracer_dev_tpu/ops/pallas/"
-                        "bin_kernel2.py:62",
-            "ms_without": k1_ms, "ms_with_steps": k3_ms,
-            "ms_esub4": k3_esub4_ms, "plain_ms": k3_plain_ms},
+        "bound_by": k1_bound_by, "library_ms": None,
         "launches_by_path": {"serve": launches, "train": train_k1,
                              "train_pose_light_camera": pose_k1}}, {
+        "name": "bin_intersect_telemetry", "route": "cuda",
+        "source": "cpp_cuda_raytracer_dev_torch/csrc/bin_intersect.cu",
+        "replaces": "cpp_cuda_raytracer_dev_tpu/ops/pallas/bin_kernel2.py:62",
+        "launches": k3_launches, "max_abs_err": k3_err,
+        "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k1_bound_ms,
+        "bound_by": k1_bound_by, "library_ms": None,
+        "ms_without_steps": k1_ms, "ms_esub4": k3_esub4_ms,
+        "launches_by_path": {"stats_frames": k3_launches}}, {
         "name": "segment_sum", "route": "cuda",
         "source": "cpp_cuda_raytracer_dev_torch/csrc/segment_sum.cu",
         "replaces": "cpp_cuda_raytracer_dev_tpu/ops/gather.py:71",
@@ -632,7 +676,7 @@ def main() -> None:
         "backward_ms": k2_backward_ms,
         "launches_by_path": {"serve": 0, "train": train_k2,
                              "train_pose_light_camera": pose_k2}},
-        *cluster_kernels]}), flush=True)
+        *cluster_kernels, k6_kernel]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -942,6 +986,310 @@ def run_cluster_paths(dev, headline_tv, frames, idx_t, ref, smi, clock_mhz):
         "launches_by_path": {"serve_pallas2": launches["pallas2"][1],
                              "serve_pallas": launches["pallas"][1],
                              "train_pallas2": 0}}]
+
+
+def run_bin_tile(dev, frames, idx_t, ref, cfg, smi, clock_mhz):
+    """Phase 10 (see the module docstring): kernel K6 on the port's own
+    binning. Returns the kernels line's entry for K6."""
+    from cpp_cuda_raytracer_dev_torch import (Camera, Scene, SceneObject,
+                                              Triangles)
+    from cpp_cuda_raytracer_dev_torch.accel import traverse as tr
+    from cpp_cuda_raytracer_dev_torch.ops.cuda import bin_intersect as k1
+    from cpp_cuda_raytracer_dev_torch.ops.cuda import bin_tile_intersect as bt
+    from cpp_cuda_raytracer_dev_torch.ops.intersect import (FixedOriginCache,
+                                                            mt_fixed_origin)
+    from cpp_cuda_raytracer_dev_torch.utils.procgen import uv_sphere
+
+    chunk = K6_CHUNK
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def operands(scene, cam, c, w, h):
+        """(object-frame origin, ray table, BinnedScene, K6's operands)."""
+        obj = scene.objects[0]
+        o = obj.pose.inv_apply(cam.pos)
+        rays, b = tr.bin_object(o, obj.tris,
+                                cam.projection().transformed(obj.pose), c, h,
+                                w)
+        return o, rays, b, bt.tile_operands(rays, b, obj.tris, o, chunk)
+
+    def decode(enc, b):
+        return bt.decode_enc(enc, b.starts, b.entry_tri, chunk)
+
+    with torch.inference_mode():
+        # K6's own entry point (binning -> operands -> kernel -> decoded ids)
+        # on each of phase 3's frames, with the launch counter from 0
+        bt.bin_tile_intersect.launches = 0
+        path_ms, path_out = [], []
+        for scene, cam in frames:
+            start.record()
+            _, _, b, ops = operands(scene, cam, cfg, RES_W, RES_H)
+            t6, enc6, _ = bt.bin_tile_intersect(*ops, chunk=chunk)
+            tri6 = decode(enc6, b)
+            end.record()
+            torch.cuda.synchronize()
+            path_ms.append(start.elapsed_time(end))
+            path_out.append(tri6)
+        launches = bt.bin_tile_intersect.launches
+        log(f"K6 path (binning, operands, kernel, decode) on {len(frames)} "
+            f"frames: ms {[round(x, 3) for x in path_ms]}; "
+            f"bin_tile_intersect launches {launches} ({smi})")
+        if launches < len(frames):
+            raise RuntimeError(f"bin_tile_intersect launched {launches} times "
+                               f"for {len(frames)} frames")
+
+        # the kernel against its plain version, every debug mode
+        sphere = Triangles.from_vertices(uv_sphere(50, 50), device=dev)
+        sphere_cam = Camera.create(96, 64, pos=[0.0, 0.0, -3.0],
+                                   look_at=[0.0, 0.0, 0.0],
+                                   up=[0.0, 1.0, 0.0], film_h=0.024,
+                                   focal=0.055, device=dev)
+        cases = [("sphere 96x64", Scene([SceneObject(sphere)]), sphere_cam,
+                  dataclasses.replace(cfg, backface_cull=False), 96, 64),
+                 ("dragon-class frame 0", *frames[0], cfg, RES_W, RES_H)]
+        max_err = 0.0
+        for name, scene, cam, c, w, h in cases:
+            o, rays, b, ops = operands(scene, cam, c, w, h)
+            base = None
+            for mode in (0, 1, 2):
+                got = bt.bin_tile_intersect(*ops, chunk=chunk,
+                                            debug_mode=mode)
+                torch.cuda.synchronize()
+                want = bt.bin_tile_intersect_reference(*ops, chunk=chunk,
+                                                       debug_mode=mode)
+                torch.cuda.synchronize()
+                eq = [torch.equal(x, y) for x, y in zip(got, want)]
+                ids_eq = torch.equal(decode(got[1], b), decode(want[1], b))
+                err = float((got[0] - want[0]).abs().max())
+                max_err = max(max_err, err)
+                same_hits = base is None or (torch.equal(got[0], base[0])
+                                             and torch.equal(got[1], base[1]))
+                log(f"K6 vs plain [{name}, debug_mode {mode}]: "
+                    f"t_bitwise_equal {eq[0]} enc_equal {eq[1]} steps_equal {eq[2]} ids_equal "
+                    f"{ids_eq} max_abs_err {err} same hits as mode 0 "
+                    f"{same_hits}; chunks walked {int(got[2][:, 0].sum())} of "
+                    f"{int(got[2][:, 1].sum())}, hit_rate "
+                    f"{float((got[1] >= 0).float().mean()):.6f}")
+                if not (all(eq) and ids_eq and same_hits):
+                    raise RuntimeError(f"K6 and its plain version disagree on "
+                                       f"{name}, debug_mode {mode}")
+                if mode == 0:
+                    base = got
+        # the last case is frame 0: its operands and mode-0 result stay
+        t6, enc6, steps6 = base
+        tri6 = decode(enc6, b)
+        if not torch.equal(tri6, path_out[0]):
+            raise RuntimeError("K6's frame 0 differs from its path run")
+
+        # K6 against K1 on frame 0: the same entry constants, so the same t;
+        # ids may differ only where two triangles tie
+        t1, tri1 = k1.bin_intersect(rays, b.geom, b.entry_tri, b.starts,
+                                    cfg.bin_chunk)
+        differ = tri6 != tri1
+        n_diff = int(differ.sum())
+        log(f"K6 vs K1 on frame 0: t bitwise equal {torch.equal(t6, t1)}, "
+            f"ids differ on {n_diff} of {tri6.numel()} rays")
+        if n_diff:
+            d = rays[..., :3][differ]
+            cache = FixedOriginCache.build(o, frames[0][0].objects[0].tris)
+            orc = mt_fixed_origin(d, cache, cfg.draw_distance, cfg.eps,
+                                  chunk=16384)
+
+            def t_of(ids):   # each id's t by the oracle's constants
+                ids = ids.long()
+                return cache.tdet[ids] / (d * cache.m_det[ids]).sum(dim=1)
+            ta, tb = t_of(tri6[differ]), t_of(tri1[differ])
+            rel = torch.maximum((ta - orc.t).abs(), (tb - orc.t).abs()) / orc.t
+            where = differ.nonzero().tolist()
+            rows = zip(where, tri6[differ].tolist(), ta.tolist(),
+                       tri1[differ].tolist(), tb.tolist(), orc.tri.tolist(),
+                       orc.t.tolist(), rel.tolist())
+            for (tile, ray), a, t_a, b1, t_b, ot, o_t, r in rows:
+                log(f"  tile {tile} ray {ray}: K6 triangle {a} t {t_a!r}, K1 "
+                    f"triangle {b1} t {t_b!r}, oracle triangle {ot} t "
+                    f"{o_t!r}, |dt|/t {r}")
+            if bool((orc.tri < 0).any()) or float(rel.max()) > 1e-5:
+                raise RuntimeError("K6 and K1 differ where the oracle sees no "
+                                   "tie")
+
+        # frame 0 against phase 4's oracle rays
+        img_tri = tr._untile(tri6, tr._bin_meta(cfg, RES_H, RES_W), RES_H,
+                             RES_W).reshape(-1)
+        agree = float((img_tri[idx_t] == ref.tri).float().mean())
+        log(f"K6 frame 0 oracle agreement {agree:.6f} on {N_SAMPLE} rays")
+        if agree < MIN_AGREE:
+            raise RuntimeError(f"K6 oracle agreement {agree} < {MIN_AGREE}")
+
+        kernel_ms = cuda_ms(lambda: bt.bin_tile_intersect(*ops, chunk=chunk),
+                            KERNEL_REPS)
+        plain_ms = cuda_ms(lambda: bt.bin_tile_intersect_reference(
+            *ops, chunk=chunk), PLAIN_REPS)
+        # the bound: the pairs of the chunks whose gate opened, and every
+        # walked chunk's entry constants
+        gated = bt.gated_chunks(*ops, chunk=chunk)
+        walked = steps6[:, 0]
+        if bool((gated > walked).any()):
+            raise RuntimeError("more gated chunks than walked ones")
+        n_t, _, p = ops[0].shape
+        pairs = int(gated.sum()) * chunk * p
+        entries = int(walked.sum()) * chunk
+        nbytes = ((ops[0].numel() + ops[1].numel() + ops[2].numel()) * 4
+                  + entries * bt.ROWS * 4 + n_t * (p * 8 + 8))
+    ops_ms = ((pairs * K6_OPS_PER_PAIR + entries * K6_OPS_PER_ENTRY)
+              / (N_SMS * FP32_LANES * 2 * clock_mhz * 1e6) * 1e3)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"K6 at headline frame 0 ({n_t} tiles x {p} rays, chunk {chunk}): "
+        f"chunks in range {int(steps6[:, 1].sum())}, walked "
+        f"{int(walked.sum())}, gate open {int(gated.sum())}; {pairs} "
+        f"ray-entry pairs; bound {max(ops_ms, bytes_ms):.4f} ms (operations "
+        f"{ops_ms:.4f} ms at {K6_OPS_PER_PAIR} FP32 ops a pair and "
+        f"{K6_OPS_PER_ENTRY} an entry constant, {clock_mhz} MHz; bytes "
+        f"{bytes_ms:.4f} ms, {nbytes} bytes); kernel {kernel_ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms ({smi})")
+    return {
+        "name": "bin_tile_intersect", "route": "cuda",
+        "source": "cpp_cuda_raytracer_dev_torch/csrc/bin_tile_intersect.cu",
+        "replaces": "cpp_cuda_raytracer_dev_tpu/ops/pallas/bin_kernel.py:42",
+        "launches": launches, "max_abs_err": max_err,
+        "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": None,
+        "launches_by_path": {"bin_tile_frames": launches}}
+
+
+def write_ply(path, tv: np.ndarray) -> None:
+    """``tv`` (T, 3, 3) as a binary little-endian PLY: 3T vertices and T
+    faces (p2, p3, p1), which the reader's rewind to (p3, p1, p2) turns back
+    into the triangles as given."""
+    n = tv.shape[0]
+    faces = np.empty(n, dtype=[("n", "u1"), ("i", "<i4", (3,))])
+    faces["n"] = 3
+    base = 3 * np.arange(n, dtype=np.int32)[:, None]
+    faces["i"] = base + np.array([1, 2, 0], np.int32)
+    header = ("ply\nformat binary_little_endian 1.0\n"
+              f"element vertex {3 * n}\nproperty float x\nproperty float y\n"
+              f"property float z\nelement face {n}\n"
+              "property list uchar int vertex_indices\nend_header\n")
+    with open(path, "wb") as f:
+        f.write(header.encode())
+        f.write(np.ascontiguousarray(tv, "<f4").tobytes())
+        f.write(faces.tobytes())
+
+
+def read_png(path) -> np.ndarray:
+    """(H, W, 3) uint8, top row first, of a PNG that ``write_png`` wrote
+    (8-bit RGB, filter 0 on every row)."""
+    import struct
+    import zlib
+    data = open(path, "rb").read()
+    pos, idat = 8, b""
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            w, h = struct.unpack(">II", body[:8])
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, -1)
+    if (raw[:, 0] != 0).any():
+        raise RuntimeError(f"{path}: a row filter other than 0")
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def run_entry_points(dev, headline_tv, smi):
+    """Phase 11 (see the module docstring): the apps on the headline mesh,
+    written to a PLY file."""
+    import contextlib
+    from pathlib import Path
+
+    from cpp_cuda_raytracer_dev_torch import (Camera, RenderConfig, Scene,
+                                              SceneObject, Triangles)
+    from cpp_cuda_raytracer_dev_torch.apps import animate, render_cli
+    from cpp_cuda_raytracer_dev_torch.models.renderer import trace_rays
+    from cpp_cuda_raytracer_dev_torch.ops.cuda import bin_intersect as k1
+    from cpp_cuda_raytracer_dev_torch.ops.cuda import bin_tile_intersect as bt
+    from cpp_cuda_raytracer_dev_torch.ops.cuda import segment_sum as k2
+    from cpp_cuda_raytracer_dev_torch.ops.cuda import tile_intersect as k45
+
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    mesh = out_dir / "dragon_class.ply"
+    t0 = time.perf_counter()
+    write_ply(mesh, headline_tv)
+    log(f"wrote {mesh.name} ({mesh.stat().st_size} bytes) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    counters = {"K1": k1.bin_intersect, "K2": k2.segment_sum,
+                "K4": k45.tile_intersect_v2, "K5": k45.tile_intersect,
+                "K6": bt.bin_tile_intersect}
+
+    # the apps' camera (render_cli.py): framed on the mesh's bounding box
+    v = headline_tv.reshape(-1, 3)
+    lo, hi = v.min(0), v.max(0)
+    center, size = (lo + hi) / 2, float(np.linalg.norm(hi - lo))
+    scene = Scene([SceneObject(Triangles.from_vertices(headline_tv,
+                                                       device=dev))])
+    oracle_cfg = RenderConfig(method="fixed", chunk=16384,
+                              draw_distance=max(400.0, 10 * size))
+    kernel_of = {"bin": "K1", "pallas2": "K4", "kd": None}
+    for method, (w, h) in (("bin", (RES_W, RES_H)),
+                           ("pallas2", (RES_W, RES_H)), ("kd", KD_RES)):
+        png = out_dir / f"render_cli_{method}.png"
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        render_cli.main(["--mesh", str(mesh), "--out", str(png), "--res",
+                         str(w), str(h), "--method", method])
+        secs = time.perf_counter() - t0
+        launched = {k: fn.launches for k, fn in counters.items()}
+        # the PNG (top row first) against the oracle on sampled rays
+        img = read_png(png)[::-1].reshape(-1, 3)
+        cam = Camera.create(w, h, pos=center + np.array(
+            [0, 0.1 * size, -1.2 * size]), look_at=center, up=[0, 1, 0],
+            film_h=0.024, focal=0.055, device=dev)
+        with torch.inference_mode():
+            rmd = cam.ray_directions()
+            idx = np.random.default_rng(0).choice(w * h, N_SAMPLE,
+                                                  replace=False)
+            orc = trace_rays(scene, cam.pos,
+                             rmd[torch.from_numpy(idx).to(dev)], oracle_cfg)
+        png_hit = (img[idx] != np.array(BACKGROUND, np.uint8)).any(axis=1)
+        orc_hit = (orc.tri >= 0).cpu().numpy()
+        agree = float((png_hit == orc_hit).mean())
+        log(f"render_cli --method {method} at {w}x{h}: {secs:.2f} s in all; "
+            f"PNG hit rate {float(png_hit.mean()):.6f} against the oracle's "
+            f"{float(orc_hit.mean()):.6f} on {N_SAMPLE} rays, hit/miss "
+            f"agreement {agree:.6f}; launches {launched} ({smi})")
+        want = kernel_of[method]
+        if agree < MIN_AGREE:
+            raise RuntimeError(f"render_cli {method}: PNG and oracle agree on "
+                               f"{agree}")
+        if want is not None and launched[want] < 1:
+            raise RuntimeError(f"render_cli {method} did not launch {want}")
+
+    # animate: the key script on two objects sharing one Triangles
+    report = out_dir / "animate.json"
+    hud = out_dir / "animate_hud.txt"
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with open(hud, "w") as f, contextlib.redirect_stdout(f):
+        animate.main(["--mesh", str(mesh), "--res", str(RES_W), str(RES_H),
+                      "--frames", str(N_ANIMATE_TICKS), "--second-object",
+                      "--method", "bin", "--json-out", str(report)])
+    secs = time.perf_counter() - t0
+    k1_launches = k1.bin_intersect.launches
+    rep = json.loads(report.read_text())
+    log(f"animate --second-object --method bin at {RES_W}x{RES_H}: "
+        f"{rep['frames']} ticks in {secs:.2f} s in all, objects "
+        f"{rep['objects']}, device ms a frame {rep['device_ms_per_frame']!r} "
+        f"(animate's device_time), bin_intersect launches {k1_launches}; "
+        f"HUD in {hud.name} ({smi})")
+    if (rep["frames"] != N_ANIMATE_TICKS or rep["objects"] != 2
+            or k1_launches < 2 * N_ANIMATE_TICKS):
+        raise RuntimeError("animate did not render its ticks through K1 "
+                           "twice a frame")
 
 
 if __name__ == "__main__":

@@ -23,7 +23,8 @@ from ..utils.config import RenderConfig
 from .camera import Camera
 from .scene import Scene
 
-_CLUSTER_METHODS = ("grid", "pallas", "pallas2")
+_ACCEL_METHODS = {"grid": "ClusterAccel", "pallas": "ClusterAccel",
+                  "pallas2": "ClusterAccel", "kd": "KDTables"}
 
 
 @dataclasses.dataclass
@@ -46,8 +47,8 @@ def trace_rays(scene: Scene, origin: torch.Tensor, rmd: torch.Tensor,
     """Nearest hit over all objects for unit rays ``rmd`` (R, 3) from
     ``origin``; band_h * band_w == R (row-major) for the tiled paths.
     ``accel`` is a sequence of `ClusterAccel`, one per object, for the
-    cluster methods ("grid", "pallas", "pallas2"); the bin path needs the
-    camera Projection ``proj`` (world frame).
+    cluster methods ("grid", "pallas", "pallas2"), or of `KDTables` for
+    "kd"; the bin path needs the camera Projection ``proj`` (world frame).
 
     Each object moves the rays into its own frame (pose-on-the-ray,
     Trixel.cu:60-66); geometry never moves, so an accel built once serves
@@ -57,9 +58,9 @@ def trace_rays(scene: Scene, origin: torch.Tensor, rmd: torch.Tensor,
         raise ValueError("with_stats makes the intersect paths return "
                          "(Hit, stats); call intersect_clustered_pallas_v2 "
                          "/ intersect_binned directly for telemetry")
-    if config.method in _CLUSTER_METHODS and accel is None:
+    if config.method in _ACCEL_METHODS and accel is None:
         raise ValueError(f"method={config.method!r} needs accel, one "
-                         "ClusterAccel per object")
+                         f"{_ACCEL_METHODS[config.method]} per object")
     best = Hit.miss(rmd.shape[0], config.draw_distance, device=rmd.device)
     for oi, obj in enumerate(scene.objects):
         d_obj = obj.pose.inv_apply_vec(rmd)
@@ -83,6 +84,10 @@ def trace_rays(scene: Scene, origin: torch.Tensor, rmd: torch.Tensor,
             from ..accel.traverse import intersect_clustered_pallas_v2
             hit = intersect_clustered_pallas_v2(o_obj, d_obj, accel[oi],
                                                 config, band_h, band_w)
+        elif config.method == "kd":
+            from ..accel.traverse import kd_intersect
+            hit = kd_intersect(o_obj, d_obj, accel[oi], config.draw_distance,
+                               config.eps)
         elif config.method == "bin":
             from ..accel.traverse import intersect_binned
             if proj is None:
@@ -196,7 +201,8 @@ def render_differentiable(scene: Scene, camera: Camera,
                           ) -> RenderOutput:
     """One frame on the scene's device, differentiable with respect to the
     scene's and the camera's parameters (the JAX package's ``render``).
-    ``accel``: one `ClusterAccel` per object, for the cluster methods."""
+    ``accel``: one `ClusterAccel` per object for the cluster methods, one
+    `KDTables` per object for "kd"."""
     rmd = camera.ray_directions()
     proj = camera.projection() if config.method == "bin" else None
     flat = render_rays(scene, camera.pos, rmd, config, accel, camera.res_h,

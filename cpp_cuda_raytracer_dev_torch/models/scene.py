@@ -53,6 +53,22 @@ class Triangles(nn.Module):
     def e2(self) -> torch.Tensor:
         return torch.stack([self.e2x, self.e2y, self.e2z], dim=-1)
 
+    def vertices(self) -> torch.Tensor:
+        """Back to (T, 3, 3) vertex blocks (p1, p2, p3)."""
+        p1 = self.p1
+        return torch.stack([p1, p1 + self.e1, p1 + self.e2], dim=1)
+
+    def aabbs(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """Per-triangle (T, 3) AABB corners."""
+        v = self.vertices()
+        return v.amin(dim=1), v.amax(dim=1)
+
+    def centroid(self) -> torch.Tensor:
+        """Mid-point of the overall AABB, the reference's ``zero_offset``
+        (Trixel.h:468-471): the pivot of the rotation keys."""
+        lo, hi = self.aabbs()
+        return (lo.amin(dim=0) + hi.amax(dim=0)) / 2.0
+
 
 class SceneObject(nn.Module):
     """Geometry + pose; the pose moves rays, never the geometry."""

@@ -13,7 +13,9 @@ per-tile scan counts.
   (in tile groups to bound memory) and applies the same gate per round and
   slice, so it scans the same entries in the same order as the kernel and
   agrees with it bit for bit.
-- `bin_intersect.launches` counts kernel launches.
+- `bin_intersect.launches` counts kernel launches, and
+  `bin_intersect.telemetry_launches` those of them with the telemetry
+  switch (K3: ``esub`` above 1 or ``with_steps``).
 
 The kernel is built by `._build` (nvcc at first use, ctypes).
 """
@@ -138,10 +140,12 @@ def bin_intersect(rays: torch.Tensor, geom: torch.Tensor,
         raise RuntimeError(f"bin_intersect kernel launch failed: CUDA error "
                            f"{err}")
     bin_intersect.launches += 1
+    bin_intersect.telemetry_launches += int(esub > 1 or with_steps)
     return out
 
 
 bin_intersect.launches = 0
+bin_intersect.telemetry_launches = 0
 
 
 def bin_intersect_reference(rays: torch.Tensor, geom: torch.Tensor,

@@ -11,9 +11,9 @@ import dataclasses
 
 from .dtypes import DEFAULT_BACKGROUND_RGB, DEFAULT_DRAW_DISTANCE, MT_EPSILON
 
-_PORTED_METHODS = ("brute", "fixed", "bin", "grid", "pallas", "pallas2")
+_PORTED_METHODS = ("brute", "fixed", "bin", "grid", "pallas", "pallas2",
+                   "kd")
 _LATER_METHODS = {
-    "kd": "ROADMAP queue 1 item 10 (KD path)",
     "raster": "ROADMAP queue 1 item 10 (scatter-min raster path)",
 }
 
@@ -29,7 +29,8 @@ class RenderConfig:
     # Intersection backend: "brute" (oracle), "fixed" (matmul-form brute),
     # "bin" (screen-space binning + the bin-intersect kernel K1), or a
     # cluster path over a ClusterAccel: "grid" (plain PyTorch), "pallas"
-    # (kernel K5) or "pallas2" (kernel K4).
+    # (kernel K5) or "pallas2" (kernel K4); or "kd", the reference's per-ray
+    # stack traversal over `KDTables` (a validation path, no kernel).
     method: str = "fixed"
     # Triangle chunk for the brute paths (bounds rays x chunk memory).
     chunk: int = 2048
