@@ -17,39 +17,56 @@ worst tiles at 4x the candidates.
 Phases (any failure raises and the process exits non-zero):
   1. the card (nvidia-smi name, power limit and maximum SM clock), versions,
      the build of every kernel (one nvcc per source, in parallel);
-  2. the bin-intersect kernel against its plain PyTorch version on the same
-     binned tensors (a 96x64 sphere and the headline frame): triangle ids
-     equal and t bitwise equal; both timed with CUDA events;
+  2. the bin-intersect kernel K1 against its plain PyTorch version on the
+     same binned tensors (a 96x64 sphere and the headline frame): triangle
+     ids equal and t bitwise equal; on headline frame 0 against the JAX
+     kernels' walk over whole blocks (K3's esub-1 instance, the aligned
+     walk): t bitwise equal, every differing id printed and required to be
+     a tie by the mt_fixed_origin oracle; the two walks timed in turns
+     (aligned walk, K1, K1 with the tiles in index order, the same again,
+     K1, aligned walk) and the plain version once, with CUDA events; the
+     pairs K1's gate let through, and the pairs its test accepted, give
+     its bounds;
   3. serve 8 frames at distinct camera positions and object poses through
      ``render``, each timed with CUDA events, after resetting the kernel's
      launch counter; the counter must show the frames went through it;
+     then 8 frames with K1 and 8 with the aligned walk in its place, in turns,
+     and one profiled frame of each (device busy ms and operations);
   4. frame 0 against the ``mt_fixed_origin`` oracle on 4,096 sampled rays
      (seed 0): agreement >= 0.999;
-  5. the segment-sum kernel (K2) against its plain version on the card, on
-     synthetic cases (one at the headline size with half the rows on one
-     id) and on the cotangent block of the first headline training step:
-     within n·2⁻²³·Σ|x| of a float64 sum per id, two launches bitwise
-     equal; each synthetic case again on integer rows, whose sums float32
-     holds exactly, where both must equal the float64 sum bitwise (a
-     dropped or doubled run of a long segment fails there); timed beside
-     the plain version, autograd's
-     default backward (``index_add_`` on the unsorted rows) and the whole
-     gather backward (sort + permute + kernel);
+  5. the segment-sum kernel (K2), reading the rows through their sort
+     order, against its plain version on the card, on synthetic cases (one
+     at the headline size with half the rows on one id), each with its rows
+     shuffled and the permutation as the order, and on the cotangent block
+     of the first headline training step with its sort order: within
+     n·2⁻²³·Σ|x| of a float64 sum per id, two launches bitwise equal; each
+     synthetic case again on integer rows, whose sums float32 holds
+     exactly, where both must equal the float64 sum bitwise (a dropped or
+     doubled run of a long segment fails there); the headline cotangent
+     once more with its rows permuted beforehand (no order): the same sums
+     bitwise; timed beside the plain version, autograd's default backward
+     (``index_add_`` on the unsorted rows), the stable sort alone and the
+     whole gather backward (sort + kernel); the kernel's call and the
+     backward, beside the backward that permutes the rows first (sort +
+     permute + kernel on sorted rows), profiled for their device busy time;
   6. training: the bench's weighted-radiance gradient over every scene and
      camera leaf (finite, table gradients not all 0), then 5
      ``make_train_step`` steps with SGD(lr 1e-4) toward frame 0's image from
      a pose turned by 1 degree, each timed with CUDA events; both kernels'
      counters are reset just before the steps and must show >= 5 launches;
      then one step split into forward, backward and SGD, and one profiled
-     step (device busy ms and device operations);
+     step (device busy ms and device operations); then 4 steps with these
+     kernels and 4 with the aligned walk and the permuting backward in
+     their place, in turns;
   7. the pose/light/camera-only step (triangle tables frozen), 3 steps: the
      segment-sum counter must not move; split and profiled as in 6;
   8. telemetry (kernel K3): frame 0 through ``intersect_binned`` with
-     ``with_stats`` at esub 1 (bitwise phase 3's hits) and esub 4; the
+     ``with_stats`` at esub 1 (phase 3's t bitwise, and every id that
+     differs from phase 3's an oracle tie) and esub 4; the
      kernel against its plain version on frame 0's operands at esub 1 and
-     4 (t, tri and steps bitwise equal); the ray-entry pairs K1 scanned
-     give its bound; kernel and frame timed with and without the
-     telemetry;
+     4 (t, tri and steps bitwise equal, and without steps each walk against
+     its plain version); the ray-entry pairs K3 scanned give its bound;
+     kernel and frame timed with and without the telemetry;
   9. the cluster paths: build the ClusterAccel (seconds, clusters); the
      tile-intersect kernels K4 and K5 against their plain versions on the
      same operands (a 96x64 sphere, headline frame 0, and a grazing view
@@ -70,10 +87,9 @@ Phases (any failure raises and the process exits non-zero):
      show them; the kernel against its plain version on the 96x64 sphere
      and headline frame 0 at debug_mode 0, 1 and 2 (t bitwise, enc, steps
      and decoded ids equal; the same hits in every mode); its decoded ids
-     against K1's on frame 0, every differing ray printed and required to
-     be a tie by the mt_fixed_origin oracle (both triangles' t within 1e-5
-     of the oracle's); agreement with phase 4's oracle rays >= 0.999;
-     kernel and plain version timed with CUDA events; the chunks whose
+     against K1's on frame 0, as phase 2 holds K1 against the aligned walk;
+     agreement with phase 4's oracle rays >= 0.999; kernel and plain
+     version timed with CUDA events; the chunks whose
      gate opened and the walked chunks' constants give its bound;
  11. the entry points: the headline mesh written as a binary PLY under
      build/chip_smoke/, then ``render_cli.main`` with ``--method bin`` and
@@ -83,8 +99,12 @@ Phases (any failure raises and the process exits non-zero):
      launch counter moved; then ``animate.main`` for 30 ticks at 960x540
      with ``--second-object --method bin --json-out``: two objects, K1
      twice a frame, which its launch counter must show.
-Each phase prints its seconds. Prints a JSON line of per-kernel results,
-then, as the last line,
+A differing id passes as a tie when both triangles' t, by the oracle's
+constants, lie within 1e-5 of the oracle's t. Each phase prints its seconds.
+Operation bounds are given at the FMA peak (``bound_ms``: 2 operations a
+lane a clock) and at one instruction an operation (``bound_issue_ms``: the
+kernels are built with -fmad=false). Prints a JSON line of per-kernel
+results, then, as the last line,
 ``{"ok": true, "device": {...}}``. Needs a CUDA device and never falls back
 to the CPU.
 """
@@ -110,10 +130,13 @@ KERNEL_REPS = 20
 PLAIN_REPS = 3
 N_TRAIN_STEPS = 5
 N_POSE_STEPS = 3
+N_PAIRED = 8                   # frames or steps of each kind, in turns
 LR = 1e-4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
-N_SMS, FP32_LANES = 132, 128   # per SM; peak = SMs x lanes x 2 x clock
-K1_OPS_PER_PAIR = 31           # csrc/bin_intersect.cu, "Bound"
+N_SMS, FP32_LANES = 132, 128   # per SM; FMA peak = SMs x lanes x 2 x clock
+K1_OPS_PER_PAIR = 29           # csrc/bin_intersect.cu, "Bound"
+K1_OPS_PER_ACCEPTED = 3        # K1's select and division, accepted pairs
+K3_OPS_PER_PAIR = 31           # K3 runs the select on every pair
 K4_OPS_PER_PAIR = 29           # csrc/tile_intersect.cu, "Bound"
 K5_OPS_PER_PAIR = 26
 K6_OPS_PER_PAIR = 29           # csrc/bin_tile_intersect.cu, "Bound"
@@ -162,6 +185,91 @@ def device_profile(fn):
            for a in on_dev[:8]]
     return (sum(a.self_device_time_total for a in on_dev) / 1e3,
             sum(a.count for a in on_dev), top)
+
+
+def op_bounds(n_ops: int, n_bytes: int, clock_mhz: float) -> dict:
+    """A kernel's least time on the card: the larger of its bytes over the
+    memory rate and its FP32 operations over the FMA peak (``bound_ms``,
+    2 operations a lane a clock) or over the issue rate at one instruction
+    an operation (``bound_issue_ms``: the kernels are built with
+    -fmad=false, so no multiply and add fuse)."""
+    issue_ms = n_ops / (N_SMS * FP32_LANES * clock_mhz * 1e6) * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    fma_ms = issue_ms / 2
+    return {"bound_ms": max(fma_ms, bytes_ms),
+            "bound_by": "operations" if fma_ms >= bytes_ms else "bytes",
+            "bound_issue_ms": max(issue_ms, bytes_ms),
+            "text": f"bound {max(fma_ms, bytes_ms):.4f} ms at the FMA peak, "
+                    f"{max(issue_ms, bytes_ms):.4f} ms at one instruction "
+                    f"an operation (operations {fma_ms:.4f} / {issue_ms:.4f} "
+                    f"ms at {clock_mhz} MHz, bytes {bytes_ms:.4f} ms, "
+                    f"{n_bytes} bytes)"}
+
+
+def check_ties(name_a, tri_a, name_b, tri_b, rays, o, tris, cfg) -> None:
+    """Every ray on which two bin walks give different triangle ids (their
+    t being bitwise equal) must be a tie by the mt_fixed_origin oracle:
+    both triangles' t, by the oracle's constants, within 1e-5 of the
+    oracle's t. Prints each such ray."""
+    from cpp_cuda_raytracer_dev_torch.ops.intersect import (FixedOriginCache,
+                                                            mt_fixed_origin)
+    differ = tri_a != tri_b
+    if not bool(differ.any()):
+        return
+    d = rays[..., :3][differ]
+    cache = FixedOriginCache.build(o, tris)
+    orc = mt_fixed_origin(d, cache, cfg.draw_distance, cfg.eps, chunk=16384)
+
+    def t_of(ids):   # each id's t by the oracle's constants
+        ids = ids.long()
+        return cache.tdet[ids] / (d * cache.m_det[ids]).sum(dim=1)
+    ta, tb = t_of(tri_a[differ]), t_of(tri_b[differ])
+    rel = torch.maximum((ta - orc.t).abs(), (tb - orc.t).abs()) / orc.t
+    rows = zip(differ.nonzero().tolist(), tri_a[differ].tolist(), ta.tolist(),
+               tri_b[differ].tolist(), tb.tolist(), orc.tri.tolist(),
+               orc.t.tolist(), rel.tolist())
+    for at, a, t_a, b, t_b, ot, o_t, r in rows:
+        log(f"  ray {tuple(at)}: {name_a} triangle {a} t {t_a!r}, "
+            f"{name_b} triangle {b} t {t_b!r}, oracle triangle {ot} t "
+            f"{o_t!r}, |dt|/t {r}")
+    if bool((orc.tri < 0).any()) or float(rel.max()) > 1e-5:
+        raise RuntimeError(f"{name_a} and {name_b} differ where the oracle "
+                           "sees no tie")
+
+
+def aligned_walk(*args, **kwargs):
+    """`bin_intersect` with the walk over whole blocks, K3's esub-1 instance
+    (which also writes its steps), in place of K1's walk over the tiles' own
+    entries."""
+    from cpp_cuda_raytracer_dev_torch.ops.cuda.bin_intersect import \
+        bin_intersect
+    kwargs["with_steps"] = True
+    return bin_intersect(*args, **kwargs)[:2]
+
+
+def permuting_backward(block, idx, t_rows):
+    """The gather backward with the rows permuted into sort order first,
+    then K2 on the sorted rows (no order)."""
+    from cpp_cuda_raytracer_dev_torch.ops.cuda.segment_sum import segment_sum
+    idx_sorted, order = torch.sort(idx, stable=True)
+    return segment_sum(block.index_select(0, order).contiguous(),
+                       idx_sorted.to(torch.int32), t_rows)
+
+
+def in_turns(run, kinds, n):
+    """{kind: [ms]}: ``run(kind, i)`` timed with CUDA events ``n`` times a
+    kind, the kinds in turns (ABBA order), in one process."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    ms = {k: [] for k in kinds}
+    for i in range(n):
+        for kind in (kinds if i % 2 == 0 else kinds[::-1]):
+            start.record()
+            run(kind, i)
+            end.record()
+            torch.cuda.synchronize()
+            ms[kind].append(start.elapsed_time(end))
+    return ms
 
 
 def phase_timer():
@@ -261,13 +369,52 @@ def main() -> None:
             if not (tri_eq and t_eq):
                 raise RuntimeError(f"kernel and plain version disagree on "
                                    f"{name}")
-        kernel_ms = cuda_ms(lambda: k1.bin_intersect(*ops), KERNEL_REPS)
+        # the last case is headline frame 0 (phase 3's frame 0): K1 against
+        # the aligned walk over whole blocks, K3's esub-1 instance
+        ops = (rays, b.geom, b.entry_tri, b.starts, chunk)
+        wt, wtri, _ = k1.bin_intersect(*ops, with_steps=True)
+        torch.cuda.synchronize()
+        log(f"K1 vs the aligned walk (K3 at esub 1) on frame 0: t bitwise "
+            f"equal "
+            f"{torch.equal(kt, wt)}, ids differ on "
+            f"{int((ktri != wtri).sum())} of {ktri.numel()} rays")
+        if not torch.equal(kt, wt):
+            raise RuntimeError("K1's t differs from the aligned walk's")
+        walk_ties = int((ktri != wtri).sum())
+        check_ties("K1", ktri, "aligned walk", wtri, rays,
+                   torch.tensor([0.0, 0.0, -3.0], device=dev),
+                   Triangles.from_vertices(headline_tv, device=dev), cfg)
+        # in turns, so that the walks and K1's two tile orders are compared
+        # on one card: aligned, K1, index order, index order, K1, aligned
+        walks = (lambda: k1.bin_intersect(*ops, with_steps=True),
+                 lambda: k1.bin_intersect(*ops),
+                 lambda: k1.bin_intersect(*ops, longest_first=False))
+        turns = [cuda_ms(walks[i], KERNEL_REPS) for i in (0, 1, 2, 2, 1, 0)]
+        kernel_ms = (turns[1] + turns[4]) / 2
+        walk_ms = (turns[0] + turns[5]) / 2
         plain_ms = cuda_ms(lambda: k1.bin_intersect_reference(*ops),
                            PLAIN_REPS)
-    log(f"K1 at the headline shapes ({rays.shape[0]} tiles x "
-        f"{rays.shape[1]} rays, {b.num_entries} entries, chunk {chunk}): "
-        f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms ({smi})")
-    del rays, b, kt, ktri, rt, rtri
+        # the bound: each own entry of a block whose gate opened, against
+        # every ray of its tile, and the select and division of the pairs
+        # the test accepted
+        n_tiles, p = rays.shape[:2]
+        k1_entries, k1_accepted = k1.own_walk_work(*ops)
+        k1_pairs = int(k1_entries.sum()) * p
+        k1_accepted = int(k1_accepted.sum())
+        k1_bytes = (rays.numel() * 4 + b.geom.numel() * 4
+                    + b.entry_tri.numel() * 4 + b.starts.numel() * 4
+                    + n_tiles * p * 8)
+    k1_bound = op_bounds(k1_pairs * K1_OPS_PER_PAIR
+                         + k1_accepted * K1_OPS_PER_ACCEPTED, k1_bytes,
+                         clock_mhz)
+    log(f"K1 at the headline shapes ({n_tiles} tiles x {p} rays, "
+        f"{b.num_entries} entries, chunk {chunk}): kernel {turns[1]:.4f} / "
+        f"{turns[4]:.4f} ms, with the tiles in index order {turns[2]:.4f} / "
+        f"{turns[3]:.4f} ms, the aligned walk {turns[0]:.4f} / "
+        f"{turns[5]:.4f} ms (in turns), plain {plain_ms:.4f} ms; {k1_pairs} "
+        f"ray-entry pairs through the gate, {k1_accepted} of them accepted; "
+        f"{k1_bound['text']} ({smi})")
+    del rays, b, kt, ktri, rt, rtri, wt, wtri
     phase_done(2)
 
     # ---- 3. serve frames through the port's entry point ----
@@ -314,6 +461,26 @@ def main() -> None:
     if launches < N_FRAMES:
         raise RuntimeError(f"bin_intersect launched {launches} times for "
                            f"{N_FRAMES} frames")
+    # the frame with the aligned walk in K1's place, in turns with K1 in
+    # this process: the own walk's effect end to end, free of the spread
+    # between processes
+    from cpp_cuda_raytracer_dev_torch.accel import traverse
+
+    def paired_frame(kind, i):
+        traverse.bin_intersect = (k1.bin_intersect if kind == "K1"
+                                  else aligned_walk)
+        render(*frames[i % N_FRAMES], cfg)
+    try:
+        paired = in_turns(paired_frame, ("K1", "aligned walk"), N_PAIRED)
+        # the device's share, free of the host: one profiled frame each
+        busy = {k: device_profile(lambda: paired_frame(k, 0))[:2]
+                for k in paired}
+    finally:
+        traverse.bin_intersect = k1.bin_intersect
+    log("frames in turns: " + "; ".join(
+        f"{k} median {float(np.median(v)):.3f} ms {[round(x, 3) for x in v]}, "
+        f"profiled frame: device busy {busy[k][0]:.3f} ms in {busy[k][1]} "
+        f"operations" for k, v in paired.items()) + f" ({smi})")
     phase_done(3)
 
     # ---- 4. frame 0 against the oracle on sampled rays ----
@@ -375,6 +542,9 @@ def main() -> None:
         f"rows on triangle 0: {int((ct_idx == 0).sum())}")
 
     def k2_cases():
+        """(name, rows, sorted ids, T, order): the rows in some order and
+        the permutation that reads them in id order, as the backward has
+        them before its sort."""
         rng = np.random.default_rng(0)
         long_idx = np.concatenate([np.zeros(ct.shape[0] // 2, np.int64),
                                    rng.integers(1, t_rows, ct.shape[0] // 2)])
@@ -388,23 +558,24 @@ def main() -> None:
                                               50_000), 90_001),
                 ("headline size, half the rows on id 0", long_idx, t_rows)):
             idx = torch.from_numpy(np.sort(idx).astype(np.int32)).to(dev)
-            block = torch.from_numpy(rng.standard_normal(
+            order = torch.from_numpy(rng.permutation(idx.shape[0])).to(dev)
+            rows = torch.from_numpy(rng.standard_normal(
                 (idx.shape[0], 12)).astype(np.float32)).to(dev)
-            yield name, block, idx, t
+            yield name, rows, idx, t, order
             # integers in [-16, 16]: every partial sum is below 2^24, so
             # float32 sums them exactly in any order
-            yield name + ", integer rows", torch.round(block * 4), idx, t
+            yield name + ", integer rows", torch.round(rows * 4), idx, t, order
         srt, order = torch.sort(ct_idx, stable=True)
-        yield ("headline cotangent", ct.index_select(0, order).contiguous(),
-               srt.to(torch.int32), t_rows)
+        yield "headline cotangent", ct, srt.to(torch.int32), t_rows, order
 
     k2_err = 0.0
-    for name, block, idx, t in k2_cases():
-        got = k2.segment_sum(block, idx, t)
-        again = k2.segment_sum(block, idx, t)
-        plain = k2.segment_sum_reference(block, idx, t)
+    for name, rows, idx, t, order in k2_cases():
+        got = k2.segment_sum(rows, idx, t, order=order)
+        again = k2.segment_sum(rows, idx, t, order=order)
+        plain = k2.segment_sum_reference(rows, idx, t, order=order)
         torch.cuda.synchronize()
         il = idx.long()
+        block = rows.index_select(0, order)      # the rows in id order
         exact = torch.zeros((t, 12), dtype=torch.float64,
                             device=dev).index_add_(0, il, block.double())
         mag = torch.zeros_like(exact).index_add_(0, il, block.abs().double())
@@ -421,7 +592,7 @@ def main() -> None:
         integer = name.endswith("integer rows")
         exact_eq = (torch.equal(got, exact.float())
                     and torch.equal(plain, exact.float()))
-        log(f"K2 vs plain [{name}]: R {block.shape[0]} T {t} max_abs_err "
+        log(f"K2 vs plain [{name}]: R {rows.shape[0]} T {t} max_abs_err "
             f"{err} max(|x - exact| - bound) {ratio} longest segment "
             f"{int(n_seg[longest])} rows, |x - exact| / sum|x| {rel} "
             f"bitwise_repeat {torch.equal(got, again)}"
@@ -430,24 +601,49 @@ def main() -> None:
                                                         not exact_eq):
             raise RuntimeError(f"segment sum out of bound, not "
                                f"deterministic or not exact on {name}")
-    ct_sorted, idx_sorted = block, idx       # the headline case, last
-    k2_ms = cuda_ms(lambda: k2.segment_sum(ct_sorted, idx_sorted, t_rows),
-                    KERNEL_REPS)
+    # the headline case, last: its rows permuted beforehand give the same
+    # sums bitwise (the same additions in the same order)
+    ct_idx_sorted, ct_order = idx, order
+    presorted = k2.segment_sum(block.contiguous(), idx, t_rows)
+    log(f"K2 [headline cotangent, rows permuted beforehand, no order]: "
+        f"bitwise equal to the fused read {torch.equal(presorted, got)}")
+    if not torch.equal(presorted, got):
+        raise RuntimeError("K2 differs between the fused and the presorted "
+                           "rows")
+    k2_ms = cuda_ms(lambda: k2.segment_sum(ct, ct_idx_sorted, t_rows,
+                                           order=ct_order), KERNEL_REPS)
     k2_plain_ms = cuda_ms(lambda: k2.segment_sum_reference(
-        ct_sorted, idx_sorted, t_rows), KERNEL_REPS)
+        ct, ct_idx_sorted, t_rows, order=ct_order), KERNEL_REPS)
     ct_idx_l = ct_idx.long()
     k2_library_ms = cuda_ms(lambda: torch.zeros(
         (t_rows, 12), device=dev).index_add_(0, ct_idx_l, ct), KERNEL_REPS)
+    k2_sort_ms = cuda_ms(lambda: torch.sort(ct_idx, stable=True),
+                         KERNEL_REPS)
     k2_backward_ms = cuda_ms(lambda: segment_sum_rows(ct, ct_idx, t_rows),
                              KERNEL_REPS)
-    k2_bytes = ct.shape[0] * (12 + 1) * 4 + t_rows * 12 * 4
+    # back to back, the small operations of the backward (and of K2's own
+    # call: zero fill, scratch, three levels) can be paced by the host; the
+    # device's own time is the profile's busy time
+    busy = {name: device_profile(fn)[:2] for name, fn in (
+        ("K2", lambda: k2.segment_sum(ct, ct_idx_sorted, t_rows,
+                                      order=ct_order)),
+        ("sort + K2", lambda: segment_sum_rows(ct, ct_idx, t_rows)),
+        ("sort + permute + K2 on sorted rows",
+         lambda: permuting_backward(ct, ct_idx, t_rows)))}
+    # rows (48 B), ids (4 B) and the int64 order (8 B) read once, the sums
+    # written once
+    k2_bytes = ct.shape[0] * (12 * 4 + 4 + 8) + t_rows * 12 * 4
     k2_bound_ms = k2_bytes / HBM_BYTES_PER_S * 1e3
     log(f"K2 at the headline cotangent: kernel {k2_ms:.4f} ms, plain "
         f"{k2_plain_ms:.4f} ms, index_add_ on unsorted rows "
-        f"{k2_library_ms:.4f} ms, whole gather backward (sort + permute + "
-        f"kernel) {k2_backward_ms:.4f} ms, bound {k2_bound_ms:.4f} ms "
-        f"({k2_bytes} bytes) ({smi})")
-    del captured, ct_sorted, idx_sorted, block, idx, got, again, plain
+        f"{k2_library_ms:.4f} ms, stable sort of the ids {k2_sort_ms:.4f} "
+        f"ms, whole gather backward (sort + kernel) {k2_backward_ms:.4f} ms, "
+        f"bound {k2_bound_ms:.4f} ms ({k2_bytes} bytes); profiled, device "
+        f"busy: " + ", ".join(f"{k} {v[0]:.4f} ms in {v[1]} operations"
+                              for k, v in busy.items()) + f" ({smi})")
+    k2_busy_ms = busy["K2"][0]
+    del (captured, ct_idx_sorted, ct_order, rows, block, idx, order, got,
+         again, plain, presorted)
     phase_done(5)
 
     # ---- 6. training at the headline size ----
@@ -525,6 +721,26 @@ def main() -> None:
     if train_k1 < N_TRAIN_STEPS or train_k2 < N_TRAIN_STEPS:
         raise RuntimeError("a training step did not launch both kernels")
     split_and_profile(opt, "all-leaves", step_ms)
+    # the step with the aligned walk and the permuting backward in turns
+    # with this one, in this process
+    step = make_train_step(opt, cfg)
+
+    def paired_step(kind, i):
+        old = kind == "aligned walk, permuting backward"
+        traverse.bin_intersect = aligned_walk if old else k1.bin_intersect
+        gather_mod.segment_sum_rows = (permuting_backward if old
+                                       else segment_sum_rows)
+        step(params, target)
+    try:
+        paired = in_turns(paired_step, (
+            "own walk, fused backward", "aligned walk, permuting backward"),
+            N_PAIRED // 2)
+    finally:
+        traverse.bin_intersect = k1.bin_intersect
+        gather_mod.segment_sum_rows = segment_sum_rows
+    log("all-leaves steps in turns: " + "; ".join(
+        f"{k} median {float(np.median(v)):.3f} ms {[round(x, 3) for x in v]}"
+        for k, v in paired.items()) + f" ({smi})")
     phase_done(6)
 
     # ---- 7. the pose/light/camera-only step ----
@@ -569,9 +785,11 @@ def main() -> None:
                                f"{k3_launches} times")
         hit1, st1 = stats[1]
         hit4, st4 = stats[4]
+        # esub 1 is the aligned walk: phase 3's t, and its ids but on rays
+        # where the two walks tie by the oracle (as many as phase 2 found)
         same_t = torch.equal(hit1.t.reshape(RES_H, RES_W), outs[0].hit_t)
-        same_tri = torch.equal(hit1.tri.reshape(RES_H, RES_W),
-                               outs[0].hit_tri)
+        tri_diff = int((hit1.tri.reshape(RES_H, RES_W)
+                        != outs[0].hit_tri).sum())
         agree4 = float((hit4.tri == hit1.tri).float().mean())
         for e, (_, st) in stats.items():
             log(f"stats esub {e}: entries {st['entries']} overflow "
@@ -580,15 +798,20 @@ def main() -> None:
                 f"{int(st['steps'].sum())}; chunks mean "
                 f"{float(st['chunks'].float().mean())} sum "
                 f"{int(st['chunks'].sum())}")
-        log(f"esub 1 with stats == phase 3 frame 0: t {same_t} tri "
-            f"{same_tri}; esub 4 tri agreement with esub 1 {agree4}")
-        if not (same_t and same_tri):
-            raise RuntimeError("the telemetry switch changed K1's hits")
+        log(f"esub 1 with stats against phase 3's frame 0: t bitwise equal "
+            f"{same_t}, ids differ on {tri_diff} rays (phase 2's ties: "
+            f"{walk_ties}); esub 4 tri agreement with esub 1 {agree4}")
+        if not same_t or tri_diff != walk_ties:
+            raise RuntimeError("the telemetry frame's hits differ from K1's "
+                               "beyond phase 2's ties")
+        # frame 0's pose is the identity: the world frame is the object's
+        check_ties("telemetry frame", hit1.tri.reshape(-1), "frame 0",
+                   outs[0].hit_tri.reshape(-1), cam.ray_directions(),
+                   cam.pos, obj.tris, cfg)
         frame_stats_ms = cuda_ms(lambda: binned(stats_cfgs[1]), PLAIN_REPS)
         frame_plain_ms = cuda_ms(lambda: binned(cfg), PLAIN_REPS)
         rays, b = bin_object(o_obj, obj.tris, proj, cfg, RES_H, RES_W)
         ops = (rays, b.geom, b.entry_tri, b.starts, chunk)
-        k1_ms = cuda_ms(lambda: k1.bin_intersect(*ops), KERNEL_REPS)
         k3_ms = cuda_ms(lambda: k1.bin_intersect(*ops, with_steps=True),
                         KERNEL_REPS)
         k3_esub4_ms = cuda_ms(lambda: k1.bin_intersect(
@@ -596,16 +819,18 @@ def main() -> None:
         k3_plain_ms = cuda_ms(lambda: k1.bin_intersect_reference(
             *ops, with_steps=True), PLAIN_REPS)
         # K3 against its plain version on the headline operands, before its
-        # counts feed K1's bound: t, tri and steps bitwise equal, and the
-        # same t and tri without the steps output
+        # counts feed its bound: t, tri and steps bitwise equal; and without
+        # the steps output (K1's walk at esub 1, the sliced walk at esub 4)
+        # each walk against its plain version
         k3_err = 0.0
         for e in (1, 4):
             got = k1.bin_intersect(*ops, esub=e, with_steps=True)
             want = k1.bin_intersect_reference(*ops, esub=e, with_steps=True)
             bare = k1.bin_intersect(*ops, esub=e)
+            bare_want = k1.bin_intersect_reference(*ops, esub=e)
             torch.cuda.synchronize()
             eq = [torch.equal(x, y) for x, y in zip(got, want)] + [
-                torch.equal(x, y) for x, y in zip(bare, want)]
+                torch.equal(x, y) for x, y in zip(bare, bare_want)]
             k3_err = max(k3_err, float((got[0] - want[0]).abs().max()))
             log(f"K3 vs plain [headline frame 0, esub {e}]: t {eq[0]} tri "
                 f"{eq[1]} steps {eq[2]}; without steps: t {eq[3]} tri "
@@ -618,23 +843,14 @@ def main() -> None:
         if not torch.equal(steps[:, 0], st1["steps"]):
             raise RuntimeError("kernel steps differ from the frame's")
         n_tiles, p = rays.shape[:2]
-        pairs = int(steps[:, 0].sum()) * chunk * p
-        k1_bytes = (rays.numel() * 4 + b.geom.numel() * 4
-                    + b.entry_tri.numel() * 4 + b.starts.numel() * 4
-                    + n_tiles * p * 8)
-    k1_ops_ms = (pairs * K1_OPS_PER_PAIR
-                 / (N_SMS * FP32_LANES * 2 * clock_mhz * 1e6) * 1e3)
-    k1_bytes_ms = k1_bytes / HBM_BYTES_PER_S * 1e3
-    k1_bound_ms = max(k1_ops_ms, k1_bytes_ms)
-    k1_bound_by = "operations" if k1_ops_ms >= k1_bytes_ms else "bytes"
-    log(f"K1 scanned {pairs} ray-entry pairs ({int(steps[:, 0].sum())} "
-        f"blocks x {chunk} x {p}); bound {k1_bound_ms:.4f} ms (operations "
-        f"{k1_ops_ms:.4f} ms at {K1_OPS_PER_PAIR} FP32 ops a pair and "
-        f"{clock_mhz} MHz, bytes {k1_bytes_ms:.4f} ms); kernel "
-        f"{k1_ms:.4f} ms, with steps {k3_ms:.4f} ms, esub 4 with steps "
-        f"{k3_esub4_ms:.4f} ms, plain with steps {k3_plain_ms:.4f} ms; "
-        f"intersect_binned with stats {frame_stats_ms:.4f} ms, without "
-        f"{frame_plain_ms:.4f} ms ({smi})")
+        k3_pairs = int(steps[:, 0].sum()) * chunk * p
+    k3_bound = op_bounds(k3_pairs * K3_OPS_PER_PAIR, k1_bytes, clock_mhz)
+    log(f"K3 at esub 1 scanned {k3_pairs} ray-entry pairs "
+        f"({int(steps[:, 0].sum())} blocks x {chunk} x {p}; K1 "
+        f"{k1_pairs}); {k3_bound['text']}; with steps {k3_ms:.4f} ms, esub 4 "
+        f"with steps {k3_esub4_ms:.4f} ms, plain with steps "
+        f"{k3_plain_ms:.4f} ms; intersect_binned with stats "
+        f"{frame_stats_ms:.4f} ms, without {frame_plain_ms:.4f} ms ({smi})")
     phase_done(8)
 
     # ---- 9. the cluster paths (K4, K5) ----
@@ -655,17 +871,22 @@ def main() -> None:
         "source": "cpp_cuda_raytracer_dev_torch/csrc/bin_intersect.cu",
         "replaces": "cpp_cuda_raytracer_dev_tpu/ops/pallas/bin_kernel3.py:43",
         "launches": launches, "max_abs_err": max_abs_err,
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": k1_bound_ms,
-        "bound_by": k1_bound_by, "library_ms": None,
+        "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": k1_bound["bound_ms"], "bound_by": k1_bound["bound_by"],
+        "library_ms": None, "bound_issue_ms": k1_bound["bound_issue_ms"],
+        "pairs": k1_pairs, "accepted_pairs": k1_accepted,
+        "index_order_ms": (turns[2] + turns[3]) / 2,
+        "aligned_walk_ms": walk_ms,
         "launches_by_path": {"serve": launches, "train": train_k1,
                              "train_pose_light_camera": pose_k1}}, {
         "name": "bin_intersect_telemetry", "route": "cuda",
         "source": "cpp_cuda_raytracer_dev_torch/csrc/bin_intersect.cu",
         "replaces": "cpp_cuda_raytracer_dev_tpu/ops/pallas/bin_kernel2.py:62",
         "launches": k3_launches, "max_abs_err": k3_err,
-        "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k1_bound_ms,
-        "bound_by": k1_bound_by, "library_ms": None,
-        "ms_without_steps": k1_ms, "ms_esub4": k3_esub4_ms,
+        "ms": k3_ms, "plain_ms": k3_plain_ms,
+        "bound_ms": k3_bound["bound_ms"], "bound_by": k3_bound["bound_by"],
+        "library_ms": None, "bound_issue_ms": k3_bound["bound_issue_ms"],
+        "pairs": k3_pairs, "ms_esub4": k3_esub4_ms,
         "launches_by_path": {"stats_frames": k3_launches}}, {
         "name": "segment_sum", "route": "cuda",
         "source": "cpp_cuda_raytracer_dev_torch/csrc/segment_sum.cu",
@@ -673,6 +894,8 @@ def main() -> None:
         "launches": train_k2, "max_abs_err": k2_err,
         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
         "bound_by": "bytes", "library_ms": k2_library_ms,
+        "bound_issue_ms": k2_bound_ms, "bytes": k2_bytes,
+        "device_busy_ms": k2_busy_ms, "sort_ms": k2_sort_ms,
         "backward_ms": k2_backward_ms,
         "launches_by_path": {"serve": 0, "train": train_k2,
                              "train_pose_light_camera": pose_k2}},
@@ -948,20 +1171,16 @@ def run_cluster_paths(dev, headline_tv, frames, idx_t, ref, smi, clock_mhz):
             n_t = frame0[0].shape[0]
             nbytes = (sum(x.numel() for x in frame0[:5]) * 4
                       + read_tris * 10 * 4 + n_t * (p * 8 + 8))
-            ops_ms = (pairs * ops_pair
-                      / (N_SMS * FP32_LANES * 2 * clock_mhz * 1e6) * 1e3)
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            entries[kname] = op_bounds(pairs * ops_pair, nbytes, clock_mhz)
+            entries[kname]["pairs"] = pairs
             log(f"{kname} on frame 0: {pairs} (ray, triangle) pairs past the "
                 f"box test ({int(tele[kname][:, 1].sum())} rays x "
                 f"{pairs / max(1, int(tele[kname][:, 1].sum())):.2f} "
                 f"triangles; {int(tele[kname][:, 1].sum()) * n_slots} with "
                 f"the {n_slots} slots), {read.numel()} clusters of "
-                f"{read_tris} triangles read; bound "
-                f"{max(ops_ms, bytes_ms):.4f} ms (operations {ops_ms:.4f} ms "
-                f"at {ops_pair} FP32 ops a pair and {clock_mhz} MHz, bytes "
-                f"{bytes_ms:.4f} ms); kernel {ms[kname][0]:.4f} ms ({smi})")
-            entries[kname] = (max(ops_ms, bytes_ms),
-                              "operations" if ops_ms >= bytes_ms else "bytes")
+                f"{read_tris} triangles read, {ops_pair} FP32 operations a "
+                f"pair; {entries[kname]['text']}; kernel "
+                f"{ms[kname][0]:.4f} ms ({smi})")
 
     return [{
         "name": "tile_intersect_v2", "route": "cuda",
@@ -970,8 +1189,10 @@ def run_cluster_paths(dev, headline_tv, frames, idx_t, ref, smi, clock_mhz):
                     "intersect_kernel_v2.py:58",
         "launches": launches["pallas2"][0], "max_abs_err": max_err["K4"],
         "ms": ms["K4"][0], "plain_ms": ms["K4"][1],
-        "bound_ms": entries["K4"][0], "bound_by": entries["K4"][1],
-        "library_ms": None,
+        "bound_ms": entries["K4"]["bound_ms"],
+        "bound_by": entries["K4"]["bound_by"], "library_ms": None,
+        "bound_issue_ms": entries["K4"]["bound_issue_ms"],
+        "pairs": entries["K4"]["pairs"],
         "launches_by_path": {"serve_pallas2": launches["pallas2"][0],
                              "serve_pallas": launches["pallas"][0],
                              "train_pallas2": train_k4}}, {
@@ -981,8 +1202,10 @@ def run_cluster_paths(dev, headline_tv, frames, idx_t, ref, smi, clock_mhz):
                     "intersect_kernel.py:55",
         "launches": launches["pallas"][1], "max_abs_err": max_err["K5"],
         "ms": ms["K5"][0], "plain_ms": ms["K5"][1],
-        "bound_ms": entries["K5"][0], "bound_by": entries["K5"][1],
-        "library_ms": None,
+        "bound_ms": entries["K5"]["bound_ms"],
+        "bound_by": entries["K5"]["bound_by"], "library_ms": None,
+        "bound_issue_ms": entries["K5"]["bound_issue_ms"],
+        "pairs": entries["K5"]["pairs"],
         "launches_by_path": {"serve_pallas2": launches["pallas2"][1],
                              "serve_pallas": launches["pallas"][1],
                              "train_pallas2": 0}}]
@@ -996,8 +1219,6 @@ def run_bin_tile(dev, frames, idx_t, ref, cfg, smi, clock_mhz):
     from cpp_cuda_raytracer_dev_torch.accel import traverse as tr
     from cpp_cuda_raytracer_dev_torch.ops.cuda import bin_intersect as k1
     from cpp_cuda_raytracer_dev_torch.ops.cuda import bin_tile_intersect as bt
-    from cpp_cuda_raytracer_dev_torch.ops.intersect import (FixedOriginCache,
-                                                            mt_fixed_origin)
     from cpp_cuda_raytracer_dev_torch.utils.procgen import uv_sphere
 
     chunk = K6_CHUNK
@@ -1085,32 +1306,11 @@ def run_bin_tile(dev, frames, idx_t, ref, cfg, smi, clock_mhz):
         # ids may differ only where two triangles tie
         t1, tri1 = k1.bin_intersect(rays, b.geom, b.entry_tri, b.starts,
                                     cfg.bin_chunk)
-        differ = tri6 != tri1
-        n_diff = int(differ.sum())
         log(f"K6 vs K1 on frame 0: t bitwise equal {torch.equal(t6, t1)}, "
-            f"ids differ on {n_diff} of {tri6.numel()} rays")
-        if n_diff:
-            d = rays[..., :3][differ]
-            cache = FixedOriginCache.build(o, frames[0][0].objects[0].tris)
-            orc = mt_fixed_origin(d, cache, cfg.draw_distance, cfg.eps,
-                                  chunk=16384)
-
-            def t_of(ids):   # each id's t by the oracle's constants
-                ids = ids.long()
-                return cache.tdet[ids] / (d * cache.m_det[ids]).sum(dim=1)
-            ta, tb = t_of(tri6[differ]), t_of(tri1[differ])
-            rel = torch.maximum((ta - orc.t).abs(), (tb - orc.t).abs()) / orc.t
-            where = differ.nonzero().tolist()
-            rows = zip(where, tri6[differ].tolist(), ta.tolist(),
-                       tri1[differ].tolist(), tb.tolist(), orc.tri.tolist(),
-                       orc.t.tolist(), rel.tolist())
-            for (tile, ray), a, t_a, b1, t_b, ot, o_t, r in rows:
-                log(f"  tile {tile} ray {ray}: K6 triangle {a} t {t_a!r}, K1 "
-                    f"triangle {b1} t {t_b!r}, oracle triangle {ot} t "
-                    f"{o_t!r}, |dt|/t {r}")
-            if bool((orc.tri < 0).any()) or float(rel.max()) > 1e-5:
-                raise RuntimeError("K6 and K1 differ where the oracle sees no "
-                                   "tie")
+            f"ids differ on {int((tri6 != tri1).sum())} of {tri6.numel()} "
+            f"rays")
+        check_ties("K6", tri6, "K1", tri1, rays, o,
+                   frames[0][0].objects[0].tris, cfg)
 
         # frame 0 against phase 4's oracle rays
         img_tri = tr._untile(tri6, tr._bin_meta(cfg, RES_H, RES_W), RES_H,
@@ -1135,27 +1335,23 @@ def run_bin_tile(dev, frames, idx_t, ref, cfg, smi, clock_mhz):
         entries = int(walked.sum()) * chunk
         nbytes = ((ops[0].numel() + ops[1].numel() + ops[2].numel()) * 4
                   + entries * bt.ROWS * 4 + n_t * (p * 8 + 8))
-    ops_ms = ((pairs * K6_OPS_PER_PAIR + entries * K6_OPS_PER_ENTRY)
-              / (N_SMS * FP32_LANES * 2 * clock_mhz * 1e6) * 1e3)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound = op_bounds(pairs * K6_OPS_PER_PAIR + entries * K6_OPS_PER_ENTRY,
+                      nbytes, clock_mhz)
     log(f"K6 at headline frame 0 ({n_t} tiles x {p} rays, chunk {chunk}): "
         f"chunks in range {int(steps6[:, 1].sum())}, walked "
         f"{int(walked.sum())}, gate open {int(gated.sum())}; {pairs} "
-        f"ray-entry pairs; bound {max(ops_ms, bytes_ms):.4f} ms (operations "
-        f"{ops_ms:.4f} ms at {K6_OPS_PER_PAIR} FP32 ops a pair and "
-        f"{K6_OPS_PER_ENTRY} an entry constant, {clock_mhz} MHz; bytes "
-        f"{bytes_ms:.4f} ms, {nbytes} bytes); kernel {kernel_ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms ({smi})")
+        f"ray-entry pairs, {K6_OPS_PER_PAIR} FP32 operations a pair and "
+        f"{K6_OPS_PER_ENTRY} an entry constant; {bound['text']}; kernel "
+        f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms ({smi})")
     return {
         "name": "bin_tile_intersect", "route": "cuda",
         "source": "cpp_cuda_raytracer_dev_torch/csrc/bin_tile_intersect.cu",
         "replaces": "cpp_cuda_raytracer_dev_tpu/ops/pallas/bin_kernel.py:42",
         "launches": launches, "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": None,
-        "launches_by_path": {"bin_tile_frames": launches}}
+        "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+        "library_ms": None, "bound_issue_ms": bound["bound_issue_ms"],
+        "pairs": pairs, "launches_by_path": {"bin_tile_frames": launches}}
 
 
 def write_ply(path, tv: np.ndarray) -> None:

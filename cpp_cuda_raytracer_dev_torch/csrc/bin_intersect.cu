@@ -4,9 +4,12 @@
 // cpp_cuda_raytracer_dev_tpu/ops/pallas/bin_kernel3.py (launched by
 // `pallas_bin_intersect3`). What it computes, per tile t and ray r of the
 // tile, over the blocks b = starts[t] / chunk .. (starts[t+1] - 1) / chunk
-// (one block for an empty tile), in order:
+// (one block for an empty tile), in order, and within block b over the
+// tile's own entries [max(s0, b chunk), min(s1, (b + 1) chunk)) only
+// (s0 = starts[t], s1 = starts[t+1]):
 //
-//   gate:   skip block b when  min depth(b) >= max_r min(best_r, bound_r)
+//   gate:   skip block b when  min depth(own entries of b)
+//                                >= max_r min(best_r, bound_r)
 //   MT:     det = A.d, u' = B.d, v' = C.d
 //           accept when min(u' det, v' det, (det - u' - v') det,
 //                           TD det - eps det^2) >= 0 and det^2 >= (k1 eps)^2
@@ -14,33 +17,55 @@
 //   select: within a block the lowest triangle id at the minimum t;
 //           across blocks the best changes only on a strictly smaller t.
 //
+// The JAX kernel scans whole blocks, the neighbouring tiles' entries that
+// share the tile's first and last block included (2.4x the pairs on the
+// headline frame). Binning is conservative, so those entries cannot hit
+// the tile's rays; the two walks can differ only where two triangles give
+// exactly the same t (ROADMAP F9).
+//
+// Design of the walk (`own_walk_kernel`, kernel K1):
+//   - One CTA per tile, `groups` groups of p / R threads (4 groups of 128
+//     at 16x32 tiles, two CTAs an SM at <= 64 registers); each thread holds
+//     R rays (R = 4 at 16x32 tiles) with their running best in registers,
+//     and every group holds all of the tile's rays. The groups split each
+//     block's own entries (entry k goes to group k mod groups); the block's
+//     per-ray (t, id) minima of the groups meet in shared memory, where the
+//     lexicographic minimum gives the within-block rule exactly in any
+//     order, and every group then applies the across-block rule.
+//   - Entries are staged as interleaved 12-word records (A | B | C | TD |
+//     depth | id), so one thread reads an entry with three 16-byte shared
+//     loads that serve all of its R rays.
+//   - Double buffering: the next block's own entries are copied with
+//     cp.async while the current one is scanned.
+//   - Longest tiles first: CTA i takes the i-th tile in descending order of
+//     own entries (in buckets of 64), so the tiles with 3-4 blocks do not
+//     form the tail; `longest_first_kernel`, one CTA launched before the
+//     walk, writes the order.
+//   - With a draw distance <= 3e38 (every caller's), a rejected entry can
+//     never win (its t, 3e38, is never below the running best), so only
+//     accepted entries take part in the select; an infinite draw distance
+//     takes the instance in which every entry takes part.
+//
 // Telemetry switch (kernel K3 of the JAX package, `_kernel` in
-// ops/pallas/bin_kernel2.py, launched by `pallas_bin_intersect2`): with
-// esub > 1 each block is scanned as esub slices of chunk / esub entries,
-// each with its own gate (which sees the previous slices' hits); the
-// select rules above then hold per slice. When `steps` is not null the
-// kernel also writes steps[t] = [slices scanned, blocks walked] per tile.
-// Both switches are template parameters: with esub = 1 and steps null the
-// instantiation is K1 (ops/pallas/bin_kernel3.py) exactly, in code and in
-// time (taking the gate's depth minimum while staging, counting nothing).
-// With a run-time esub loop and steps counter in that path, K1 ran
-// measurably slower on the H100, by instruction scheduling alone.
+// ops/pallas/bin_kernel2.py, launched by `pallas_bin_intersect2`;
+// `aligned_walk_kernel`): the walk of the JAX kernels, over whole blocks,
+// one CTA per tile and one thread per ray. With esub > 1 each block is
+// scanned as esub slices of chunk / esub entries, each with its own gate
+// (which sees the previous slices' hits); the select rules above then hold
+// per slice. When `steps` is not null the kernel also writes steps[t] =
+// [slices scanned, blocks walked] per tile. Both switches are template
+// parameters.
 //
-// Design: one CTA per tile, one thread per ray (P = tile_h * tile_w <= 1024
-// threads). The CTA walks the tile's block range; each block (11 float
-// rows plus the int32 ids, 24 KB at chunk 512) is copied into shared memory
-// cooperatively, one block-wide min (depth) and max (min(best, bound))
-// form the gate, then every thread loops over the block's entries reading
-// shared memory as broadcasts.
-//
-// Bound: FP32 issue. A ray-entry pair costs 31 FP32 operations: 24
+// Bound: FP32 issue. A ray-entry pair costs 29 FP32 operations: 24
 // multiplies, adds and subtracts (three 3-term dots, 15; det^2, 1; the
-// four acceptance terms, 8) and 7 comparisons (five acceptance tests, two
-// in the select); the division runs only on accepted entries. The entry rows
-// come from shared memory as broadcasts and each block is read from device
-// memory once per tile, so the FMA pipes, not bytes, are the limit. The
-// depth-sorted gate is what keeps the work down: blocks behind every ray's
-// current best are never scanned.
+// four acceptance terms, 8) and the five acceptance tests. K1 runs the
+// select (two comparisons) and the division on accepted pairs only, 3
+// operations more each; K3 runs the select on every pair (31) and the
+// division on accepted ones, which its bound leaves out. Built with
+// -fmad=false, each is its own instruction, so the issue rate (128 lanes
+// an SM a clock) is the limit; the FMA peak counts two operations a lane.
+// Each block is read from device memory once per tile: bytes are far from
+// the limit.
 //
 // Numerics: build with -fmad=false and without fast math, so every product
 // and sum rounds as the plain PyTorch version's separate operations do and
@@ -49,11 +74,15 @@
 
 #include <cuda_runtime.h>
 
+#include <climits>
+
 namespace {
 
 constexpr int kRows = 11;          // A(3) | B(3) | C(3) | TD | depth
+constexpr int kRec = 12;           // a staged entry: the 11 rows and the id
 constexpr float kMissT = 3.0e38f;  // t of a rejected entry
 constexpr float kTinyDet = 1e-30f;
+constexpr int kOwnThreads = 512;   // the largest CTA of `own_walk_kernel`
 
 __device__ __forceinline__ float warp_min(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fminf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -65,17 +94,35 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+// The ray-entry test: whether the entry is accepted, and its det (an
+// accepted entry's t is TD / det).
+__device__ __forceinline__ bool mt_accept(float dx, float dy, float dz,
+                                          float a0, float a1, float a2,
+                                          float b0, float b1, float b2,
+                                          float c0, float c1, float c2,
+                                          float td, float eps, float eps2_det,
+                                          float* det_out) {
+  const float det = dx * a0 + dy * a1 + dz * a2;
+  const float up = dx * b0 + dy * b1 + dz * b2;
+  const float vp = dx * c0 + dy * c1 + dz * c2;
+  const float dd2 = det * det;
+  *det_out = det;
+  return (up * det >= 0.f) && (vp * det >= 0.f)
+      && ((det - up - vp) * det >= 0.f)
+      && (td * det - eps * dd2 >= 0.f) && (dd2 >= eps2_det);
+}
+
 template <bool kSliced, bool kSteps>
 __global__ void __launch_bounds__(1024)
-bin_intersect_kernel(const float4* __restrict__ rays,    // (nT, P) [d, bound]
-                     const float* __restrict__ geom,     // (11, epad)
-                     const int* __restrict__ entry_tri,  // (epad,)
-                     const int* __restrict__ starts,     // (nT + 1,)
-                     float* __restrict__ out_t,          // (nT, P)
-                     int* __restrict__ out_tri,          // (nT, P)
-                     int* __restrict__ steps,            // (nT, 2) or null
-                     int p, int epad, int chunk, int esub,
-                     float eps, float eps2_det, float draw_distance) {
+aligned_walk_kernel(const float4* __restrict__ rays,    // (nT, P) [d, bound]
+                    const float* __restrict__ geom,     // (11, epad)
+                    const int* __restrict__ entry_tri,  // (epad,)
+                    const int* __restrict__ starts,     // (nT + 1,)
+                    float* __restrict__ out_t,          // (nT, P)
+                    int* __restrict__ out_tri,          // (nT, P)
+                    int* __restrict__ steps,            // (nT, 2) or null
+                    int p, int epad, int chunk, int esub,
+                    float eps, float eps2_det, float draw_distance) {
   extern __shared__ float smem[];            // kRows * chunk floats, chunk ids
   float* g = smem;
   int* ids = reinterpret_cast<int*>(smem + kRows * chunk);
@@ -133,20 +180,16 @@ bin_intersect_kernel(const float4* __restrict__ rays,    // (nT, P) [d, bound]
       ++n_scanned;
 
       float bt = __int_as_float(0x7f800000);
-      int bi = 0x7fffffff;
+      int bi = INT_MAX;
       for (int k = k0; k < k1; ++k) {
-        const float det = ray.x * g[k] + ray.y * g[chunk + k] + ray.z * g[2 * chunk + k];
-        const float up = ray.x * g[3 * chunk + k] + ray.y * g[4 * chunk + k]
-                       + ray.z * g[5 * chunk + k];
-        const float vp = ray.x * g[6 * chunk + k] + ray.y * g[7 * chunk + k]
-                       + ray.z * g[8 * chunk + k];
-        const float td = g[9 * chunk + k];
-        const float dd2 = det * det;
-        const bool ok = (up * det >= 0.f) && (vp * det >= 0.f)
-                     && ((det - up - vp) * det >= 0.f)
-                     && (td * det - eps * dd2 >= 0.f) && (dd2 >= eps2_det);
+        float det;
+        const bool ok = mt_accept(
+            ray.x, ray.y, ray.z, g[k], g[chunk + k], g[2 * chunk + k],
+            g[3 * chunk + k], g[4 * chunk + k], g[5 * chunk + k],
+            g[6 * chunk + k], g[7 * chunk + k], g[8 * chunk + k],
+            g[9 * chunk + k], eps, eps2_det, &det);
         float tt = kMissT;
-        if (ok) tt = td / (det == 0.f ? kTinyDet : det);
+        if (ok) tt = g[9 * chunk + k] / (det == 0.f ? kTinyDet : det);
         const int id = ids[k];
         if (tt < bt || (tt == bt && id < bi)) {
           bt = tt;
@@ -167,21 +210,237 @@ bin_intersect_kernel(const float4* __restrict__ rays,    // (nT, P) [d, bound]
   out_tri[(size_t)tile * p + r] = best_tri;
 }
 
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Starts the copy of the entries [lo, hi) into records 0 .. hi - lo - 1.
+__device__ __forceinline__ void stage(float* slab, const float* geom,
+                                      const int* entry_tri, int epad, int lo,
+                                      int hi) {
+  for (int k = threadIdx.x; k < hi - lo; k += blockDim.x) {
+    float* rec = slab + k * kRec;
+    const size_t e = (size_t)lo + k;
+#pragma unroll
+    for (int row = 0; row < kRows; ++row)
+      cp_async4(rec + row, geom + (size_t)row * epad + e);
+    cp_async4(rec + kRows, entry_tri + e);
+  }
+  cp_async_commit();
+}
+
+// order[i] = the tile that CTA i of `own_walk_kernel` takes: the tiles in
+// descending order of own entries, counted in buckets of 64 (a counting
+// sort in one CTA, O(n_tiles)). The order within a bucket follows the
+// atomics; each tile's result does not depend on it.
+__global__ void __launch_bounds__(1024)
+longest_first_kernel(const int* __restrict__ starts, int n_tiles,
+                     int* __restrict__ order) {
+  constexpr int kBuckets = 32;
+  __shared__ int at[kBuckets];
+  const auto bucket = [&](int t) {
+    return min((starts[t + 1] - starts[t]) >> 6, kBuckets - 1);
+  };
+  if (threadIdx.x < kBuckets) at[threadIdx.x] = 0;
+  __syncthreads();
+  for (int t = threadIdx.x; t < n_tiles; t += blockDim.x) atomicAdd(&at[bucket(t)], 1);
+  __syncthreads();
+  if (threadIdx.x == 0) {                    // each bucket's first slot
+    for (int b = kBuckets - 1, n = 0; b >= 0; --b) {
+      const int c = at[b];
+      at[b] = n;
+      n += c;
+    }
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < n_tiles; t += blockDim.x)
+    order[atomicAdd(&at[bucket(t)], 1)] = t;
+}
+
+template <int R, bool kAllEntries>
+__global__ void __launch_bounds__(kOwnThreads, 2)
+own_walk_kernel(const float4* __restrict__ rays,    // (nT, P) [d, bound]
+                const float* __restrict__ geom,     // (11, epad)
+                const int* __restrict__ entry_tri,  // (epad,)
+                const int* __restrict__ starts,     // (nT + 1,)
+                const int* __restrict__ order,      // (nT,) or null
+                float* __restrict__ out_t,          // (nT, P)
+                int* __restrict__ out_tri,          // (nT, P)
+                int p, int epad, int chunk, int groups,
+                float eps, float eps2_det, float draw_distance) {
+  // two slabs of chunk records, then the groups' (t, id) per ray
+  extern __shared__ float4 smem4[];
+  float* slabs = reinterpret_cast<float*>(smem4);
+  float* red_t = slabs + 2 * chunk * kRec;
+  int* red_i = reinterpret_cast<int*>(red_t + groups * p);
+  __shared__ float w_min[kOwnThreads / 32], w_max[kOwnThreads / 32];
+
+  const int tile = order ? order[blockIdx.x] : blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int per_group = p / R;
+  const int grp = tid / per_group, lane_r = tid - grp * per_group;
+
+  float dx[R], dy[R], dz[R], bound[R], best[R];
+  int best_tri[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const float4 ray = rays[(size_t)tile * p + lane_r + j * per_group];
+    dx[j] = ray.x;
+    dy[j] = ray.y;
+    dz[j] = ray.z;
+    bound[j] = ray.w;
+    best[j] = draw_distance;
+    best_tri[j] = -1;
+  }
+
+  const int s0 = starts[tile], s1 = starts[tile + 1];
+  const int first = s0 / chunk;
+  const int last = s1 > s0 ? (s1 - 1) / chunk : first;
+  stage(slabs, geom, entry_tri, epad, s0, min(s1, (first + 1) * chunk));
+  for (int b = first; b <= last; ++b) {
+    const float* slab = slabs + ((b - first) & 1) * chunk * kRec;
+    const int lo = max(s0, b * chunk), hi = min(s1, (b + 1) * chunk);
+    // every read of the other slab ended before the previous block's last
+    // barrier, so its refill starts now and runs under this block's scan
+    if (b < last) {
+      stage(slabs + ((b + 1 - first) & 1) * chunk * kRec, geom, entry_tri,
+            epad, hi, min(s1, (b + 2) * chunk));
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                         // block b's records visible
+
+    // gate: own entries' minimum depth against max_r min(best_r, bound_r)
+    const int n = hi - lo;
+    float dmin = __int_as_float(0x7f800000);
+    for (int k = tid; k < n; k += blockDim.x) dmin = fminf(dmin, slab[k * kRec + 10]);
+    float wmax = fminf(best[0], bound[0]);
+#pragma unroll
+    for (int j = 1; j < R; ++j) wmax = fmaxf(wmax, fminf(best[j], bound[j]));
+    dmin = warp_min(dmin);
+    wmax = warp_max(wmax);
+    if (lane == 0) {
+      w_min[warp] = dmin;
+      w_max[warp] = wmax;
+    }
+    __syncthreads();
+    float cmin = w_min[0], wb = w_max[0];
+    for (int w = 1; w < nwarps; ++w) {
+      cmin = fminf(cmin, w_min[w]);
+      wb = fmaxf(wb, w_max[w]);
+    }
+    if (!(cmin < wb)) continue;              // uniform over the CTA
+
+    float bt[R];
+    int bi[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      bt[j] = __int_as_float(0x7f800000);
+      bi[j] = INT_MAX;
+    }
+    for (int k = grp; k < n; k += groups) {
+      const float4* rec = reinterpret_cast<const float4*>(slab + k * kRec);
+      const float4 e0 = rec[0], e1 = rec[1], e2 = rec[2];
+      const int id = __float_as_int(e2.w);
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        float det;
+        const bool ok = mt_accept(dx[j], dy[j], dz[j], e0.x, e0.y, e0.z,
+                                  e0.w, e1.x, e1.y, e1.z, e1.w, e2.x, e2.y,
+                                  eps, eps2_det, &det);
+        if (!kAllEntries && !ok) continue;
+        const float tt = ok ? e2.y / (det == 0.f ? kTinyDet : det) : kMissT;
+        if (tt < bt[j] || (tt == bt[j] && id < bi[j])) {
+          bt[j] = tt;
+          bi[j] = id;
+        }
+      }
+    }
+    // the block's (t, id) per ray: the lexicographic minimum over the groups
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int ray = grp * p + lane_r + j * per_group;
+      red_t[ray] = bt[j];
+      red_i[ray] = bi[j];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int ray = lane_r + j * per_group;
+      float t = red_t[ray];
+      int id = red_i[ray];
+      for (int q = 1; q < groups; ++q) {
+        const float tq = red_t[q * p + ray];
+        const int iq = red_i[q * p + ray];
+        if (tq < t || (tq == t && iq < id)) {
+          t = tq;
+          id = iq;
+        }
+      }
+      if (t < best[j]) {
+        best[j] = t;
+        best_tri[j] = id;
+      }
+    }
+  }
+  if (grp == 0) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const size_t at = (size_t)tile * p + lane_r + j * per_group;
+      out_t[at] = best[j];
+      out_tri[at] = best_tri[j];
+    }
+  }
+}
+
+template <int R>
+cudaError_t launch_own(int n_tiles, int threads, size_t smem,
+                       cudaStream_t stream, bool all_entries,
+                       const float4* rays, const float* geom,
+                       const int* entry_tri, const int* starts,
+                       const int* order, float* out_t, int* out_tri, int p,
+                       int epad, int chunk, int groups, float eps,
+                       float eps2_det, float draw_distance) {
+  auto kernel = all_entries ? own_walk_kernel<R, true> : own_walk_kernel<R, false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<n_tiles, threads, smem, stream>>>(
+      rays, geom, entry_tri, starts, order, out_t, out_tri, p, epad, chunk,
+      groups, eps, eps2_det, draw_distance);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// Kernel K3: the aligned walk with the telemetry switch (esub > 1 or a
+// steps output).
 extern "C" int bin_intersect_launch(const void* rays, const void* geom,
                                     const void* entry_tri, const void* starts,
                                     void* out_t, void* out_tri, void* steps,
                                     int n_tiles, int p, int epad, int chunk,
                                     int esub, float eps, float eps2_det,
                                     float draw_distance, void* stream) {
+  if (esub <= 1 && !steps) return (int)cudaErrorInvalidValue;  // that is K1
   // dynamic shared memory above 48 KB (with the static reduction arrays)
   // needs the opt-in; setting it always is one cheap host call
   const size_t smem = (size_t)(kRows + 1) * chunk * sizeof(float);
-  auto kernel = esub > 1 ? (steps ? bin_intersect_kernel<true, true>
-                                  : bin_intersect_kernel<true, false>)
-                         : (steps ? bin_intersect_kernel<false, true>
-                                  : bin_intersect_kernel<false, false>);
+  auto kernel = esub > 1 ? (steps ? aligned_walk_kernel<true, true>
+                                  : aligned_walk_kernel<true, false>)
+                         : aligned_walk_kernel<false, true>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -192,4 +451,44 @@ extern "C" int bin_intersect_launch(const void* rays, const void* geom,
       static_cast<int*>(steps), p, epad, chunk, esub, eps, eps2_det,
       draw_distance);
   return (int)cudaGetLastError();
+}
+
+// Kernel K1: the own-range walk, one CTA of `groups` groups of
+// p / rays_per_thread threads a tile. With `order` (n_tiles ints of
+// scratch) the tiles are taken longest first, ordered by one small kernel
+// launched before the walk; without it in index order.
+extern "C" int bin_intersect_own_launch(
+    const void* rays, const void* geom, const void* entry_tri,
+    const void* starts, void* order, void* out_t, void* out_tri,
+    int n_tiles, int p, int epad, int chunk, int rays_per_thread, int groups,
+    float eps, float eps2_det, float draw_distance, void* stream) {
+  const int r = rays_per_thread;
+  if ((r != 1 && r != 2 && r != 4) || p % (32 * r) || groups < 1
+      || (p / r) * groups > kOwnThreads)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)2 * chunk * kRec * sizeof(float)
+                    + (size_t)groups * p * (sizeof(float) + sizeof(int));
+  const bool all_entries = !(draw_distance <= kMissT);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (order) {
+    longest_first_kernel<<<1, 1024, 0, s>>>(static_cast<const int*>(starts),
+                                            n_tiles, static_cast<int*>(order));
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  auto args = [&](auto launch) {
+    return launch(n_tiles, (p / r) * groups, smem, s, all_entries,
+                  static_cast<const float4*>(rays),
+                  static_cast<const float*>(geom),
+                  static_cast<const int*>(entry_tri),
+                  static_cast<const int*>(starts),
+                  static_cast<const int*>(order),
+                  static_cast<float*>(out_t),
+                  static_cast<int*>(out_tri), p, epad, chunk, groups, eps,
+                  eps2_det, draw_distance);
+  };
+  cudaError_t e = r == 4 ? args(launch_own<4>)
+                : r == 2 ? args(launch_own<2>)
+                         : args(launch_own<1>);
+  return (int)e;
 }

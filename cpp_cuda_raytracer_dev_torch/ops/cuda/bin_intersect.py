@@ -5,19 +5,24 @@ depth-sorted entry blocks (kernel K1 of the JAX package,
 per-tile scan counts.
 
 - `bin_intersect` is the wrapper. For CUDA tensors it launches the
-  hand-written kernel in ``csrc/bin_intersect.cu`` and raises if the launch
+  hand-written kernels in ``csrc/bin_intersect.cu`` and raises if a launch
   fails; for CPU tensors it runs `bin_intersect_reference`. Nothing falls
   back from the card to the plain version.
+- Two walks. At ``esub`` 1 without ``with_steps`` (every frame and training
+  step) K1 scans only each tile's own entries of its blocks (ROADMAP F9);
+  the telemetry switch (K3) keeps the JAX kernels' walk over whole blocks,
+  on which its counts are defined.
 - `bin_intersect_reference` is the plain PyTorch version with the same
   contract. It processes round k, the k-th block of every tile, at once
   (in tile groups to bound memory) and applies the same gate per round and
-  slice, so it scans the same entries in the same order as the kernel and
-  agrees with it bit for bit.
+  slice, so it scans the same entries as the kernels and agrees with them
+  bit for bit. `own_walk_work` counts the entries K1 scans and the pairs
+  it accepts, for its bound.
 - `bin_intersect.launches` counts kernel launches, and
   `bin_intersect.telemetry_launches` those of them with the telemetry
   switch (K3: ``esub`` above 1 or ``with_steps``).
 
-The kernel is built by `._build` (nvcc at first use, ctypes).
+The kernels are built by `._build` (nvcc at first use, ctypes).
 """
 
 from __future__ import annotations
@@ -34,17 +39,31 @@ GEOM_ROWS = 11            # entry-table rows: A(3) | B(3) | C(3) | TD | depth
 _MISS_T = 3.0e38
 _NO_TRI = torch.iinfo(torch.int32).max
 _PAIRS = 1 << 24          # ray-entry pairs per group of the plain version
-_fn = []
+_OWN_THREADS = 512        # threads of a K1 CTA (kOwnThreads in the source)
+_lib = []
 
 
-def _launcher():
-    if not _fn:
-        fn = _build.load("bin_intersect").bin_intersect_launch
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-                       + [ctypes.c_float] * 3 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fn.append(fn)
-    return _fn[0]
+def _launchers():
+    """(K1's launch, K3's launch) from the built library."""
+    if not _lib:
+        lib = _build.load("bin_intersect")
+        own = lib.bin_intersect_own_launch
+        own.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                        + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+        aligned = lib.bin_intersect_launch
+        aligned.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                            + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+        own.restype = aligned.restype = ctypes.c_int
+        _lib.append((own, aligned))
+    return _lib[0]
+
+
+def own_walk_shape(p: int) -> tuple[int, int]:
+    """K1's CTA for P rays a tile: (rays a thread, groups). Each group of
+    P / rays threads holds all of the tile's rays; the groups split each
+    block's entries, up to `_OWN_THREADS` threads."""
+    rays = next(r for r in (4, 2, 1) if p % (32 * r) == 0)
+    return rays, max(1, _OWN_THREADS // (p // rays))
 
 
 def effective_esub(chunk: int, esub: int) -> int:
@@ -94,7 +113,8 @@ def bin_intersect(rays: torch.Tensor, geom: torch.Tensor,
                   entry_tri: torch.Tensor, starts: torch.Tensor,
                   chunk: int = 512, eps: float = MT_EPSILON,
                   draw_distance: float = DEFAULT_DRAW_DISTANCE,
-                  esub: int = 1, with_steps: bool = False):
+                  esub: int = 1, with_steps: bool = False,
+                  longest_first: bool = True):
     """Nearest hit per ray over binned entries.
 
     rays: (nT, P, 4) f32 [dx, dy, dz, scene-exit bound] per tile;
@@ -105,7 +125,12 @@ def bin_intersect(rays: torch.Tensor, geom: torch.Tensor,
     pads it with a dead chunk). Returns (t (nT, P) f32, draw distance on a
     miss; tri (nT, P) i32, -1 on a miss), and with ``with_steps`` also
     steps (nT, 2) i32 = [slices scanned, blocks walked] per tile. ``esub``
-    splits each block into gated slices (`effective_esub`).
+    splits each block into gated slices (`effective_esub`). At esub 1
+    without steps only the tile's own entries of each block, [starts[t],
+    starts[t+1]), take part, in the gate and the select (K1); otherwise
+    every entry of the blocks does (K3, the JAX kernels' walk). K1 takes
+    the tiles longest first; ``longest_first=False`` takes them in index
+    order, with the same result (chip_smoke.py times the two).
     """
     _check(rays, geom, entry_tri, starts, chunk)
     esub = effective_esub(chunk, esub)
@@ -117,8 +142,12 @@ def bin_intersect(rays: torch.Tensor, geom: torch.Tensor,
     n_t, p, _ = rays.shape
     if p % 32 or not 32 <= p <= 1024:
         raise ValueError(f"P = {p} rays per tile must be a multiple of 32 "
-                         "in [32, 1024] (one thread per ray)")
-    if (GEOM_ROWS + 1) * chunk * 4 > 227 * 1024:
+                         "in [32, 1024]")
+    telemetry = esub > 1 or with_steps
+    r_thread, groups = own_walk_shape(p)
+    smem = ((GEOM_ROWS + 1) * chunk * 4 if telemetry
+            else 2 * (GEOM_ROWS + 1) * chunk * 4 + groups * p * 8)
+    if smem > 227 * 1024:
         raise ValueError(f"chunk {chunk} does not fit in shared memory")
     if rays.data_ptr() % 16:
         raise ValueError("rays must be 16-byte aligned (read as float4)")
@@ -131,16 +160,26 @@ def bin_intersect(rays: torch.Tensor, geom: torch.Tensor,
         return out
     eps_f, eps2_det, draw = _constants(eps, draw_distance)
     stream = torch.cuda.current_stream(rays.device).cuda_stream
-    err = _launcher()(rays.data_ptr(), geom.data_ptr(), entry_tri.data_ptr(),
+    own, aligned = _launchers()
+    if telemetry:
+        err = aligned(rays.data_ptr(), geom.data_ptr(), entry_tri.data_ptr(),
                       starts.data_ptr(), out_t.data_ptr(), out_tri.data_ptr(),
-                      None if steps is None else steps.data_ptr(),
-                      n_t, p, geom.shape[1], chunk, esub, eps_f, eps2_det,
-                      draw, stream)
+                      None if steps is None else steps.data_ptr(), n_t, p,
+                      geom.shape[1], chunk, esub, eps_f, eps2_det, draw,
+                      stream)
+    else:
+        order = (torch.empty(n_t, dtype=torch.int32, device=rays.device)
+                 if longest_first else None)
+        err = own(rays.data_ptr(), geom.data_ptr(), entry_tri.data_ptr(),
+                  starts.data_ptr(), None if order is None else
+                  order.data_ptr(), out_t.data_ptr(), out_tri.data_ptr(),
+                  n_t, p, geom.shape[1], chunk, r_thread, groups, eps_f,
+                  eps2_det, draw, stream)
     if err != 0:
         raise RuntimeError(f"bin_intersect kernel launch failed: CUDA error "
                            f"{err}")
     bin_intersect.launches += 1
-    bin_intersect.telemetry_launches += int(esub > 1 or with_steps)
+    bin_intersect.telemetry_launches += int(telemetry)
     return out
 
 
@@ -156,6 +195,31 @@ def bin_intersect_reference(rays: torch.Tensor, geom: torch.Tensor,
     """Plain PyTorch version of `bin_intersect` (same contract, same
     result bit for bit)."""
     esub = effective_esub(chunk, esub)
+    own = esub == 1 and not with_steps
+    t, tri, steps = _walk(rays, geom, entry_tri, starts, chunk, eps,
+                          draw_distance, esub, own)
+    return (t, tri, steps) if with_steps else (t, tri)
+
+
+def own_walk_work(rays: torch.Tensor, geom: torch.Tensor,
+                  entry_tri: torch.Tensor, starts: torch.Tensor,
+                  chunk: int = 512, eps: float = MT_EPSILON,
+                  draw_distance: float = DEFAULT_DRAW_DISTANCE
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's work per tile, two (nT,) int64: the own entries of the blocks
+    whose gate opened (each is scanned against all P rays of its tile), and
+    the ray-entry pairs among those that the test accepted."""
+    counts = _walk(rays, geom, entry_tri, starts, chunk, eps, draw_distance,
+                   1, own=True)[2]
+    return counts[:, 0], counts[:, 2]
+
+
+def _walk(rays, geom, entry_tri, starts, chunk, eps, draw_distance, esub,
+          own):
+    """The walk of both kernels: over whole blocks in ``esub`` slices, or
+    (``own``) over each block's own entries of the tile. Returns t, tri and
+    (nT, 2) int32 [slices scanned, blocks walked] per tile, or with ``own``
+    (nT, 3) int64 [entries scanned, blocks walked, pairs accepted]."""
     el = chunk // esub
     eps_f, eps2_det, draw = _constants(eps, draw_distance)
     n_t, p, _ = rays.shape
@@ -169,17 +233,23 @@ def bin_intersect_reference(rays: torch.Tensor, geom: torch.Tensor,
     bound = rays[..., 3]
     best_t = torch.full((n_t, p), draw, dtype=torch.float32, device=dev)
     best_tri = torch.full((n_t, p), -1, dtype=torch.int32, device=dev)
-    scanned = torch.zeros(n_t, dtype=torch.int32, device=dev)
+    scanned = torch.zeros(n_t, dtype=torch.int64, device=dev)
+    accepted = torch.zeros(n_t, dtype=torch.int64, device=dev)
     group = max(1, _PAIRS // (p * el))
     rounds = int(nblk.max()) if n_t else 0
+    col = torch.arange(chunk, device=dev)
     for k in range(rounds):
         tiles_k = torch.nonzero(nblk > k).squeeze(1)
         blk_k = first[tiles_k] + k
+        if own:                                    # the tile's own entries
+            pos = blk_k[:, None] * chunk + col
+            mine_k = (pos >= s0[tiles_k, None]) & (pos < s1[tiles_k, None])
+            dmin_k = torch.where(mine_k, g[10][blk_k], torch.inf).amin(dim=1)
         for sl in range(esub):
             wb = torch.minimum(best_t[tiles_k], bound[tiles_k]).amax(dim=1)
-            go = dmin[blk_k, sl] < wb              # the kernel's gate
+            go = (dmin_k if own else dmin[blk_k, sl]) < wb   # the gate
             tiles, blk = tiles_k[go], blk_k[go]
-            scanned[tiles] += 1
+            scanned[tiles] += mine_k[go].sum(dim=1) if own else 1
             cols = slice(sl * el, (sl + 1) * el)
             for i in range(0, tiles.shape[0], group):
                 tg, bg = tiles[i:i + group], blk[i:i + group]
@@ -197,6 +267,10 @@ def bin_intersect_reference(rays: torch.Tensor, geom: torch.Tensor,
                 ok = (qq >= 0.0) & (dd2 >= eps2_det)
                 tt = torch.where(ok, td / torch.where(det == 0.0, 1e-30, det),
                                  _MISS_T)
+                if own:                            # other tiles' entries out
+                    mine = mine_k[go][i:i + group, None]
+                    tt = torch.where(mine, tt, torch.inf)
+                    accepted[tg] += (ok & mine).sum(dim=(1, 2))
                 tmin = tt.amin(dim=2)
                 tri = torch.where(tt == tmin[..., None],
                                   ids[bg][:, None, cols], _NO_TRI).amin(dim=2)
@@ -204,7 +278,7 @@ def bin_intersect_reference(rays: torch.Tensor, geom: torch.Tensor,
                 better = tmin < cur_t
                 best_t[tg] = torch.where(better, tmin, cur_t)
                 best_tri[tg] = torch.where(better, tri, cur_tri)
-    if with_steps:
-        return best_t, best_tri, torch.stack([scanned, nblk.to(torch.int32)],
-                                             dim=1)
-    return best_t, best_tri
+    if own:
+        return best_t, best_tri, torch.stack([scanned, nblk, accepted], 1)
+    return best_t, best_tri, torch.stack([scanned, nblk], dim=1).to(
+        torch.int32)

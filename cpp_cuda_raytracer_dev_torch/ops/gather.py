@@ -3,10 +3,10 @@
 
 - Forward: every table is packed into one (T, F) block and gathered with a
   single ``index_select``.
-- Backward (`segment_sum_rows`): a stable sort of the ids, the (R, F)
-  cotangent block permuted into that order, then kernel K2
-  (``ops/cuda/segment_sum.py``). The stable sort fixes the row order inside
-  each segment and with it every float32 sum.
+- Backward (`segment_sum_rows`): a stable sort of the ids, then kernel K2
+  (``ops/cuda/segment_sum.py``), which reads the (R, F) cotangent rows
+  through the sort order. The stable sort fixes the row order inside each
+  segment and with it every float32 sum.
 - When no table needs a gradient (the pose/light/camera-only step), the
   Function is not entered: nothing is sorted and nothing launches.
 - `take_rows` is the plain per-table ``index_select``, whose autograd
@@ -40,8 +40,8 @@ def segment_sum_rows(block: torch.Tensor, idx: torch.Tensor,
     """(t_rows, F) sums of the (R, F) rows of ``block`` by ``idx`` (R,):
     the VJP of ``index_select`` on a (t_rows, F) table."""
     idx_sorted, order = torch.sort(idx, stable=True)
-    return k2.segment_sum(block.index_select(0, order).contiguous(),
-                          idx_sorted.to(torch.int32), t_rows)
+    return k2.segment_sum(block.contiguous(), idx_sorted.to(torch.int32),
+                          t_rows, order=order)
 
 
 class _GatherRows(torch.autograd.Function):

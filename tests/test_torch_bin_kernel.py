@@ -1,6 +1,7 @@
 """The bin-intersect kernel's plain version vs the JAX package's Pallas
-kernel K1 (``pallas_bin_intersect3`` in interpret mode), and the kernel vs
-its plain version on the card.
+kernel K1 (``pallas_bin_intersect3`` in interpret mode), the port's walk
+over each tile's own entries vs the JAX kernels' walk over whole blocks
+(ROADMAP F9), and the kernel vs its plain version on the card.
 
 Both sides get identical binned inputs: the JAX package's ray table and
 entry table (its 12th row, the id in float32, is the port's int32
@@ -23,8 +24,9 @@ import torch
 from cpp_cuda_raytracer_dev_torch import Camera, RenderConfig, Triangles
 from cpp_cuda_raytracer_dev_torch.accel.traverse import bin_object
 from cpp_cuda_raytracer_dev_torch.ops.cuda.bin_intersect import (
-    bin_intersect, bin_intersect_reference)
-from cpp_cuda_raytracer_dev_torch.utils.procgen import uv_sphere
+    bin_intersect, bin_intersect_reference, own_walk_work)
+from cpp_cuda_raytracer_dev_torch.utils.procgen import (dragon_class_mesh,
+                                                        uv_sphere)
 
 RES_W, RES_H, TH, TW = 96, 64, 16, 32
 N_TILES = (RES_W // TW) * (RES_H // TH)
@@ -78,6 +80,45 @@ def test_plain_version_matches_jax_kernel(cull, chunk):
     np.testing.assert_allclose(pt.numpy(), np.asarray(jt), rtol=2e-6)
 
 
+def _port_binned(tv, res_w, res_h, cull, chunk, device, tile=(TH, TW),
+                 pos=(0.0, 0.2, -3.0)):
+    tris = Triangles.from_vertices(tv, device=device)
+    cam = Camera.create(res_w, res_h, pos=list(pos), look_at=[0.0, 0.0, 0.0],
+                        up=[0.0, 1.0, 0.0], film_h=0.024, focal=0.055,
+                        device=device)
+    config = RenderConfig(method="bin", tile_h=tile[0], tile_w=tile[1],
+                          bin_chunk=chunk, backface_cull=cull)
+    with torch.no_grad():
+        rays, b = bin_object(cam.pos, tris, cam.projection(), config,
+                             res_h, res_w)
+    return rays, b.geom, b.entry_tri, b.starts
+
+
+@pytest.mark.parametrize("mesh,res,cull,pos", [
+    ("sphere", (RES_W, RES_H), False, (0.0, 0.2, -3.0)),
+    ("sphere", (RES_W, RES_H), True, (0.0, 0.2, -3.0)),
+    ("dragon-class 20k", (240, 136), True, (0.0, 0.0, -3.0))])
+def test_own_range_walk_matches_aligned_walk(mesh, res, cull, pos):
+    """Binning is conservative, so the other tiles' entries that share a
+    tile's first and last block cannot hit its rays: K1's walk over the own
+    entries gives the same t bit for bit and the same ids as K3's walk over
+    whole blocks (K3 at esub 1), while it scans fewer entries."""
+    tv = (uv_sphere(50, 50, roughness=0.03) if mesh == "sphere"
+          else dragon_class_mesh(20_000))
+    ops = _port_binned(tv, *res, cull, 512, "cpu", pos=pos)
+    own_t, own_tri = bin_intersect_reference(*ops, 512)
+    al_t, al_tri, steps = bin_intersect_reference(*ops, 512, with_steps=True)
+    assert (own_tri >= 0).float().mean() > 0.3
+    assert torch.equal(own_t, al_t)
+    assert torch.equal(own_tri, al_tri)
+    own_entries, accepted = own_walk_work(*ops, 512)
+    assert (int(own_entries.sum()) * ops[0].shape[1]
+            < int(steps[:, 0].sum()) * 512 * ops[0].shape[1])
+    # every hit was accepted; the test accepts few of the pairs
+    assert (int((own_tri >= 0).sum()) <= int(accepted.sum())
+            < int(own_entries.sum()) * ops[0].shape[1] // 10)
+
+
 def test_wrapper_runs_plain_version_for_cpu_tensors():
     rays, binned = _jax_operands(False, 128)
     ops = _port_operands(rays, binned)
@@ -128,3 +169,30 @@ def test_kernel_matches_plain_version_on_gpu(cull):
     assert (rtri >= 0).float().mean() > 0.5
     assert torch.equal(ktri, rtri)
     assert torch.equal(kt, rt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile,chunk,draw", [
+    ((16, 32), 512, 400.0), ((8, 32), 128, 400.0), ((32, 32), 512, 400.0),
+    ((4, 8), 128, 400.0), ((8, 12), 64, 400.0), ((16, 32), 128, np.inf)])
+def test_kernel_shapes_match_plain_version_on_gpu(tile, chunk, draw):
+    """Bit for bit at every CTA shape the wrapper picks (4, 2 and 1 rays a
+    thread, 1-16 entry groups) and with an infinite draw distance, where
+    rejected entries take part in the select; the tiles longest first and
+    in index order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    ops = _port_binned(dragon_class_mesh(20_000), 240, 136, True, chunk,
+                       "cuda", tile=tile, pos=(0.3, 0.1, -2.5))
+    before = bin_intersect.launches
+    kt, ktri = bin_intersect(*ops, chunk, draw_distance=draw)
+    torch.cuda.synchronize()
+    nt, ntri = bin_intersect(*ops, chunk, draw_distance=draw,
+                             longest_first=False)
+    torch.cuda.synchronize()
+    assert bin_intersect.launches == before + 2
+    rt, rtri = bin_intersect_reference(*ops, chunk, draw_distance=draw)
+    assert (rtri >= 0).float().mean() > 0.3
+    for t, tri in ((kt, ktri), (nt, ntri)):
+        assert torch.equal(tri, rtri)
+        assert torch.equal(t, rt)

@@ -126,7 +126,9 @@ def test_trace_rays_refuses_stats(both):
 @pytest.mark.parametrize("esub", [1, 4])
 def test_kernel_stats_match_plain_version_on_gpu(esub):
     """Bit for bit, steps included, and bitwise the same hits without the
-    steps output (each switch setting is its own instantiation)."""
+    steps output (each switch setting is its own instantiation; at esub 1
+    that is K1's walk over the own entries, which on this view gives the
+    same hits)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     tris = Triangles.from_vertices(uv_sphere(50, 50, roughness=0.03),
@@ -148,5 +150,8 @@ def test_kernel_stats_match_plain_version_on_gpu(esub):
     assert (rtri >= 0).float().mean() > 0.5
     assert torch.equal(ktri, rtri) and torch.equal(kt, rt)
     assert torch.equal(ksteps, rsteps)
+    # without steps: K1's walk at esub 1, the sliced walk at esub 4
     pt, ptri = bin_intersect(*ops, esub=esub)
+    wt, wtri = bin_intersect_reference(*ops, esub=esub)
+    assert torch.equal(pt, wt) and torch.equal(ptri, wtri)
     assert torch.equal(pt, kt) and torch.equal(ptri, ktri)

@@ -1,6 +1,7 @@
 """The port's `gather_rows` (forward and sorted segment-sum backward) and the
 segment sum's plain version against the JAX package's ``ops/gather.py``,
-and kernel K2 against its plain version on the card.
+and kernel K2 against its plain version on the card, with the rows in sort
+order or read through the sort order (``order``), as the backward calls it.
 
 Tolerances:
 - forward: equal (a row gather moves bits);
@@ -30,6 +31,15 @@ import torch
 
 from cpp_cuda_raytracer_dev_torch.ops import gather as pg
 from cpp_cuda_raytracer_dev_torch.ops.cuda import segment_sum as k2
+
+
+def _shuffled(block, seed=5):
+    """(rows in another order, order) with rows[order] == block: the
+    cotangent block as the backward sees it, before its sort."""
+    perm = np.random.default_rng(seed).permutation(block.shape[0])
+    rows = np.empty_like(block)
+    rows[perm] = block
+    return rows, perm.astype(np.int64)
 
 
 def _rand_case(rng, t_rows, r_rows, widths):
@@ -142,6 +152,11 @@ def test_segment_sum_reference_matches_jax(case):
     np.testing.assert_allclose(got, np.asarray(_bwd_cumsum(jb, ji, t_rows)),
                                rtol=1e-4, atol=1e-4)
     _assert_within_sum_bound(got, block, idx, t_rows)
+    # read through the sort order: the same rows in the same order
+    rows, order = _shuffled(block)
+    fused = k2.segment_sum_reference(torch.tensor(rows), torch.tensor(idx),
+                                     t_rows, order=torch.tensor(order))
+    np.testing.assert_array_equal(fused.numpy(), got)
 
 
 def test_wrapper_runs_plain_version_for_cpu_tensors():
@@ -167,6 +182,11 @@ def test_wrapper_rejects_bad_operands():
         k2.segment_sum(b.T.contiguous().T, i, t_rows)
     with pytest.raises(ValueError, match="t_rows"):
         k2.segment_sum(b, i, 0)
+    order = torch.arange(b.shape[0])
+    with pytest.raises(ValueError, match="order"):
+        k2.segment_sum(b, i, t_rows, order=order.int())
+    with pytest.raises(ValueError, match="order"):
+        k2.segment_sum(b, i, t_rows, order=order[:-1])
 
 
 def test_backward_sorts_and_sums_only_when_a_table_needs_grad(monkeypatch):
@@ -224,6 +244,10 @@ def test_plain_version_sums_integer_rows_exactly():
     for name, block, idx, t_rows, exact in _integer_cases(20_000):
         got = k2.segment_sum(torch.tensor(block), torch.tensor(idx), t_rows)
         np.testing.assert_array_equal(got.numpy(), exact, err_msg=name)
+        rows, order = _shuffled(block)
+        got = k2.segment_sum(torch.tensor(rows), torch.tensor(idx), t_rows,
+                             order=torch.tensor(order))
+        np.testing.assert_array_equal(got.numpy(), exact, err_msg=name)
 
 
 @pytest.mark.gpu
@@ -233,6 +257,11 @@ def test_kernel_sums_integer_rows_exactly_on_gpu():
     for name, block, idx, t_rows, exact in _integer_cases(300_000):
         got = k2.segment_sum(torch.tensor(block).cuda(),
                              torch.tensor(idx).cuda(), t_rows)
+        np.testing.assert_array_equal(got.cpu().numpy(), exact, err_msg=name)
+        rows, order = _shuffled(block)
+        got = k2.segment_sum(torch.tensor(rows).cuda(),
+                             torch.tensor(idx).cuda(), t_rows,
+                             order=torch.tensor(order).cuda())
         np.testing.assert_array_equal(got.cpu().numpy(), exact, err_msg=name)
 
 
@@ -244,12 +273,20 @@ def test_kernel_matches_plain_version_on_gpu():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     for name, block, idx, t_rows in _segment_cases():
         b, i = torch.tensor(block).cuda(), torch.tensor(idx).cuda()
+        rows, order = _shuffled(block)
+        rows, order = torch.tensor(rows).cuda(), torch.tensor(order).cuda()
         before = k2.segment_sum.launches
         got = k2.segment_sum(b, i, t_rows)
         again = k2.segment_sum(b, i, t_rows)
+        fused = k2.segment_sum(rows, i, t_rows, order=order)
+        fused_again = k2.segment_sum(rows, i, t_rows, order=order)
         torch.cuda.synchronize()
-        assert k2.segment_sum.launches == before + 2, name
+        assert k2.segment_sum.launches == before + 4, name
         assert torch.equal(got, again), name
+        # the same rows in the same order: the same sums
+        assert torch.equal(fused, got) and torch.equal(fused, fused_again)
         _assert_within_sum_bound(got.cpu().numpy(), block, idx, t_rows)
-        plain = k2.segment_sum_reference(b, i, t_rows).cpu().numpy()
-        _assert_within_sum_bound(plain, block, idx, t_rows)
+        for o in (None, order):
+            plain = k2.segment_sum_reference(rows if o is not None else b, i,
+                                             t_rows, order=o).cpu().numpy()
+            _assert_within_sum_bound(plain, block, idx, t_rows)
