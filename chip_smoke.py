@@ -69,10 +69,16 @@ Phases (any failure raises and the process exits non-zero):
      kernel and frame timed with and without the telemetry;
   9. the cluster paths: build the ClusterAccel (seconds, clusters); the
      tile-intersect kernels K4 and K5 against their plain versions on the
-     same operands (a 96x64 sphere, headline frame 0, and a grazing view
-     with 4 candidates a tile whose overflow forces escalation: the first
-     pass and the escalation pass), ids equal and t bitwise equal, timed
-     with CUDA events; 8 "pallas2" and 3 "pallas" frames through ``render``
+     same operands (a 96x64 sphere, headline frame 0, a grazing view
+     with 4 candidates a tile whose overflow forces escalation, and a
+     sphere whose every triangle is there twice, so that every hit is an
+     exact tie: the first pass and the escalation pass, each with and
+     without the sub-tile count), ids, t and steps bitwise equal, and on
+     the tie scene the tie rule's winner; the lane efficiency one ray a
+     thread would have on frame 0 (from the telemetry); both kernels, and
+     K4's escalation pass, timed with CUDA events; each design lever
+     switched off in turn and timed against the design (``time_levers``);
+     8 "pallas2" and 3 "pallas" frames through ``render``
      at phase 3's cameras and poses after resetting both launch counters,
      which must show the frames went through the kernels; frame 0 of each
      and one "grid" frame against phase 4's oracle rays (agreement >=
@@ -80,7 +86,8 @@ Phases (any failure raises and the process exits non-zero):
      operations); one "pallas2" training step (every gradient finite); the
      telemetry of frame 0 (candidates visited, rays that passed each box
      test, residual overflow); each candidate's rays past its box test,
-     times its cluster's triangle count, give both kernels' bounds;
+     times its cluster's triangle count, give both kernels' bounds and the
+     escalation pass's (``pair_count``);
  10. the per-tile bin kernel K6 at chunk 128 on the port's own binning:
      its entry point (bin_object -> tile_operands -> kernel -> decode_enc)
      on phase 3's 8 frames after resetting its launch counter, which must
@@ -322,10 +329,11 @@ def main() -> None:
                          "bin_tile_intersect")
     log(f"built {', '.join(lib.name for lib, _ in built.values())} in "
         f"{time.perf_counter() - t0:.2f} s")
-    for _, build_log in built.values():
+    for name, (_, build_log) in built.items():
         for line in build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
+            if "entry function" in line or "registers" in line \
+                    or "spill" in line:
+                log(f"  ptxas [{name}]: {line.strip()}")
 
     cfg = RenderConfig(method="bin", tile_h=16, tile_w=32, bin_chunk=512,
                        backface_cull=True)
@@ -971,8 +979,14 @@ def run_cluster_paths(dev, headline_tv, frames, idx_t, ref, smi, clock_mhz):
                   acc.geom9, acc.slot_mat)
         return first, second, ovf, ovf2
 
-    # kernels against their plain versions on identical operands
+    # kernels against their plain versions on identical operands; the tie
+    # scene holds every triangle twice (ids i and i + n, neighbouring
+    # slots of one cluster, so in different slot groups), which makes every
+    # hit an exact tie for the within-cluster rule
     sphere_tris = Triangles.from_vertices(uv_sphere(50, 50), device=dev)
+    tv_dup = uv_sphere(100, 100)
+    dup_tris = Triangles.from_vertices(np.concatenate([tv_dup, tv_dup]),
+                                       device=dev)
     cases = [
         ("sphere 96x64", Scene([SceneObject(sphere_tris)]),
          camera((0.0, 0.0, -3.0), 96, 64),
@@ -981,7 +995,11 @@ def run_cluster_paths(dev, headline_tv, frames, idx_t, ref, smi, clock_mhz):
         ("dragon-class frame 0", *frames[0], accel, c2, RES_W, RES_H),
         ("dragon-class grazing, 4 candidates", Scene([SceneObject(tris)]),
          camera((1.8, 0.3, 1.6), RES_W, RES_H), accel,
-         dataclasses.replace(c2, max_candidates=4), RES_W, RES_H)]
+         dataclasses.replace(c2, max_candidates=4), RES_W, RES_H),
+        ("duplicated-triangle ties", Scene([SceneObject(dup_tris)]),
+         camera((0.2, 0.3, -2.5), RES_W, RES_H),
+         ClusterAccel.build(dup_tris, leaf_size=128, cache=False),
+         dataclasses.replace(c2, max_candidates=16), RES_W, RES_H)]
     max_err = {"K4": 0.0, "K5": 0.0}
     with torch.inference_mode():
         for name, scene, cam, acc, c, w, h in cases:
@@ -993,25 +1011,49 @@ def run_cluster_paths(dev, headline_tv, frames, idx_t, ref, smi, clock_mhz):
                 f"pass {second[0].shape[0]} tiles at K {second[1].shape[1]}, "
                 f"overflow left on {int((ovf2 > 0).sum())}")
             if name == "dragon-class frame 0":
-                frame0 = first
+                frame0, escal0 = first, second
+            p_case = first[0].shape[2]
             for kname, (fn, plain) in kernels.items():
                 for pname, ops in (("first pass", first),
                                    ("escalation pass", second)):
-                    got = fn(*ops)
-                    torch.cuda.synchronize()
-                    want = plain(*ops)
-                    torch.cuda.synchronize()
-                    eq = [torch.equal(x, y) for x, y in zip(got, want)]
-                    err = float((got[0] - want[0]).abs().max())
-                    max_err[kname] = max(max_err[kname], err)
-                    log(f"{kname} vs plain [{name}, {pname}]: t_bitwise_equal "
-                        f"{eq[0]} tri_equal {eq[1]} steps_equal {eq[2]} "
-                        f"max_abs_err {err} hit_rate "
-                        f"{float((got[1] >= 0).float().mean()):.6f} "
-                        f"candidates visited {int(got[2][:, 0].sum())}")
-                    if not all(eq):
-                        raise RuntimeError(f"{kname} and its plain version "
-                                           f"disagree on {name}, {pname}")
+                    for subs in ({}, {"n_sub": p_case, "count_subs": True}):
+                        got = fn(*ops, **subs)
+                        torch.cuda.synchronize()
+                        want = plain(*ops, **subs)
+                        torch.cuda.synchronize()
+                        eq = [torch.equal(x, y) for x, y in zip(got, want)]
+                        err = float((got[0] - want[0]).abs().max())
+                        max_err[kname] = max(max_err[kname], err)
+                        log(f"{kname} vs plain [{name}, {pname}"
+                            f"{', count_subs' if subs else ''}]: "
+                            f"t_bitwise_equal {eq[0]} tri_equal {eq[1]} "
+                            f"steps_equal {eq[2]} max_abs_err {err} hit_rate "
+                            f"{float((got[1] >= 0).float().mean()):.6f} "
+                            f"candidates visited {int(got[2][:, 0].sum())}"
+                            + (f", rays past a box test "
+                               f"{int(got[2][:, 1].sum())}" if subs else ""))
+                        if not all(eq):
+                            raise RuntimeError(
+                                f"{kname} and its plain version disagree on "
+                                f"{name}, {pname}, {subs}")
+            if name == "duplicated-triangle ties":
+                for kname, (fn, _) in kernels.items():
+                    tie_rule_holds(kname, fn(*first)[1], acc.slot_mat)
+
+        # lane efficiency of one ray a thread on frame 0: the rays past a
+        # box test (one sub-tile a ray) against 32 x the warps (32-ray
+        # sub-tiles) holding one
+        p = frame0[0].shape[2]
+        lane_eff = {}
+        for kname, (fn, _) in kernels.items():
+            rays = int(fn(*frame0, n_sub=p, count_subs=True)[2][:, 1].sum())
+            warps = int(fn(*frame0, n_sub=p // 32,
+                           count_subs=True)[2][:, 1].sum())
+            lane_eff[kname] = rays / max(1, 32 * warps)
+            log(f"{kname} frame 0 lane efficiency of one ray a thread: "
+                f"{rays} rays past a box test in {warps} warps that run the "
+                f"slot loop: {lane_eff[kname]:.4f}")
+
         ms = {}
         for kname, (fn, plain) in kernels.items():
             ms[kname] = (cuda_ms(lambda: fn(*frame0), KERNEL_REPS),
@@ -1019,6 +1061,14 @@ def run_cluster_paths(dev, headline_tv, frames, idx_t, ref, smi, clock_mhz):
             log(f"{kname} at headline frame 0 ({frame0[0].shape[0]} tiles x "
                 f"{frame0[0].shape[2]} rays, K {frame0[1].shape[1]}): kernel "
                 f"{ms[kname][0]:.4f} ms, plain {ms[kname][1]:.4f} ms ({smi})")
+        ms_esc = (cuda_ms(lambda: k45.tile_intersect_v2(*escal0),
+                          KERNEL_REPS),
+                  cuda_ms(lambda: k45.tile_intersect_v2_reference(*escal0),
+                          PLAIN_REPS))
+        log(f"K4 escalation pass of headline frame 0 ({escal0[0].shape[0]} "
+            f"tiles, K {escal0[1].shape[1]}): kernel {ms_esc[0]:.4f} ms, "
+            f"plain {ms_esc[1]:.4f} ms ({smi})")
+        lever_ms = time_levers(k45, frame0, smi)
 
     # serve frames through the entry point, one path at a time
     served, launches = {}, {}
@@ -1146,41 +1196,33 @@ def run_cluster_paths(dev, headline_tv, frames, idx_t, ref, smi, clock_mhz):
             f"{float(st['count'].float().mean()):.3f}), rays past a box test "
             f"{int(st['mt_subs'].sum())}, residual overflow tiles "
             f"{int((ovf > 0).sum())} max {int(ovf.max())}")
-        # the work the function needs: each ray past a candidate's box test
-        # against that cluster's triangles, not its padding slots. A walk cut
-        # to its first k candidates takes the same steps up to k, so the
-        # ray counts at count = min(count, k) for k = 0..K differ by the rays
-        # past each candidate's box test
-        cand_l = frame0[1].long().clamp_min(0)
-        tri_fill = (accel.slot_mat >= 0).sum(dim=1)[cand_l]      # (nT, K)
+        # the work each launch needs, its pairs (see pair_count)
         entries = {}
-        for kname, ops_pair in (("K4", K4_OPS_PER_PAIR),
-                                ("K5", K5_OPS_PER_PAIR)):
+        for kname, ops_pair, ops, pname, kms in (
+                ("K4", K4_OPS_PER_PAIR, frame0, "first pass", ms["K4"][0]),
+                ("K5", K5_OPS_PER_PAIR, frame0, "first pass", ms["K5"][0]),
+                ("K4", K4_OPS_PER_PAIR, escal0, "escalation pass",
+                 ms_esc[0])):
             fn = kernels[kname][0]
-            past = torch.stack([fn(
-                *frame0[:2], frame0[2].clamp_max(k), *frame0[3:], n_sub=p,
-                count_subs=True)[2][:, 1] for k in range(
-                    frame0[1].shape[1] + 1)], dim=1)
-            if not torch.equal(past[:, -1], tele[kname][:, 1]):
+            pairs, nbytes, past, read_n, read_tris = pair_count(fn, ops,
+                                                                accel)
+            rays = int(past.sum())
+            if pname == "first pass" and not torch.equal(past,
+                                                         tele[kname][:, 1]):
                 raise RuntimeError(f"{kname}'s cut walks disagree with its "
                                    "telemetry")
-            rays_k = past.diff(dim=1).long()                     # (nT, K)
-            pairs = int((rays_k * tri_fill).sum())
-            read = frame0[1][rays_k > 0].long().unique()
-            read_tris = int((accel.slot_mat[read] >= 0).sum())
-            n_t = frame0[0].shape[0]
-            nbytes = (sum(x.numel() for x in frame0[:5]) * 4
-                      + read_tris * 10 * 4 + n_t * (p * 8 + 8))
-            entries[kname] = op_bounds(pairs * ops_pair, nbytes, clock_mhz)
-            entries[kname]["pairs"] = pairs
-            log(f"{kname} on frame 0: {pairs} (ray, triangle) pairs past the "
-                f"box test ({int(tele[kname][:, 1].sum())} rays x "
-                f"{pairs / max(1, int(tele[kname][:, 1].sum())):.2f} "
-                f"triangles; {int(tele[kname][:, 1].sum()) * n_slots} with "
-                f"the {n_slots} slots), {read.numel()} clusters of "
-                f"{read_tris} triangles read, {ops_pair} FP32 operations a "
-                f"pair; {entries[kname]['text']}; kernel "
-                f"{ms[kname][0]:.4f} ms ({smi})")
+            bound = op_bounds(pairs * ops_pair, nbytes, clock_mhz)
+            bound["pairs"] = pairs
+            entries[kname if pname == "first pass" else "K4 escalation"] = \
+                bound
+            log(f"{kname} {pname} on frame 0: {pairs} (ray, triangle) pairs "
+                f"past the box test ({rays} rays x "
+                f"{pairs / max(1, rays):.2f} triangles; {rays * n_slots} with "
+                f"the {n_slots} slots), {read_n} clusters of {read_tris} "
+                f"triangles read, {ops_pair} FP32 operations a pair; "
+                f"{bound['text']}; kernel {kms:.4f} ms, "
+                f"{bound['bound_issue_ms'] / kms:.3f} of the issue bound "
+                f"({smi})")
 
     return [{
         "name": "tile_intersect_v2", "route": "cuda",
@@ -1192,7 +1234,13 @@ def run_cluster_paths(dev, headline_tv, frames, idx_t, ref, smi, clock_mhz):
         "bound_ms": entries["K4"]["bound_ms"],
         "bound_by": entries["K4"]["bound_by"], "library_ms": None,
         "bound_issue_ms": entries["K4"]["bound_issue_ms"],
-        "pairs": entries["K4"]["pairs"],
+        "pairs": entries["K4"]["pairs"], "lane_efficiency": lane_eff["K4"],
+        "escalation_ms": ms_esc[0], "escalation_plain_ms": ms_esc[1],
+        "escalation_bound_ms": entries["K4 escalation"]["bound_ms"],
+        "escalation_bound_issue_ms":
+            entries["K4 escalation"]["bound_issue_ms"],
+        "escalation_pairs": entries["K4 escalation"]["pairs"],
+        "levers_ms": lever_ms["K4"],
         "launches_by_path": {"serve_pallas2": launches["pallas2"][0],
                              "serve_pallas": launches["pallas"][0],
                              "train_pallas2": train_k4}}, {
@@ -1205,10 +1253,87 @@ def run_cluster_paths(dev, headline_tv, frames, idx_t, ref, smi, clock_mhz):
         "bound_ms": entries["K5"]["bound_ms"],
         "bound_by": entries["K5"]["bound_by"], "library_ms": None,
         "bound_issue_ms": entries["K5"]["bound_issue_ms"],
-        "pairs": entries["K5"]["pairs"],
+        "pairs": entries["K5"]["pairs"], "lane_efficiency": lane_eff["K5"],
+        "levers_ms": lever_ms["K5"],
         "launches_by_path": {"serve_pallas2": launches["pallas2"][1],
                              "serve_pallas": launches["pallas"][1],
                              "train_pallas2": 0}}]
+
+
+def tie_rule_holds(kname, tri, slot_mat):
+    """On the duplicated-triangle scene (ids i and i + n the same triangle),
+    where a hit triangle's copy lies in the same cluster, K4 must have taken
+    the lower slot and K5 the lower id; that is so for most hits."""
+    n2 = int(slot_mat.max()) + 1
+    c, s = (slot_mat >= 0).nonzero(as_tuple=True)
+    ids = slot_mat[c, s].long()
+    cluster = torch.full((n2,), -1, device=tri.device, dtype=torch.long)
+    slot = torch.full((n2,), -1, device=tri.device, dtype=torch.long)
+    cluster[ids], slot[ids] = c, s
+    hit = tri[tri >= 0].long()
+    dup = (hit + n2 // 2) % n2
+    same = cluster[hit] == cluster[dup]
+    won = slot[hit] < slot[dup] if kname == "K4" else hit < dup
+    log(f"{kname} tie scene: {int(same.sum())} of {hit.numel()} hits tie "
+        f"with a copy in the same cluster, the rule's winner on "
+        f"{int(won[same].sum())}")
+    if float(same.float().mean()) <= 0.5 or not bool(won[same].all()):
+        raise RuntimeError(f"{kname} broke the within-cluster tie rule")
+
+
+def pair_count(fn, ops, accel):
+    """The work one tile-intersect launch needs: each ray past a candidate's
+    box test against that cluster's triangles, not its padding slots. A walk
+    cut to its first k candidates takes the same steps up to k, so the ray
+    counts at count = min(count, k) for k = 0..K differ by the rays past each
+    candidate's box test. Returns (pairs, bytes, each tile's rays past a box
+    test, clusters read, their triangles)."""
+    n_t, _, p = ops[0].shape
+    past = torch.stack([fn(*ops[:2], ops[2].clamp_max(k), *ops[3:], n_sub=p,
+                           count_subs=True)[2][:, 1]
+                        for k in range(ops[1].shape[1] + 1)], dim=1)
+    rays_k = past.diff(dim=1).long()                             # (nT, K)
+    tri_fill = (accel.slot_mat >= 0).sum(dim=1)[ops[1].long().clamp_min(0)]
+    pairs = int((rays_k * tri_fill).sum())
+    read = ops[1][rays_k > 0].long().unique()
+    read_tris = int((accel.slot_mat[read] >= 0).sum())
+    nbytes = (sum(x.numel() for x in ops[:5]) * 4 + read_tris * 10 * 4
+              + n_t * (p * 8 + 8))
+    return pairs, nbytes, past[:, -1], read.numel(), read_tris
+
+
+def time_levers(k45, ops, smi):
+    """K4 and K5 on ``ops`` with each design lever switched off in turn
+    (every slot instead of the fill cut, no compaction of the rays past a
+    box test, no prefetch, the tiles in index order) and at one or four
+    rays a thread in the slot loop (in place of 1-4 from the rays that
+    passed), timed in turns with
+    the full design (the list, then in reverse). Each variant must give
+    the design's result bit for bit. Returns {kernel: {variant: ms}}."""
+    variants = {"design": {}, "all_slots": {"levers": 1},
+                "no_compaction": {"levers": 2}, "no_prefetch": {"prefetch": 0},
+                "index_order": {"longest_first": False},
+                "one_ray_a_thread": {"levers": 4},
+                "four_rays_a_thread": {"levers": 8}}
+    out = {}
+    for gen, kname in ((4, "K4"), (5, "K5")):
+        def run(kw, gen=gen):
+            return k45._launch(gen, *ops, k45.MT_EPSILON,
+                               k45.DEFAULT_DRAW_DISTANCE, 1, False, **kw)
+        want = run({})
+        for name, kw in variants.items():
+            if not all(torch.equal(x, y) for x, y in zip(run(kw), want)):
+                raise RuntimeError(f"{kname} variant {name} changed a result")
+        ms = {name: [] for name in variants}
+        for order in (list(variants), list(variants)[::-1]):
+            for name in order:
+                ms[name].append(cuda_ms(lambda: run(variants[name]),
+                                        KERNEL_REPS))
+        out[kname] = {name: sum(v) / len(v) for name, v in ms.items()}
+        log(f"{kname} levers on headline frame 0, ms (mean of two turns): "
+            + ", ".join(f"{n} {v:.4f}" for n, v in out[kname].items())
+            + f" ({smi})")
+    return out
 
 
 def run_bin_tile(dev, frames, idx_t, ref, cfg, smi, clock_mhz):

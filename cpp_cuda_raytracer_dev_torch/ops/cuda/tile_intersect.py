@@ -13,6 +13,8 @@ clusters, kernels K4 (``method="pallas2"``, the JAX package's
   bound memory), apply the same per-ray gate and, for K4, the same
   per-tile exit at each k, and agree with the kernels bit for bit.
 - ``.launches`` on each wrapper counts kernel launches.
+- The kernels take P <= 2048 rays a tile (a multiple of 32, and above 512
+  of 512), n_sub <= 2048 and eps > 0; the wrappers raise otherwise.
 
 Operands, as the JAX kernels take them: ``d_tiles`` (nT, 3, P) unit
 directions in the object frame; ``cand`` (nT, K) int32 cluster ids nearest
@@ -41,16 +43,19 @@ from . import _build
 _MISS_T = 3.0e38          # K4's t of a rejected slot
 _I32_MAX = torch.iinfo(torch.int32).max
 _PAIRS = 1 << 24          # ray-slot pairs per group of the plain versions
-_MAX_RAYS_PER_THREAD = 4
-_MAX_SUB = 4096
-_MAX_SLOTS = 1024         # 44 bytes of shared memory a slot
+_THREADS = 512            # the kernels' largest CTA
+_MAX_RAYS = 2048          # 4 rays a thread
+_MAX_SUB = 2048
+_MAX_SLOTS = 1024
+_PREFETCH = 3             # candidates whose geometry is in flight
+_LONGEST_FIRST_TILES = 512  # order the tiles by count from this many on
 _fn = []
 
 
 def _launcher():
     if not _fn:
         fn = _build.load("tile_intersect").tile_intersect_launch
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
                        + [ctypes.c_float] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn.append(fn)
@@ -104,35 +109,50 @@ def _check(d_tiles, cand, count, boxes, root, geom9, slot_mat, n_sub):
 
 
 def _launch(gen, d_tiles, cand, count, boxes, root, geom9, slot_mat, eps,
-            draw_distance, n_sub, count_subs):
+            draw_distance, n_sub, count_subs, *, levers=0,
+            prefetch=_PREFETCH, longest_first=None):
+    """Launch K4 (gen 4) or K5 (gen 5). ``levers`` (bit 0: every slot, no
+    fill cut; bit 1: no compaction of the rays past a box test; bit 2 /
+    bit 3: one / four rays a thread in the slot loop), ``prefetch``
+    (candidates in flight, 0-3) and ``longest_first`` (None: from
+    `_LONGEST_FIRST_TILES` tiles on) exist to measure each design lever
+    against its absence; no caller of the wrappers sets them."""
     if d_tiles.device.type != "cuda":
         raise ValueError(f"no tile_intersect kernel for {d_tiles.device}")
     n_t, _, p = d_tiles.shape
-    threads = min(p, 1024)
-    if p % 32 or p % threads or p // threads > _MAX_RAYS_PER_THREAD:
+    threads = min(p, _THREADS)
+    if p % 32 or p % threads or p > _MAX_RAYS:
         raise ValueError(f"P = {p} rays per tile must be a multiple of 32 "
-                         f"and, above 1024, of 1024, at most "
-                         f"{1024 * _MAX_RAYS_PER_THREAD}")
+                         f"and, above {_THREADS}, of {_THREADS}, at most "
+                         f"{_MAX_RAYS}")
     if n_sub > _MAX_SUB:
         raise ValueError(f"n_sub {n_sub} above {_MAX_SUB}")
     n_slots = slot_mat.shape[1]
     if not 1 <= n_slots <= _MAX_SLOTS:
         raise ValueError(f"L = {n_slots} slots a cluster, at most "
                          f"{_MAX_SLOTS}")
+    if not eps > 0.0:
+        raise ValueError(f"the kernels need eps > 0, got {eps}")
     dev = d_tiles.device
     out_t = torch.empty((n_t, p), dtype=torch.float32, device=dev)
     out_tri = torch.empty((n_t, p), dtype=torch.int32, device=dev)
     steps = torch.empty((n_t, 2), dtype=torch.int32, device=dev)
     if n_t == 0:
         return out_t, out_tri, steps
+    if longest_first is None:
+        longest_first = n_t >= _LONGEST_FIRST_TILES
+    order = (torch.empty(n_t, dtype=torch.int32, device=dev)
+             if longest_first else None)
     eps_f, k1, eps2_det, draw = _constants(eps, draw_distance)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _launcher()(d_tiles.data_ptr(), cand.data_ptr(), count.data_ptr(),
                       boxes.data_ptr(), root.data_ptr(), geom9.data_ptr(),
-                      slot_mat.data_ptr(), out_t.data_ptr(),
-                      out_tri.data_ptr(), steps.data_ptr(), n_t, p,
-                      cand.shape[1], n_slots, geom9.shape[2], n_sub, gen,
-                      int(count_subs), eps_f, k1, eps2_det, draw, stream)
+                      slot_mat.data_ptr(),
+                      None if order is None else order.data_ptr(),
+                      out_t.data_ptr(), out_tri.data_ptr(), steps.data_ptr(),
+                      n_t, p, cand.shape[1], n_slots, geom9.shape[2], n_sub,
+                      gen, int(count_subs), levers, prefetch, eps_f, k1,
+                      eps2_det, draw, stream)
     if err != 0:
         raise RuntimeError(f"tile_intersect (K{gen}) kernel launch failed: "
                            f"CUDA error {err}")

@@ -13,9 +13,16 @@ clusters.
   multiply-adds into FMAs).
 - The wrappers run the plain versions on CPU tensors without counting a
   launch, and refuse malformed operands.
+- The kernels stop each cluster's slot loop at its fill: ClusterAccel pads
+  only at the end of a cluster, and the plain versions give the same
+  result with the padding widened. A scene that holds every triangle twice
+  makes every hit an exact tie (the "tie scene"); its plain versions agree
+  with the JAX kernels too.
 - On a CUDA device (``gpu`` marker, skipped here): each kernel equals its
-  plain version bit for bit (t, ids, steps), at 256 and 2,048 rays a tile,
-  on operands the port's own cull makes.
+  plain version bit for bit (t, ids, steps), at 64, 256, 512 and 2,048 rays
+  a tile, on operands the port's own cull makes, on the tie scene, on
+  clusters filled to all L slots, at an infinite draw distance, with the
+  sub-tile count, and with each design lever switched off.
 
 The JAX package is imported inside the tests that use it, so that the GPU
 tests also run where JAX is not installed:
@@ -38,17 +45,26 @@ LEAF, K = 32, 16
 DRAW = 400.0
 
 
-def _operands(sub=(0, 0)):
-    """The JAX pipeline's kernel operands for one sphere frame, as numpy:
-    d_tiles, cand, count, boxes, root, geom9, slot_mat, plus geom_t, the
-    mesh and the tiled rays."""
+def _tie_mesh():
+    """The sphere with every triangle twice: ids i and i + n are the same
+    triangle, in neighbouring slots of one cluster, so every hit is an
+    exact tie."""
+    tv = uv_sphere(40, 40, roughness=0.03)
+    return np.concatenate([tv, tv])
+
+
+def _operands(sub=(0, 0), tv=None):
+    """The JAX pipeline's kernel operands for one sphere frame (or the mesh
+    ``tv``), as numpy: d_tiles, cand, count, boxes, root, geom9, slot_mat,
+    plus geom_t, the mesh and the tiled rays."""
     import jax.numpy as jnp
 
     import cpp_cuda_raytracer_dev_tpu as J
     from cpp_cuda_raytracer_dev_tpu.accel import traverse as jtr
 
     res_w, res_h, th, tw = RES_W, RES_H, 8, 32
-    tv = uv_sphere(40, 40, roughness=0.03)
+    if tv is None:
+        tv = uv_sphere(40, 40, roughness=0.03)
     tris = J.Triangles.from_vertices(tv)
     accel = jtr.ClusterAccel.build(tris, leaf_size=LEAF, cache=False)
     cam = J.Camera.create(res_w, res_h, pos=[0.1, 0.3, -3.0],
@@ -209,11 +225,13 @@ def test_cluster_accel_holds_the_kernel_layout():
     assert (accel.geom9[:, :, 48:] == 0).all()
 
 
-def _port_operands(th, tw, device):
+def _port_operands(th, tw, device, tv=None):
     """Kernel operands from the port's own cull (no JAX): a 128x64 frame of
-    the sphere, 32-triangle clusters, 16 candidates a tile."""
-    tris = Triangles.from_vertices(uv_sphere(40, 40, roughness=0.03),
-                                   device=device)
+    the sphere (or the mesh ``tv``), 32-triangle clusters, 16 candidates a
+    tile."""
+    if tv is None:
+        tv = uv_sphere(40, 40, roughness=0.03)
+    tris = Triangles.from_vertices(tv, device=device)
     accel = ClusterAccel.build(tris, leaf_size=LEAF, cache=False)
     cam = Camera.create(128, 64, pos=[0.1, 0.3, -3.0], look_at=[0.0, 0.0, 0.0],
                         up=[0.0, 1.0, 0.0], film_h=0.024, focal=0.055,
@@ -271,11 +289,11 @@ def _gpu_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("tile", [(8, 32), (32, 64)])
+@pytest.mark.parametrize("tile", [(8, 8), (8, 32), (16, 32), (32, 64)])
 @pytest.mark.parametrize("v2", [True, False])
 def test_kernel_matches_plain_version_on_gpu(tile, v2):
     """Bit for bit: t, ids and steps, with and without the sub-tile count;
-    32x64 tiles run 2 rays a thread."""
+    64 to 2,048 rays a tile (32x64 tiles box-test 4 rays a thread)."""
     dev = _gpu_device()
     args = _port_operands(*tile, dev)
     fn = ti.tile_intersect_v2 if v2 else ti.tile_intersect
@@ -306,3 +324,184 @@ def test_kernel_at_infinite_draw_distance_on_gpu(v2):
     want = plain(*args, draw_distance=float("inf"))
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("leaf", [32, 48, 128])
+def test_cluster_accel_pads_only_at_the_end(leaf):
+    """The fill cut's invariant: each cluster's triangles take its first
+    slots; after them slot_mat is -1 and the geometry 0, to Lpad."""
+    accel = ClusterAccel.build(
+        Triangles.from_vertices(uv_sphere(30, 30, roughness=0.03),
+                                device="cpu"), leaf_size=leaf, cache=False)
+    valid = accel.slot_mat >= 0
+    fill = valid.sum(dim=1)
+    lane = torch.arange(accel.slot_mat.shape[1])
+    assert torch.equal(valid, lane < fill[:, None])
+    assert int(fill.min()) >= 1 and int(fill.max()) <= leaf
+    slot = torch.arange(accel.geom9.shape[2])
+    pad = (slot >= fill[:, None])[:, None, :].expand_as(accel.geom9)
+    assert bool((accel.geom9[pad] == 0).all())
+    # every filled slot holds a triangle with nonzero edges
+    e = accel.geom9[:, 3:9, :]
+    assert bool(((e != 0).any(dim=1) | ~(slot < fill[:, None])).all())
+
+
+@pytest.mark.parametrize("v2", [True, False])
+def test_plain_versions_ignore_wider_padding(v2):
+    """slot_mat and geom9 padded from 128 to 256 slots: the same t, ids and
+    steps, so padding slots can never change a result."""
+    args = _port_operands(8, 32, "cpu")
+    plain = (ti.tile_intersect_v2_reference if v2
+             else ti.tile_intersect_reference)
+    wide = list(args)
+    c, _, lpad = args[5].shape
+    wide[5] = torch.cat([args[5], torch.zeros(c, 9, 256 - lpad)], dim=2)
+    wide[6] = torch.cat([args[6], torch.full((c, 256 - args[6].shape[1]), -1,
+                                             dtype=torch.int32)], dim=1)
+    assert wide[5].shape[2] == wide[6].shape[1] == 256
+    for kw in ({}, {"n_sub": 256, "count_subs": True}):
+        for g, w in zip(plain(*wide, **kw), plain(*args, **kw)):
+            assert torch.equal(g, w)
+
+
+def _assert_tie_rule(tri, slot_mat, v2):
+    """On the tie scene, where a hit triangle's copy lies in the same
+    cluster, the lower slot (K4) or the lower id (K5) won the tie; that is
+    so for most hits."""
+    slot_mat = np.asarray(slot_mat)
+    n2 = int(slot_mat.max()) + 1
+    cluster, slot = np.full(n2, -1), np.full(n2, -1)
+    c, s = np.nonzero(slot_mat >= 0)
+    cluster[slot_mat[c, s]], slot[slot_mat[c, s]] = c, s
+    hit = np.asarray(tri).reshape(-1)
+    hit = hit[hit >= 0]
+    dup = (hit + n2 // 2) % n2
+    same = cluster[hit] == cluster[dup]
+    assert same.mean() > 0.5
+    won = slot[hit] < slot[dup] if v2 else hit < dup
+    assert won[same].all()
+
+
+def test_k4_plain_version_matches_jax_kernel_on_tie_scene():
+    """Exact ties between two slots of a cluster: the port takes the lower
+    slot, as the JAX kernel does (near-ties aside, where JAX's quantised t
+    decides)."""
+    import jax.numpy as jnp
+
+    from cpp_cuda_raytracer_dev_tpu.ops.pallas.intersect_kernel_v2 import \
+        pallas_tile_intersect_v2
+    ops = _operands(tv=_tie_mesh())
+    jt, jenc, jsteps = pallas_tile_intersect_v2(
+        *(jnp.asarray(ops[n]) for n in ("d_tiles", "cand", "count", "boxes",
+                                        "root", "geom9")),
+        leaf=ops["geom9"].shape[2], draw_distance=DRAW, interpret=True)
+    jenc = np.asarray(jenc)
+    lpad = ops["geom9"].shape[2]
+    kwin, slot = np.maximum(jenc, 0) // lpad, np.maximum(jenc, 0) % lpad
+    cl = np.take_along_axis(ops["cand"], kwin, axis=1)
+    jtri = np.where(jenc >= 0, ops["slot_mat"][cl, np.minimum(slot,
+                                                              LEAF - 1)], -1)
+    pt, ptri, psteps = ti.tile_intersect_v2_reference(*_port_args(ops),
+                                                      draw_distance=DRAW)
+    _assert_tie_rule(ptri.numpy(), ops["slot_mat"], True)
+    same = _assert_near_ties(ptri.numpy(), jtri, ops)
+    np.testing.assert_allclose(pt.numpy().reshape(-1)[same],
+                               np.asarray(jt).reshape(-1)[same], rtol=1e-4)
+    np.testing.assert_array_equal(psteps[:, 0].numpy(),
+                                  np.asarray(jsteps)[:, 0])
+
+
+def test_k5_plain_version_matches_jax_kernel_on_tie_scene():
+    """Exact ties between two copies of a triangle: both take the lower
+    id."""
+    import jax.numpy as jnp
+
+    from cpp_cuda_raytracer_dev_tpu.ops.pallas.intersect_kernel import \
+        pallas_tile_intersect
+    ops = _operands(tv=_tie_mesh())
+    jt, jtri = pallas_tile_intersect(
+        *(jnp.asarray(ops[n]) for n in ("d_tiles", "cand", "count")),
+        jnp.asarray(ops["boxes"]), jnp.asarray(ops["root"][:3]),
+        jnp.asarray(ops["geom_t"]), jnp.asarray(ops["slot_mat"]),
+        leaf=LEAF, draw_distance=DRAW, interpret=True)
+    pt, ptri, _ = ti.tile_intersect_reference(
+        *_port_args(ops, origin_only=True), draw_distance=DRAW)
+    _assert_tie_rule(ptri.numpy(), ops["slot_mat"], False)
+    same = _assert_near_ties(ptri.numpy(), np.asarray(jtri), ops)
+    np.testing.assert_allclose(pt.numpy().reshape(-1)[same],
+                               np.asarray(jt).reshape(-1)[same], rtol=2e-6)
+
+
+def _assert_kernel_is_plain(v2, args, **kw):
+    fn = ti.tile_intersect_v2 if v2 else ti.tile_intersect
+    plain = (ti.tile_intersect_v2_reference if v2
+             else ti.tile_intersect_reference)
+    before = fn.launches
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    for g, w in zip(got, plain(*args, **kw)):
+        assert torch.equal(g, w)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("v2", [True, False])
+def test_kernel_matches_plain_version_on_tie_scene_gpu(v2):
+    """Every hit an exact tie whose two slots fall in different slot
+    groups: bit for bit, with and without the sub-tile count, at the
+    default and an infinite draw distance."""
+    dev = _gpu_device()
+    args = _port_operands(16, 32, dev, tv=_tie_mesh())
+    for kw in ({}, {"n_sub": 512, "count_subs": True},
+               {"n_sub": 16, "count_subs": True},
+               {"draw_distance": float("inf")}):
+        _, tri, _ = _assert_kernel_is_plain(v2, args, **kw)
+        _assert_tie_rule(tri.cpu().numpy(), args[6].cpu().numpy(), v2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("v2", [True, False])
+def test_kernel_on_clusters_filled_to_every_slot_gpu(v2):
+    """slot_mat cut to the fullest cluster's fill, so that cluster's slot
+    loop runs to L: bit for bit."""
+    dev = _gpu_device()
+    args = _port_operands(16, 32, dev)
+    fill = int((args[6] >= 0).sum(dim=1).max())
+    args[6] = args[6][:, :fill].contiguous()
+    assert bool((args[6] >= 0).all(dim=1).any())
+    for kw in ({}, {"n_sub": 512, "count_subs": True}):
+        _assert_kernel_is_plain(v2, args, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("v2", [True, False])
+def test_design_levers_change_no_result_gpu(v2):
+    """Each lever switched off (every slot, no compaction, one or four rays
+    a thread, prefetch 0-2, the tiles in index order or longest first)
+    gives the design's result bit for bit."""
+    dev = _gpu_device()
+    args = _port_operands(16, 32, dev)
+    gen = 4 if v2 else 5
+    want = ti._launch(gen, *args, ti.MT_EPSILON, ti.DEFAULT_DRAW_DISTANCE,
+                      16, True)
+    for kw in ({"levers": 1}, {"levers": 2}, {"levers": 3}, {"levers": 4},
+               {"levers": 8}, {"prefetch": 0}, {"prefetch": 1},
+               {"prefetch": 2}, {"longest_first": True},
+               {"longest_first": False}):
+        got = ti._launch(gen, *args, ti.MT_EPSILON, ti.DEFAULT_DRAW_DISTANCE,
+                         16, True, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), kw
+
+
+@pytest.mark.gpu
+def test_wrappers_refuse_what_the_kernels_do_not_take_gpu():
+    dev = _gpu_device()
+    args = _port_operands(8, 32, dev)
+    with pytest.raises(ValueError, match="eps"):
+        ti.tile_intersect_v2(*args, eps=0.0)
+    big = list(args)
+    big[0] = args[0].repeat(1, 1, 16).contiguous()     # 4,096 rays a tile
+    with pytest.raises(ValueError, match="rays per tile"):
+        ti.tile_intersect(*big)
