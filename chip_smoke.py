@@ -62,11 +62,15 @@ Phases (any failure raises and the process exits non-zero):
      segment-sum counter must not move; split and profiled as in 6;
   8. telemetry (kernel K3): frame 0 through ``intersect_binned`` with
      ``with_stats`` at esub 1 (phase 3's t bitwise, and every id that
-     differs from phase 3's an oracle tie) and esub 4; the
-     kernel against its plain version on frame 0's operands at esub 1 and
-     4 (t, tri and steps bitwise equal, and without steps each walk against
-     its plain version); the ray-entry pairs K3 scanned give its bound;
-     kernel and frame timed with and without the telemetry;
+     differs from phase 3's an oracle tie) and esub 4; the kernel against
+     its plain version on a 96x64 sphere, a sphere whose every triangle is
+     there twice (every hit an exact tie between two ids) and frame 0's
+     operands, at esub 1, 2 and 4, with and without steps (t, tri and
+     steps bitwise equal; without steps at esub 1 that is K1's walk); the
+     design and each lever switched off timed in turns
+     (``time_variants``), esub 4 and the plain version timed; the
+     ray-entry pairs K3 scanned, and those accepted, give its bound at K1's
+     count; the frame timed with and without the telemetry;
   9. the cluster paths: build the ClusterAccel (seconds, clusters); the
      tile-intersect kernels K4 and K5 against their plain versions on the
      same operands (a 96x64 sphere, headline frame 0, a grazing view
@@ -91,13 +95,14 @@ Phases (any failure raises and the process exits non-zero):
  10. the per-tile bin kernel K6 at chunk 128 on the port's own binning:
      its entry point (bin_object -> tile_operands -> kernel -> decode_enc)
      on phase 3's 8 frames after resetting its launch counter, which must
-     show them; the kernel against its plain version on the 96x64 sphere
-     and headline frame 0 at debug_mode 0, 1 and 2 (t bitwise, enc, steps
-     and decoded ids equal; the same hits in every mode); its decoded ids
-     against K1's on frame 0, as phase 2 holds K1 against the aligned walk;
-     agreement with phase 4's oracle rays >= 0.999; kernel and plain
-     version timed with CUDA events; the chunks whose
-     gate opened and the walked chunks' constants give its bound;
+     show them; the kernel against its plain version on the 96x64 sphere,
+     the duplicated-triangle tie scene and headline frame 0 at n_sub 1, 2
+     and 16 and debug_mode 0, 1 and 2 (t bitwise, enc, steps and decoded
+     ids equal; the same hits in every mode); its decoded ids against K1's
+     on frame 0, as phase 2 holds K1 against the aligned walk; agreement
+     with phase 4's oracle rays >= 0.999; the design and each lever
+     switched off timed in turns, the plain version timed; the chunks
+     whose gate opened and the walked chunks' constants give its bound;
  11. the entry points: the headline mesh written as a binary PLY under
      build/chip_smoke/, then ``render_cli.main`` with ``--method bin`` and
      ``pallas2`` at 960x540 and ``kd`` at 320x180 (a validation path with
@@ -119,6 +124,7 @@ to the CPU.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import subprocess
@@ -143,7 +149,6 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 N_SMS, FP32_LANES = 132, 128   # per SM; FMA peak = SMs x lanes x 2 x clock
 K1_OPS_PER_PAIR = 29           # csrc/bin_intersect.cu, "Bound"
 K1_OPS_PER_ACCEPTED = 3        # K1's select and division, accepted pairs
-K3_OPS_PER_PAIR = 31           # K3 runs the select on every pair
 K4_OPS_PER_PAIR = 29           # csrc/tile_intersect.cu, "Bound"
 K5_OPS_PER_PAIR = 26
 K6_OPS_PER_PAIR = 29           # csrc/bin_tile_intersect.cu, "Bound"
@@ -153,6 +158,17 @@ KD_RES = (320, 180)            # the KD path is a validation path, no kernel
 N_ANIMATE_TICKS = 30
 BACKGROUND = (240, 130, 0)
 N_CLUSTER_FRAMES = {"pallas2": 8, "pallas": 3}
+# K3's and K6's design levers, each switched off (one ray a thread, which at
+# P 512 is also one entry group of 512 threads; one entry group of P / 4
+# threads; two rays a thread in two groups; the next block or chunk copied
+# just before its use; the tiles in index order), and the CTA widened to
+# eight groups (1,024 threads, one CTA an SM)
+WALK_LEVERS = {"design": {}, "one_ray_a_thread": {"rays_per_thread": 1},
+               "one_group": {"groups": 1},
+               "two_rays_two_groups": {"rays_per_thread": 2, "groups": 2},
+               "no_overlap": {"overlap": False},
+               "index_order": {"longest_first": False},
+               "eight_groups": {"groups": 8}}
 
 
 def log(msg: str) -> None:
@@ -341,9 +357,9 @@ def main() -> None:
     phase_done(1)
 
     # ---- 2. kernel vs plain version on identical binned tensors ----
-    def binned_case(tv, res_w, res_h, cull):
+    def binned_case(tv, res_w, res_h, cull, pos=(0.0, 0.0, -3.0)):
         tris = Triangles.from_vertices(tv, device=dev)
-        cam = Camera.create(res_w, res_h, pos=[0.0, 0.0, -3.0],
+        cam = Camera.create(res_w, res_h, pos=list(pos),
                             look_at=[0.0, 0.0, 0.0], up=[0.0, 1.0, 0.0],
                             film_h=0.024, focal=0.055, device=dev)
         c = RenderConfig(method="bin", tile_h=16, tile_w=32,
@@ -406,7 +422,7 @@ def main() -> None:
         # every ray of its tile, and the select and division of the pairs
         # the test accepted
         n_tiles, p = rays.shape[:2]
-        k1_entries, k1_accepted = k1.own_walk_work(*ops)
+        k1_entries, k1_accepted = k1.walk_work(*ops)
         k1_pairs = int(k1_entries.sum()) * p
         k1_accepted = int(k1_accepted.sum())
         k1_bytes = (rays.numel() * 4 + b.geom.numel() * 4
@@ -820,43 +836,75 @@ def main() -> None:
         frame_plain_ms = cuda_ms(lambda: binned(cfg), PLAIN_REPS)
         rays, b = bin_object(o_obj, obj.tris, proj, cfg, RES_H, RES_W)
         ops = (rays, b.geom, b.entry_tri, b.starts, chunk)
-        k3_ms = cuda_ms(lambda: k1.bin_intersect(*ops, with_steps=True),
-                        KERNEL_REPS)
+        # K3 against its plain version on the sphere, headline frame 0 and
+        # a sphere whose every triangle is there twice (every hit an exact
+        # tie between two ids), at esub 1, 2 and 4, with the steps output
+        # and without it (K3's sliced instance; at esub 1 K1's walk): t,
+        # tri and steps bitwise equal
+        tie_tv = uv_sphere(100, 100)
+        k3_cases = [("sphere 96x64", binned_case(uv_sphere(50, 50), 96, 64,
+                                                 False)),
+                    ("duplicated-triangle ties",
+                     binned_case(np.concatenate([tie_tv, tie_tv]), RES_W,
+                                 RES_H, True, pos=(0.2, 0.3, -2.5))),
+                    ("headline frame 0", (rays, b))]
+        k3_err = 0.0
+        for name, (r_c, b_c) in k3_cases:
+            ops_c = (r_c, b_c.geom, b_c.entry_tri, b_c.starts, chunk)
+            for e, with_steps in itertools.product((1, 2, 4), (True, False)):
+                got = k1.bin_intersect(*ops_c, esub=e, with_steps=with_steps)
+                torch.cuda.synchronize()
+                want = k1.bin_intersect_reference(*ops_c, esub=e,
+                                                  with_steps=with_steps)
+                torch.cuda.synchronize()
+                eq = [torch.equal(x, y) for x, y in zip(got, want)]
+                k3_err = max(k3_err, float((got[0] - want[0]).abs().max()))
+                log(f"K3 vs plain [{name}, esub {e}, "
+                    f"{'with' if with_steps else 'without'} steps]: t {eq[0]} "
+                    f"tri {eq[1]}" + (f" steps {eq[2]}; slices scanned "
+                                      f"{int(got[2][:, 0].sum())}"
+                                      if with_steps else "")
+                    + f"; hit_rate {float((got[1] >= 0).float().mean()):.6f}")
+                if not all(eq):
+                    raise RuntimeError(f"K3 and its plain version disagree on "
+                                       f"{name} at esub {e}")
+        steps = k1.bin_intersect(*ops, with_steps=True)[2]
+        if not torch.equal(steps[:, 0], st1["steps"]):
+            raise RuntimeError("kernel steps differ from the frame's")
+        # the design and each lever switched off, in turns
+        k3_levers = time_variants(
+            "K3 (esub 1, with steps)",
+            lambda **kw: k1._launch(*ops, cfg.eps, cfg.draw_distance, 1, True,
+                                    **kw), WALK_LEVERS, smi)
+        k3_ms = k3_levers["design"]
         k3_esub4_ms = cuda_ms(lambda: k1.bin_intersect(
             *ops, esub=4, with_steps=True), KERNEL_REPS)
         k3_plain_ms = cuda_ms(lambda: k1.bin_intersect_reference(
             *ops, with_steps=True), PLAIN_REPS)
-        # K3 against its plain version on the headline operands, before its
-        # counts feed its bound: t, tri and steps bitwise equal; and without
-        # the steps output (K1's walk at esub 1, the sliced walk at esub 4)
-        # each walk against its plain version
-        k3_err = 0.0
-        for e in (1, 4):
-            got = k1.bin_intersect(*ops, esub=e, with_steps=True)
-            want = k1.bin_intersect_reference(*ops, esub=e, with_steps=True)
-            bare = k1.bin_intersect(*ops, esub=e)
-            bare_want = k1.bin_intersect_reference(*ops, esub=e)
-            torch.cuda.synchronize()
-            eq = [torch.equal(x, y) for x, y in zip(got, want)] + [
-                torch.equal(x, y) for x, y in zip(bare, bare_want)]
-            k3_err = max(k3_err, float((got[0] - want[0]).abs().max()))
-            log(f"K3 vs plain [headline frame 0, esub {e}]: t {eq[0]} tri "
-                f"{eq[1]} steps {eq[2]}; without steps: t {eq[3]} tri "
-                f"{eq[4]}")
-            if not all(eq):
-                raise RuntimeError(f"K3 and its plain version disagree at "
-                                   f"esub {e}")
-            if e == 1:
-                steps = got[2]
-        if not torch.equal(steps[:, 0], st1["steps"]):
-            raise RuntimeError("kernel steps differ from the frame's")
+        # the bound at K1's count: each entry of a slice whose gate opened
+        # against every ray of its tile, and the select and division of the
+        # pairs the test accepted
         n_tiles, p = rays.shape[:2]
-        k3_pairs = int(steps[:, 0].sum()) * chunk * p
-    k3_bound = op_bounds(k3_pairs * K3_OPS_PER_PAIR, k1_bytes, clock_mhz)
+        k3_entries, k3_accepted = k1.walk_work(*ops, esub=1, own=False)
+        k3_pairs = int(k3_entries.sum()) * p
+        k3_accepted = int(k3_accepted.sum())
+        if k3_pairs != int(steps[:, 0].sum()) * chunk * p:
+            raise RuntimeError("K3's pairs differ from its steps")
+    k3_bound = op_bounds(k3_pairs * K1_OPS_PER_PAIR
+                         + k3_accepted * K1_OPS_PER_ACCEPTED, k1_bytes,
+                         clock_mhz)
+    per_tile = steps[:, 0].float()
+    log(f"K3 slices scanned a tile: max {int(per_tile.max())}, mean "
+        f"{float(per_tile.mean()):.3f}; the {N_SMS} longest tiles hold "
+        f"{float(per_tile.sort(descending=True).values[:N_SMS].sum() / per_tile.sum()):.3f}"
+        f" of the pairs")
     log(f"K3 at esub 1 scanned {k3_pairs} ray-entry pairs "
         f"({int(steps[:, 0].sum())} blocks x {chunk} x {p}; K1 "
-        f"{k1_pairs}); {k3_bound['text']}; with steps {k3_ms:.4f} ms, esub 4 "
-        f"with steps {k3_esub4_ms:.4f} ms, plain with steps "
+        f"{k1_pairs}), {k3_accepted} of them accepted; at K1's count "
+        f"({K1_OPS_PER_PAIR} operations a pair, {K1_OPS_PER_ACCEPTED} more "
+        f"an accepted one) {k3_bound['text']}; with steps {k3_ms:.4f} ms "
+        f"({k3_bound['bound_issue_ms'] / k3_ms:.3f} of the issue bound), "
+        f"esub 4 with steps {k3_esub4_ms:.4f} ms, plain with steps "
         f"{k3_plain_ms:.4f} ms; intersect_binned with stats "
         f"{frame_stats_ms:.4f} ms, without {frame_plain_ms:.4f} ms ({smi})")
     phase_done(8)
@@ -894,7 +942,8 @@ def main() -> None:
         "ms": k3_ms, "plain_ms": k3_plain_ms,
         "bound_ms": k3_bound["bound_ms"], "bound_by": k3_bound["bound_by"],
         "library_ms": None, "bound_issue_ms": k3_bound["bound_issue_ms"],
-        "pairs": k3_pairs, "ms_esub4": k3_esub4_ms,
+        "pairs": k3_pairs, "accepted_pairs": k3_accepted,
+        "ms_esub4": k3_esub4_ms, "levers_ms": k3_levers,
         "launches_by_path": {"stats_frames": k3_launches}}, {
         "name": "segment_sum", "route": "cuda",
         "source": "cpp_cuda_raytracer_dev_torch/csrc/segment_sum.cu",
@@ -1307,32 +1356,37 @@ def time_levers(k45, ops, smi):
     (every slot instead of the fill cut, no compaction of the rays past a
     box test, no prefetch, the tiles in index order) and at one or four
     rays a thread in the slot loop (in place of 1-4 from the rays that
-    passed), timed in turns with
-    the full design (the list, then in reverse). Each variant must give
-    the design's result bit for bit. Returns {kernel: {variant: ms}}."""
+    passed), each timed in turns with the full design (`time_variants`).
+    Returns {kernel: {variant: ms}}."""
     variants = {"design": {}, "all_slots": {"levers": 1},
                 "no_compaction": {"levers": 2}, "no_prefetch": {"prefetch": 0},
                 "index_order": {"longest_first": False},
                 "one_ray_a_thread": {"levers": 4},
                 "four_rays_a_thread": {"levers": 8}}
-    out = {}
-    for gen, kname in ((4, "K4"), (5, "K5")):
-        def run(kw, gen=gen):
-            return k45._launch(gen, *ops, k45.MT_EPSILON,
-                               k45.DEFAULT_DRAW_DISTANCE, 1, False, **kw)
-        want = run({})
-        for name, kw in variants.items():
-            if not all(torch.equal(x, y) for x, y in zip(run(kw), want)):
-                raise RuntimeError(f"{kname} variant {name} changed a result")
-        ms = {name: [] for name in variants}
-        for order in (list(variants), list(variants)[::-1]):
-            for name in order:
-                ms[name].append(cuda_ms(lambda: run(variants[name]),
-                                        KERNEL_REPS))
-        out[kname] = {name: sum(v) / len(v) for name, v in ms.items()}
-        log(f"{kname} levers on headline frame 0, ms (mean of two turns): "
-            + ", ".join(f"{n} {v:.4f}" for n, v in out[kname].items())
-            + f" ({smi})")
+    return {kname: time_variants(
+        kname, lambda gen=gen, **kw: k45._launch(
+            gen, *ops, k45.MT_EPSILON, k45.DEFAULT_DRAW_DISTANCE, 1, False,
+            **kw), variants, smi)
+        for gen, kname in ((4, "K4"), (5, "K5"))}
+
+
+def time_variants(kname, run, variants, smi):
+    """``run(**kw)`` (one launch of a kernel on the headline operands) for
+    each {name: kw} of ``variants``, timed in turns (the list, then in
+    reverse) with CUDA events. Each variant must give the first one's (the
+    design's) result bit for bit. Returns {variant: ms}."""
+    want = run()
+    for name, kw in variants.items():
+        if not all(torch.equal(x, y) for x, y in zip(run(**kw), want)):
+            raise RuntimeError(f"{kname} variant {name} changed a result")
+    ms = {name: [] for name in variants}
+    for order in (list(variants), list(variants)[::-1]):
+        for name in order:
+            ms[name].append(cuda_ms(lambda: run(**variants[name]),
+                                    KERNEL_REPS))
+    out = {name: sum(v) / len(v) for name, v in ms.items()}
+    log(f"{kname} levers on headline frame 0, ms (mean of two turns): "
+        + ", ".join(f"{n} {v:.4f}" for n, v in out.items()) + f" ({smi})")
     return out
 
 
@@ -1385,24 +1439,32 @@ def run_bin_tile(dev, frames, idx_t, ref, cfg, smi, clock_mhz):
                                f"for {len(frames)} frames")
 
         # the kernel against its plain version, every debug mode
+        def camera(pos, w, h):
+            return Camera.create(w, h, pos=list(pos), look_at=[0.0, 0.0, 0.0],
+                                 up=[0.0, 1.0, 0.0], film_h=0.024,
+                                 focal=0.055, device=dev)
+        # the sphere, a sphere whose every triangle is there twice (every
+        # hit an exact tie between two slots), and frame 0, last
         sphere = Triangles.from_vertices(uv_sphere(50, 50), device=dev)
-        sphere_cam = Camera.create(96, 64, pos=[0.0, 0.0, -3.0],
-                                   look_at=[0.0, 0.0, 0.0],
-                                   up=[0.0, 1.0, 0.0], film_h=0.024,
-                                   focal=0.055, device=dev)
-        cases = [("sphere 96x64", Scene([SceneObject(sphere)]), sphere_cam,
+        tie_tv = uv_sphere(100, 100)
+        ties = Triangles.from_vertices(np.concatenate([tie_tv, tie_tv]),
+                                       device=dev)
+        cases = [("sphere 96x64", Scene([SceneObject(sphere)]),
+                  camera((0.0, 0.0, -3.0), 96, 64),
                   dataclasses.replace(cfg, backface_cull=False), 96, 64),
+                 ("duplicated-triangle ties", Scene([SceneObject(ties)]),
+                  camera((0.2, 0.3, -2.5), RES_W, RES_H), cfg, RES_W, RES_H),
                  ("dragon-class frame 0", *frames[0], cfg, RES_W, RES_H)]
         max_err = 0.0
         for name, scene, cam, c, w, h in cases:
             o, rays, b, ops = operands(scene, cam, c, w, h)
             base = None
-            for mode in (0, 1, 2):
-                got = bt.bin_tile_intersect(*ops, chunk=chunk,
+            for n_sub, mode in itertools.product((1, 2, 16), (0, 1, 2)):
+                got = bt.bin_tile_intersect(*ops, chunk=chunk, n_sub=n_sub,
                                             debug_mode=mode)
                 torch.cuda.synchronize()
-                want = bt.bin_tile_intersect_reference(*ops, chunk=chunk,
-                                                       debug_mode=mode)
+                want = bt.bin_tile_intersect_reference(
+                    *ops, chunk=chunk, n_sub=n_sub, debug_mode=mode)
                 torch.cuda.synchronize()
                 eq = [torch.equal(x, y) for x, y in zip(got, want)]
                 ids_eq = torch.equal(decode(got[1], b), decode(want[1], b))
@@ -1410,16 +1472,18 @@ def run_bin_tile(dev, frames, idx_t, ref, cfg, smi, clock_mhz):
                 max_err = max(max_err, err)
                 same_hits = base is None or (torch.equal(got[0], base[0])
                                              and torch.equal(got[1], base[1]))
-                log(f"K6 vs plain [{name}, debug_mode {mode}]: "
-                    f"t_bitwise_equal {eq[0]} enc_equal {eq[1]} steps_equal {eq[2]} ids_equal "
-                    f"{ids_eq} max_abs_err {err} same hits as mode 0 "
-                    f"{same_hits}; chunks walked {int(got[2][:, 0].sum())} of "
+                log(f"K6 vs plain [{name}, n_sub {n_sub}, debug_mode "
+                    f"{mode}]: t_bitwise_equal {eq[0]} enc_equal {eq[1]} "
+                    f"steps_equal {eq[2]} ids_equal {ids_eq} max_abs_err "
+                    f"{err} same hits as n_sub 1 mode 0 {same_hits}; chunks "
+                    f"walked {int(got[2][:, 0].sum())} of "
                     f"{int(got[2][:, 1].sum())}, hit_rate "
                     f"{float((got[1] >= 0).float().mean()):.6f}")
                 if not (all(eq) and ids_eq and same_hits):
                     raise RuntimeError(f"K6 and its plain version disagree on "
-                                       f"{name}, debug_mode {mode}")
-                if mode == 0:
+                                       f"{name}, n_sub {n_sub}, debug_mode "
+                                       f"{mode}")
+                if base is None:
                     base = got
         # the last case is frame 0: its operands and mode-0 result stay
         t6, enc6, steps6 = base
@@ -1445,8 +1509,12 @@ def run_bin_tile(dev, frames, idx_t, ref, cfg, smi, clock_mhz):
         if agree < MIN_AGREE:
             raise RuntimeError(f"K6 oracle agreement {agree} < {MIN_AGREE}")
 
-        kernel_ms = cuda_ms(lambda: bt.bin_tile_intersect(*ops, chunk=chunk),
-                            KERNEL_REPS)
+        # the design and each lever switched off, in turns
+        levers = time_variants(
+            "K6", lambda **kw: bt._launch(*ops, chunk, cfg.eps,
+                                          cfg.draw_distance, 1, 0, **kw),
+            WALK_LEVERS, smi)
+        kernel_ms = levers["design"]
         plain_ms = cuda_ms(lambda: bt.bin_tile_intersect_reference(
             *ops, chunk=chunk), PLAIN_REPS)
         # the bound: the pairs of the chunks whose gate opened, and every
@@ -1462,6 +1530,12 @@ def run_bin_tile(dev, frames, idx_t, ref, cfg, smi, clock_mhz):
                   + entries * bt.ROWS * 4 + n_t * (p * 8 + 8))
     bound = op_bounds(pairs * K6_OPS_PER_PAIR + entries * K6_OPS_PER_ENTRY,
                       nbytes, clock_mhz)
+    per_tile = gated.float()
+    log(f"K6 chunks a tile: walked max {int(walked.max())}, gate open max "
+        f"{int(per_tile.max())}, mean {float(per_tile.mean()):.3f}; the "
+        f"{N_SMS} longest tiles hold "
+        f"{float(per_tile.sort(descending=True).values[:N_SMS].sum() / per_tile.sum()):.3f}"
+        f" of the pairs")
     log(f"K6 at headline frame 0 ({n_t} tiles x {p} rays, chunk {chunk}): "
         f"chunks in range {int(steps6[:, 1].sum())}, walked "
         f"{int(walked.sum())}, gate open {int(gated.sum())}; {pairs} "
@@ -1476,7 +1550,8 @@ def run_bin_tile(dev, frames, idx_t, ref, cfg, smi, clock_mhz):
         "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
         "library_ms": None, "bound_issue_ms": bound["bound_issue_ms"],
-        "pairs": pairs, "launches_by_path": {"bin_tile_frames": launches}}
+        "pairs": pairs, "levers_ms": levers,
+        "launches_by_path": {"bin_tile_frames": launches}}
 
 
 def write_ply(path, tv: np.ndarray) -> None:

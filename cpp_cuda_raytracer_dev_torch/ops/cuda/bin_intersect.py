@@ -16,8 +16,8 @@ per-tile scan counts.
   contract. It processes round k, the k-th block of every tile, at once
   (in tile groups to bound memory) and applies the same gate per round and
   slice, so it scans the same entries as the kernels and agrees with them
-  bit for bit. `own_walk_work` counts the entries K1 scans and the pairs
-  it accepts, for its bound.
+  bit for bit. `walk_work` counts the entries either walk scans and the
+  pairs it accepts, for their bounds.
 - `bin_intersect.launches` counts kernel launches, and
   `bin_intersect.telemetry_launches` those of them with the telemetry
   switch (K3: ``esub`` above 1 or ``with_steps``).
@@ -39,7 +39,7 @@ GEOM_ROWS = 11            # entry-table rows: A(3) | B(3) | C(3) | TD | depth
 _MISS_T = 3.0e38
 _NO_TRI = torch.iinfo(torch.int32).max
 _PAIRS = 1 << 24          # ray-entry pairs per group of the plain version
-_OWN_THREADS = 512        # threads of a K1 CTA (kOwnThreads in the source)
+_THREADS = 512            # the largest CTA of either walk (kThreads)
 _lib = []
 
 
@@ -51,19 +51,22 @@ def _launchers():
         own.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                         + [ctypes.c_float] * 3 + [ctypes.c_void_p])
         aligned = lib.bin_intersect_launch
-        aligned.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+        aligned.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                             + [ctypes.c_float] * 3 + [ctypes.c_void_p])
         own.restype = aligned.restype = ctypes.c_int
         _lib.append((own, aligned))
     return _lib[0]
 
 
-def own_walk_shape(p: int) -> tuple[int, int]:
-    """K1's CTA for P rays a tile: (rays a thread, groups). Each group of
-    P / rays threads holds all of the tile's rays; the groups split each
-    block's entries, up to `_OWN_THREADS` threads."""
-    rays = next(r for r in (4, 2, 1) if p % (32 * r) == 0)
-    return rays, max(1, _OWN_THREADS // (p // rays))
+def walk_shape(p: int, rays: int | None = None,
+               groups: int | None = None) -> tuple[int, int]:
+    """The CTA of the walks (K1, K3 and K6) for P rays a tile: (rays a
+    thread, groups). Each group of P / rays threads holds all of the tile's
+    rays; the groups split each block's (slice's, chunk's) entries, up to
+    `_THREADS` threads. By default 4 rays a thread where P allows; a given
+    ``rays`` or ``groups`` is kept and the other fills the CTA."""
+    rays = rays or next(r for r in (4, 2, 1) if p % (32 * r) == 0)
+    return rays, groups or max(1, _THREADS // (p // rays))
 
 
 def effective_esub(chunk: int, esub: int) -> int:
@@ -128,15 +131,31 @@ def bin_intersect(rays: torch.Tensor, geom: torch.Tensor,
     splits each block into gated slices (`effective_esub`). At esub 1
     without steps only the tile's own entries of each block, [starts[t],
     starts[t+1]), take part, in the gate and the select (K1); otherwise
-    every entry of the blocks does (K3, the JAX kernels' walk). K1 takes
-    the tiles longest first; ``longest_first=False`` takes them in index
-    order, with the same result (chip_smoke.py times the two).
+    every entry of the blocks does (K3, the JAX kernels' walk). Both walks
+    take the tiles longest first; ``longest_first=False`` takes them in
+    index order, with the same result (chip_smoke.py times the two).
     """
     _check(rays, geom, entry_tri, starts, chunk)
     esub = effective_esub(chunk, esub)
     if rays.device.type == "cpu":
         return bin_intersect_reference(rays, geom, entry_tri, starts, chunk,
                                        eps, draw_distance, esub, with_steps)
+    telemetry = esub > 1 or with_steps
+    out = _launch(rays, geom, entry_tri, starts, chunk, eps, draw_distance,
+                  esub, with_steps, longest_first=longest_first)
+    bin_intersect.launches += 1
+    bin_intersect.telemetry_launches += int(telemetry)
+    return out
+
+
+def _launch(rays, geom, entry_tri, starts, chunk, eps, draw_distance, esub,
+            with_steps, *, rays_per_thread=None, groups=None, overlap=True,
+            longest_first=True):
+    """Launch K1 (``esub`` 1 without steps) or K3 on CUDA tensors.
+    ``rays_per_thread`` and ``groups`` (default: `walk_shape`), ``overlap``
+    (K3: copy the next block under the current one's scan) and
+    ``longest_first`` exist to measure each design lever against its
+    absence; `bin_intersect` sets only the last."""
     if rays.device.type != "cuda":
         raise ValueError(f"no bin_intersect kernel for {rays.device}")
     n_t, p, _ = rays.shape
@@ -144,9 +163,9 @@ def bin_intersect(rays: torch.Tensor, geom: torch.Tensor,
         raise ValueError(f"P = {p} rays per tile must be a multiple of 32 "
                          "in [32, 1024]")
     telemetry = esub > 1 or with_steps
-    r_thread, groups = own_walk_shape(p)
-    smem = ((GEOM_ROWS + 1) * chunk * 4 if telemetry
-            else 2 * (GEOM_ROWS + 1) * chunk * 4 + groups * p * 8)
+    r_thread, groups = walk_shape(p, rays_per_thread, groups)
+    smem = (2 * (GEOM_ROWS + 1) * chunk * 4 + groups * p * 8
+            + (2 * -(-chunk // 32) * 4 + p * 8 if telemetry else 0))
     if smem > 227 * 1024:
         raise ValueError(f"chunk {chunk} does not fit in shared memory")
     if rays.data_ptr() % 16:
@@ -160,26 +179,22 @@ def bin_intersect(rays: torch.Tensor, geom: torch.Tensor,
         return out
     eps_f, eps2_det, draw = _constants(eps, draw_distance)
     stream = torch.cuda.current_stream(rays.device).cuda_stream
+    order = (torch.empty(n_t, dtype=torch.int32, device=rays.device)
+             if longest_first else None)
+    ptrs = (rays.data_ptr(), geom.data_ptr(), entry_tri.data_ptr(),
+            starts.data_ptr(), None if order is None else order.data_ptr(),
+            out_t.data_ptr(), out_tri.data_ptr())
     own, aligned = _launchers()
     if telemetry:
-        err = aligned(rays.data_ptr(), geom.data_ptr(), entry_tri.data_ptr(),
-                      starts.data_ptr(), out_t.data_ptr(), out_tri.data_ptr(),
-                      None if steps is None else steps.data_ptr(), n_t, p,
-                      geom.shape[1], chunk, esub, eps_f, eps2_det, draw,
-                      stream)
+        err = aligned(*ptrs, None if steps is None else steps.data_ptr(),
+                      n_t, p, geom.shape[1], chunk, esub, r_thread, groups,
+                      int(overlap), eps_f, eps2_det, draw, stream)
     else:
-        order = (torch.empty(n_t, dtype=torch.int32, device=rays.device)
-                 if longest_first else None)
-        err = own(rays.data_ptr(), geom.data_ptr(), entry_tri.data_ptr(),
-                  starts.data_ptr(), None if order is None else
-                  order.data_ptr(), out_t.data_ptr(), out_tri.data_ptr(),
-                  n_t, p, geom.shape[1], chunk, r_thread, groups, eps_f,
-                  eps2_det, draw, stream)
+        err = own(*ptrs, n_t, p, geom.shape[1], chunk, r_thread, groups,
+                  eps_f, eps2_det, draw, stream)
     if err != 0:
         raise RuntimeError(f"bin_intersect kernel launch failed: CUDA error "
                            f"{err}")
-    bin_intersect.launches += 1
-    bin_intersect.telemetry_launches += int(telemetry)
     return out
 
 
@@ -196,30 +211,34 @@ def bin_intersect_reference(rays: torch.Tensor, geom: torch.Tensor,
     result bit for bit)."""
     esub = effective_esub(chunk, esub)
     own = esub == 1 and not with_steps
-    t, tri, steps = _walk(rays, geom, entry_tri, starts, chunk, eps,
-                          draw_distance, esub, own)
-    return (t, tri, steps) if with_steps else (t, tri)
+    t, tri, scanned, nblk, _ = _walk(rays, geom, entry_tri, starts, chunk,
+                                     eps, draw_distance, esub, own)
+    if not with_steps:
+        return t, tri
+    return t, tri, torch.stack([scanned, nblk], dim=1).to(torch.int32)
 
 
-def own_walk_work(rays: torch.Tensor, geom: torch.Tensor,
-                  entry_tri: torch.Tensor, starts: torch.Tensor,
-                  chunk: int = 512, eps: float = MT_EPSILON,
-                  draw_distance: float = DEFAULT_DRAW_DISTANCE
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K1's work per tile, two (nT,) int64: the own entries of the blocks
-    whose gate opened (each is scanned against all P rays of its tile), and
-    the ray-entry pairs among those that the test accepted."""
-    counts = _walk(rays, geom, entry_tri, starts, chunk, eps, draw_distance,
-                   1, own=True)[2]
-    return counts[:, 0], counts[:, 2]
+def walk_work(rays: torch.Tensor, geom: torch.Tensor,
+              entry_tri: torch.Tensor, starts: torch.Tensor,
+              chunk: int = 512, eps: float = MT_EPSILON,
+              draw_distance: float = DEFAULT_DRAW_DISTANCE, esub: int = 1,
+              own: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """A walk's work per tile, two (nT,) int64: the entries of the blocks
+    (``own``: K1, the tile's own entries) or of the ``esub`` slices (K3)
+    whose gate opened, each scanned against all P rays of its tile, and the
+    ray-entry pairs among those that the test accepted."""
+    esub = effective_esub(chunk, esub)
+    _, _, scanned, _, accepted = _walk(rays, geom, entry_tri, starts, chunk,
+                                       eps, draw_distance, esub, own)
+    return (scanned if own else scanned * (chunk // esub)), accepted
 
 
 def _walk(rays, geom, entry_tri, starts, chunk, eps, draw_distance, esub,
           own):
     """The walk of both kernels: over whole blocks in ``esub`` slices, or
     (``own``) over each block's own entries of the tile. Returns t, tri and
-    (nT, 2) int32 [slices scanned, blocks walked] per tile, or with ``own``
-    (nT, 3) int64 [entries scanned, blocks walked, pairs accepted]."""
+    three (nT,) int64 per tile: slices scanned (``own``: entries scanned),
+    blocks walked, and ray-entry pairs accepted."""
     el = chunk // esub
     eps_f, eps2_det, draw = _constants(eps, draw_distance)
     n_t, p, _ = rays.shape
@@ -270,7 +289,8 @@ def _walk(rays, geom, entry_tri, starts, chunk, eps, draw_distance, esub,
                 if own:                            # other tiles' entries out
                     mine = mine_k[go][i:i + group, None]
                     tt = torch.where(mine, tt, torch.inf)
-                    accepted[tg] += (ok & mine).sum(dim=(1, 2))
+                    ok = ok & mine
+                accepted[tg] += ok.sum(dim=(1, 2))
                 tmin = tt.amin(dim=2)
                 tri = torch.where(tt == tmin[..., None],
                                   ids[bg][:, None, cols], _NO_TRI).amin(dim=2)
@@ -278,7 +298,4 @@ def _walk(rays, geom, entry_tri, starts, chunk, eps, draw_distance, esub,
                 better = tmin < cur_t
                 best_t[tg] = torch.where(better, tmin, cur_t)
                 best_tri[tg] = torch.where(better, tri, cur_tri)
-    if own:
-        return best_t, best_tri, torch.stack([scanned, nblk, accepted], 1)
-    return best_t, best_tri, torch.stack([scanned, nblk], dim=1).to(
-        torch.int32)
+    return best_t, best_tri, scanned, nblk, accepted

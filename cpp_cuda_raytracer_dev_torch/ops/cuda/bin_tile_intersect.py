@@ -36,20 +36,21 @@ import torch
 
 from ...utils.dtypes import DEFAULT_DRAW_DISTANCE, MT_EPSILON
 from . import _build
+from .bin_intersect import walk_shape
 from .tile_intersect import (_constants, _inv_dirs, _root_bound,
                              _slot_constants)
 
 ROWS = 10                 # p1(3) | e1(3) | e2(3) | depth
 _MISS_T = 3.0e38
 _PAIRS = 1 << 24          # ray-entry pairs per group of the plain version
-_MAX_CHUNK = 1024         # 40 bytes of shared memory an entry
+_MAX_CHUNK = 1024         # 88 bytes of shared memory an entry
 _fn = []
 
 
 def _launcher():
     if not _fn:
         fn = _build.load("bin_tile_intersect").bin_tile_intersect_launch
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                        + [ctypes.c_float] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn.append(fn)
@@ -106,34 +107,54 @@ def bin_tile_intersect(d_tiles: torch.Tensor, starts: torch.Tensor,
         return bin_tile_intersect_reference(d_tiles, starts, origin10, geom,
                                             chunk, eps, draw_distance, n_sub,
                                             mt_precision, debug_mode)
+    out = _launch(d_tiles, starts, origin10, geom, chunk, eps, draw_distance,
+                  n_sub, debug_mode)
+    bin_tile_intersect.launches += 1
+    return out
+
+
+def _launch(d_tiles, starts, origin10, geom, chunk, eps, draw_distance,
+            n_sub, debug_mode, *, rays_per_thread=None, groups=None,
+            overlap=True, longest_first=True):
+    """Launch K6 on CUDA tensors. ``rays_per_thread`` and ``groups``
+    (default: `walk_shape`), ``overlap`` (copy the next chunk's rows under
+    the current one's scan) and ``longest_first`` exist to measure each
+    design lever against its absence; `bin_tile_intersect` sets none."""
     if d_tiles.device.type != "cuda":
         raise ValueError(f"no bin_tile_intersect kernel for {d_tiles.device}")
     n_t, _, p = d_tiles.shape
     if p % 32 or not 32 <= p <= 1024:
         raise ValueError(f"P = {p} rays per tile must be a multiple of 32 "
-                         "in [32, 1024] (one thread per ray)")
+                         "in [32, 1024]")
     sub_len = p // n_sub
     if n_sub > 1 and (32 % sub_len if sub_len < 32 else sub_len % 32):
         raise ValueError(f"sub-tiles of {sub_len} rays must divide 32 or be "
                          "whole warps")
-    if chunk > _MAX_CHUNK:
-        raise ValueError(f"chunk {chunk} above {_MAX_CHUNK}")
+    if not 4 <= chunk <= _MAX_CHUNK:
+        raise ValueError(f"chunk {chunk} outside [4, {_MAX_CHUNK}]")
+    if geom.data_ptr() % 16:
+        raise ValueError("geom must be 16-byte aligned (copied 16 bytes at "
+                         "a time)")
+    r_thread, groups = walk_shape(p, rays_per_thread, groups)
     dev = d_tiles.device
     out_t = torch.empty((n_t, p), dtype=torch.float32, device=dev)
     out_enc = torch.empty((n_t, p), dtype=torch.int32, device=dev)
     steps = torch.empty((n_t, 2), dtype=torch.int32, device=dev)
     if n_t == 0:
         return out_t, out_enc, steps
+    order = (torch.empty(n_t, dtype=torch.int32, device=dev)
+             if longest_first else None)
     eps_f, k1, eps2_det, draw = _constants(eps, draw_distance)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _launcher()(d_tiles.data_ptr(), starts.data_ptr(),
-                      origin10.data_ptr(), geom.data_ptr(), out_t.data_ptr(),
-                      out_enc.data_ptr(), steps.data_ptr(), n_t, p, chunk,
-                      n_sub, debug_mode, eps_f, k1, eps2_det, draw, stream)
+                      origin10.data_ptr(), geom.data_ptr(),
+                      None if order is None else order.data_ptr(),
+                      out_t.data_ptr(), out_enc.data_ptr(), steps.data_ptr(),
+                      n_t, p, chunk, n_sub, debug_mode, r_thread, groups,
+                      int(overlap), eps_f, k1, eps2_det, draw, stream)
     if err != 0:
         raise RuntimeError(f"bin_tile_intersect kernel launch failed: CUDA "
                            f"error {err}")
-    bin_tile_intersect.launches += 1
     return out_t, out_enc, steps
 
 

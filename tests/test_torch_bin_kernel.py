@@ -24,7 +24,7 @@ import torch
 from cpp_cuda_raytracer_dev_torch import Camera, RenderConfig, Triangles
 from cpp_cuda_raytracer_dev_torch.accel.traverse import bin_object
 from cpp_cuda_raytracer_dev_torch.ops.cuda.bin_intersect import (
-    bin_intersect, bin_intersect_reference, own_walk_work)
+    bin_intersect, bin_intersect_reference, walk_work)
 from cpp_cuda_raytracer_dev_torch.utils.procgen import (dragon_class_mesh,
                                                         uv_sphere)
 
@@ -111,7 +111,7 @@ def test_own_range_walk_matches_aligned_walk(mesh, res, cull, pos):
     assert (own_tri >= 0).float().mean() > 0.3
     assert torch.equal(own_t, al_t)
     assert torch.equal(own_tri, al_tri)
-    own_entries, accepted = own_walk_work(*ops, 512)
+    own_entries, accepted = walk_work(*ops, 512)
     assert (int(own_entries.sum()) * ops[0].shape[1]
             < int(steps[:, 0].sum()) * 512 * ops[0].shape[1])
     # every hit was accepted; the test accepts few of the pairs

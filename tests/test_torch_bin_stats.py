@@ -13,8 +13,17 @@ also holds the padding items of its fixed-size work list,
 ``i_cap - sum(blocks)`` (they point at the dead chunk, whose gate never
 opens, so ``steps`` does not count them).
 
+The same comparison runs on a mesh whose every triangle is there twice
+(ids i and i + n), so that every hit is an exact tie between two ids: the
+within-slice rule (the lowest id at the minimum t) and the across-slice
+rule (the best changes only on a strictly smaller t) decide every id.
+
+On a CUDA device (``gpu`` marker, skipped here) the kernel equals its plain
+version bit for bit at P 256 / 512 / 1024, esub 1 / 2 / 4 / 8, on the tie
+mesh, at an infinite draw distance and with each design lever switched off.
+
 The JAX package is imported inside the tests that use it, so that the GPU
-test also runs where JAX is not installed:
+tests also run where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider -m gpu \\
         tests/test_torch_bin_stats.py
 """
@@ -42,12 +51,29 @@ def _config(esub, with_stats=True):
                         with_stats=with_stats, bin_esub=esub)
 
 
+def _sphere():
+    return uv_sphere(50, 50, roughness=0.03)
+
+
+def _tie_mesh():
+    tv = uv_sphere(30, 30)
+    return np.concatenate([tv, tv])
+
+
 @pytest.fixture(scope="module")
 def both():
+    return _both(_sphere())
+
+
+@pytest.fixture(scope="module")
+def tie_both():
+    return _both(_tie_mesh())
+
+
+def _both(tv):
     import jax.numpy as jnp
 
     import cpp_cuda_raytracer_dev_tpu as J
-    tv = uv_sphere(50, 50, roughness=0.03)
     jtris = J.Triangles.from_vertices(tv)
     jcam = J.Camera.create(RES_W, RES_H, pos=[0.1, 0.2, -2.2],
                            look_at=[0.0, 0.0, 0.0], up=[0.0, 1.0, 0.0],
@@ -74,7 +100,21 @@ def _jax_stats(jside, esub):
 
 @pytest.mark.parametrize("esub", [1, 4])
 def test_stats_match_jax(both, esub):
-    jside, (ptris, pproj, o), _ = both
+    _assert_stats_match_jax(both, esub)
+
+
+@pytest.mark.parametrize("esub", [1, 4])
+def test_stats_match_jax_on_ties(tie_both, esub):
+    """Every hit ties between triangles i and i + n; both packages take the
+    same id on every ray, and the same counts. The copies sit side by side
+    in the depth order, mostly in one slice, where the lower id wins."""
+    tri = _assert_stats_match_jax(tie_both, esub)
+    n = tie_both[2].shape[0] // 2
+    assert (tri[tri >= 0] < n).mean() > 0.9
+
+
+def _assert_stats_match_jax(sides, esub):
+    jside, (ptris, pproj, o), _ = sides
     jhit, js, i_cap = _jax_stats(jside, esub)
     with torch.no_grad():
         phit, ps = intersect_binned(o, None, ptris, pproj, _config(esub),
@@ -93,6 +133,7 @@ def test_stats_match_jax(both, esub):
     assert ps["entries"] == int(js["entries"])
     assert ps["overflow"] == 0 == int(js["overflow"])
     assert int(ps["cross"]) == int(js["cross"])
+    return ptri
 
 
 def test_stats_at_esub_1_leave_the_hits_bit_identical(both):
@@ -110,6 +151,27 @@ def test_esub_degrades_as_in_jax():
     assert [effective_esub(128, e) for e in (1, 2, 4)] == [1, 1, 1]
     with pytest.raises(ValueError):
         effective_esub(512, 0)
+
+
+@pytest.mark.parametrize("esub", [1, 4])
+def test_walk_work_counts_the_aligned_walks_pairs(both, esub):
+    """K3's bound reads its work from the plain walk: the entries of the
+    slices whose gate opened (slices scanned x chunk / esub), and the pairs
+    among them that the test accepted (at least one a hit ray)."""
+    from cpp_cuda_raytracer_dev_torch.ops.cuda.bin_intersect import \
+        walk_work
+    _, (ptris, pproj, o), _ = both
+    with torch.no_grad():
+        rays, b = bin_object(o, ptris, pproj, _config(esub), RES_H, RES_W)
+    ops = (rays, b.geom, b.entry_tri, b.starts, CHUNK)
+    _, tri, steps = bin_intersect_reference(*ops, esub=esub, with_steps=True)
+    entries, accepted = walk_work(*ops, esub=esub, own=False)
+    assert torch.equal(entries, steps[:, 0].long() * (CHUNK // esub))
+    p = rays.shape[1]
+    assert bool(((tri >= 0).sum(dim=1) <= accepted).all())
+    assert int(accepted.sum()) < int(entries.sum()) * p // 10
+    own_entries, _ = walk_work(*ops)
+    assert int(own_entries.sum()) < int(entries.sum())
 
 
 def test_trace_rays_refuses_stats(both):
@@ -155,3 +217,85 @@ def test_kernel_stats_match_plain_version_on_gpu(esub):
     wt, wtri = bin_intersect_reference(*ops, esub=esub)
     assert torch.equal(pt, wt) and torch.equal(ptri, wtri)
     assert torch.equal(pt, kt) and torch.equal(ptri, ktri)
+
+
+# each design lever of K3 switched off: one ray a thread (R 1, one group of
+# P threads at P 512), one entry group, two rays a thread in two groups,
+# the next block copied only before its scan, the tiles in index order;
+# and the CTA widened to eight groups (1,024 threads)
+LEVERS = ({"rays_per_thread": 1}, {"groups": 1},
+          {"rays_per_thread": 2, "groups": 2}, {"overlap": False},
+          {"longest_first": False}, {"groups": 8})
+
+
+def _gpu_operands(tv, tile=(TH, TW), pos=(0.1, 0.2, -2.2)):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dev = torch.device("cuda", 0)
+    tris = Triangles.from_vertices(tv, device=dev)
+    cam = Camera.create(RES_W, RES_H, pos=list(pos), look_at=[0.0, 0.0, 0.0],
+                        up=[0.0, 1.0, 0.0], film_h=0.024, focal=0.055,
+                        device=dev)
+    config = RenderConfig(method="bin", tile_h=tile[0], tile_w=tile[1],
+                          bin_chunk=CHUNK, backface_cull=True)
+    with torch.no_grad():
+        rays, b = bin_object(cam.pos, tris, cam.projection(), config, RES_H,
+                             RES_W)
+    return rays, b.geom, b.entry_tri, b.starts, CHUNK
+
+
+def _assert_kernel_is_plain(ops, esub, with_steps, **kw):
+    got = bin_intersect(*ops, esub=esub, with_steps=with_steps, **kw)
+    torch.cuda.synchronize()
+    want = bin_intersect_reference(*ops, esub=esub, with_steps=with_steps,
+                                   **kw)
+    assert all(torch.equal(g, w) for g, w in zip(got, want)), (esub, kw)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("esub", [1, 2, 4, 8])
+@pytest.mark.parametrize("tile", [(16, 16), (16, 32), (32, 32)])
+def test_kernel_matches_plain_version_at_each_width_on_gpu(tile, esub):
+    """P 256 / 512 / 1024 rays a tile (4 rays a thread in 8 / 4 / 2 entry
+    groups): t, tri and steps bit for bit, with the steps output and (K3's
+    sliced instance, or K1's walk at esub 1) without."""
+    ops = _gpu_operands(_sphere(), tile)
+    for with_steps in (True, False):
+        t, tri = _assert_kernel_is_plain(ops, esub, with_steps)[:2]
+        assert (tri >= 0).float().mean() > 0.5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("esub", [1, 4])
+def test_kernel_matches_plain_version_on_ties_gpu(esub):
+    """Every hit an exact tie between ids i and i + n, which the entry
+    groups' merge must settle as the plain version's rules do."""
+    ops = _gpu_operands(_tie_mesh())
+    for with_steps in (True, False):
+        _assert_kernel_is_plain(ops, esub, with_steps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("esub", [1, 4])
+def test_kernel_at_infinite_draw_distance_on_gpu(esub):
+    """Every entry takes part in the select, so a ray that hits nothing in
+    a scanned slice takes its lowest id at t 3e38; the far view leaves such
+    rays."""
+    ops = _gpu_operands(_sphere(), pos=(0.1, 0.2, -6.0))
+    t, tri, _ = _assert_kernel_is_plain(ops, esub, True,
+                                        draw_distance=float("inf"))
+    assert bool(((t == 3.0e38) & (tri >= 0)).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lever", range(len(LEVERS)))
+def test_levers_off_give_the_design_result_on_gpu(lever):
+    from cpp_cuda_raytracer_dev_torch.ops.cuda import bin_intersect as k1
+    ops = _gpu_operands(_sphere())
+    for esub, with_steps in ((1, True), (4, True), (4, False)):
+        want = bin_intersect(*ops, esub=esub, with_steps=with_steps)
+        got = k1._launch(*ops, k1.MT_EPSILON, k1.DEFAULT_DRAW_DISTANCE, esub,
+                         with_steps, **LEVERS[lever])
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), esub

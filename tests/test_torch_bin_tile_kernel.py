@@ -13,8 +13,14 @@ roughened sphere at 64x32 in 16x32 tiles, chunk 128.
 - ``debug_mode`` 1 and 2 and ``n_sub`` 2 give the same hits.
 - `tile_operands` on the port's own binning gives the hits of K1's plain
   version: the same t bit for bit, ids apart only on exact ties.
+- On a mesh whose every triangle is there twice (ids i and i + n, side by
+  side in the depth order) every hit is an exact tie: the plain version
+  takes the lower slot of the two where both share the winning chunk, and
+  the JAX kernel the same ids.
 - On a CUDA device (``gpu`` marker, skipped here): the kernel equals its
-  plain version bit for bit, on operands the port's binning makes.
+  plain version bit for bit, on operands the port's binning makes, at chunk
+  64 / 128 / 256, n_sub 1 / 2 / 16 and every debug mode, on the tie mesh
+  and with each design lever switched off.
 
 The JAX package is imported inside the tests that use it, so that the GPU
 tests also run where JAX is not installed:
@@ -55,7 +61,12 @@ def _mesh():
     return uv_sphere(48, 48, roughness=0.03)
 
 
-def _jax_operands(pos, look_at):
+def _tie_mesh():
+    tv = uv_sphere(24, 24)
+    return np.concatenate([tv, tv])
+
+
+def _jax_operands(pos, look_at, tv=None):
     """K6's operands from the JAX pipeline (bin_triangles, _ray_table), as
     numpy, plus the mesh, the entry ids and the origin."""
     import jax.numpy as jnp
@@ -64,7 +75,7 @@ def _jax_operands(pos, look_at):
     from cpp_cuda_raytracer_dev_tpu.accel import traverse as jtr
     from cpp_cuda_raytracer_dev_tpu.accel.binning import bin_triangles
 
-    tv = _mesh()
+    tv = _mesh() if tv is None else tv
     tris = J.Triangles.from_vertices(tv)
     cam = J.Camera.create(RES_W, RES_H, pos=pos, look_at=look_at,
                           up=[0.0, 1.0, 0.0], film_h=0.024, focal=0.055)
@@ -164,10 +175,51 @@ def test_debug_modes_and_subtiles_give_the_same_hits(jax_case, kw):
         assert torch.equal(steps, steps0)
 
 
-def _port_case(view, device, th=TH, tw=TW, res=(RES_W, RES_H)):
-    """The port's bin operands (bin_object) for the sphere, and K6's."""
+def test_plain_version_takes_the_lowest_slot_on_ties():
+    """Every hit ties between the copies i and i + n of one triangle (the
+    same constants, so the same t). Where both copies lie in the winning
+    chunk the plain version takes the lower slot, as the JAX kernel's
+    integer minimum over quantised t and slot does; the decoded ids agree
+    with the JAX kernel's but on near-ties."""
+    import jax.numpy as jnp
+
+    from cpp_cuda_raytracer_dev_tpu.ops.pallas.bin_kernel import \
+        pallas_bin_intersect
+    tv = _tie_mesh()
+    ops = _jax_operands(*CAMERAS["front"], tv=tv)
+    args = _args(ops)
+    _, jenc, _ = pallas_bin_intersect(*(jnp.asarray(x) for x in args),
+                                      chunk=CHUNK, draw_distance=DRAW,
+                                      interpret=True)
+    _, penc, _ = bt.bin_tile_intersect_reference(*args, chunk=CHUNK,
+                                                 draw_distance=DRAW)
+    starts, et = args[1], torch.tensor(ops["entry_tri"])
+    ptri = bt.decode_enc(penc, starts, et, CHUNK).numpy()
+    jtri = bt.decode_enc(torch.tensor(np.asarray(jenc)), starts, et,
+                         CHUNK).numpy()
+    assert (ptri >= 0).mean() > 0.3
+    assert _assert_near_ties(ptri, jtri, ops).mean() >= 0.999
+    # the winner's slot against its copy's in the winning chunk
+    enc = penc.numpy()
+    hit = enc >= 0
+    entry = (ops["starts"][:-1, None] // CHUNK * CHUNK + enc)[hit]
+    block = entry // CHUNK * CHUNK
+    ids = ops["entry_tri"][block[:, None] + np.arange(CHUNK)]
+    n = tv.shape[0] // 2
+    copy = (ptri[hit] + n) % (2 * n)
+    at_copy = ids == copy[:, None]
+    both = at_copy.any(axis=1)
+    assert both.mean() > 0.5
+    assert (entry[both] % CHUNK < at_copy[both].argmax(axis=1)).all()
+
+
+def _port_case(view, device, th=TH, tw=TW, res=(RES_W, RES_H), tv=None,
+               chunk=CHUNK):
+    """The port's bin operands (bin_object) for the sphere (or ``tv``), and
+    K6's."""
     pos, look_at = view
-    tris = Triangles.from_vertices(_mesh(), device=device)
+    tris = Triangles.from_vertices(_mesh() if tv is None else tv,
+                                   device=device)
     cam = Camera.create(*res, pos=pos, look_at=look_at,
                         up=[0.0, 1.0, 0.0], film_h=0.024, focal=0.055,
                         device=device)
@@ -175,7 +227,7 @@ def _port_case(view, device, th=TH, tw=TW, res=(RES_W, RES_H)):
     with torch.no_grad():
         rays, b = bin_object(cam.pos, tris, cam.projection(), cfg, res[1],
                              res[0])
-        ops = bt.tile_operands(rays, b, tris, cam.pos, chunk=CHUNK)
+        ops = bt.tile_operands(rays, b, tris, cam.pos, chunk=chunk)
     return rays, b, ops
 
 
@@ -262,5 +314,61 @@ def test_kernel_matches_plain_version_on_gpu(tile, cam):
         torch.cuda.synchronize()
         assert bt.bin_tile_intersect.launches == before + 1
         want = bt.bin_tile_intersect_reference(*ops, chunk=CHUNK, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), kw
+
+
+# each design lever of K6 switched off: one ray a thread (R 1, one group of
+# P threads at P 512), one entry group, two rays a thread in two groups,
+# the next chunk's rows copied only after the scan, the tiles in index order;
+# and the CTA widened to eight groups (1,024 threads)
+LEVERS = ({"rays_per_thread": 1}, {"groups": 1},
+          {"rays_per_thread": 2, "groups": 2}, {"overlap": False},
+          {"longest_first": False}, {"groups": 8})
+MODES = [{"n_sub": n, "debug_mode": m} for n in (1, 2, 16) for m in (0, 1, 2)]
+
+
+def _assert_every_mode_is_plain(ops, chunk):
+    for kw in MODES:
+        got = bt.bin_tile_intersect(*ops, chunk=chunk, **kw)
+        torch.cuda.synchronize()
+        want = bt.bin_tile_intersect_reference(*ops, chunk=chunk, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [64, 128, 256])
+def test_kernel_matches_plain_version_at_each_chunk_on_gpu(chunk):
+    """Bit for bit at n_sub 1, 2 and 16 and every debug mode, both views;
+    records of 64 to 256 entries, so every thread's share of the entry
+    constants and of the slots changes with the chunk."""
+    dev = _gpu_device()
+    for cam in CAMERAS:
+        _, _, ops = _port_case(CAMERAS[cam], dev, res=(128, 64), chunk=chunk)
+        _assert_every_mode_is_plain(ops, chunk)
+
+
+@pytest.mark.gpu
+def test_kernel_matches_plain_version_on_ties_gpu():
+    """Every hit an exact tie between two slots, which the entry groups'
+    merge must settle as the plain version does (the lower slot)."""
+    dev = _gpu_device()
+    _, _, ops = _port_case(CAMERAS["front"], dev, res=(128, 64),
+                           tv=_tie_mesh())
+    _assert_every_mode_is_plain(ops, CHUNK)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lever", range(len(LEVERS)))
+def test_levers_off_give_the_design_result_on_gpu(lever):
+    dev = _gpu_device()
+    _, _, ops = _port_case(CAMERAS["front"], dev, res=(128, 64))
+    for kw in ({}, {"n_sub": 16}, {"debug_mode": 1}):
+        want = bt.bin_tile_intersect(*ops, chunk=CHUNK, **kw)
+        got = bt._launch(*ops, CHUNK, bt.MT_EPSILON, bt.DEFAULT_DRAW_DISTANCE,
+                         kw.get("n_sub", 1), kw.get("debug_mode", 0),
+                         **LEVERS[lever])
+        torch.cuda.synchronize()
         for g, w in zip(got, want):
             assert torch.equal(g, w), kw
