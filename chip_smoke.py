@@ -5,7 +5,9 @@
 
 Drives the port's ``method="bin"`` frame and its training step, the
 cluster paths ``method="pallas2"`` and ``"pallas"``, the per-tile bin
-kernel K6, and the apps ``render_cli`` and ``animate``, at the headline size:
+kernel K6, the apps ``render_cli`` and ``animate``, the sharded entry points
+(at world size 1 over NCCL), the raster path and float64, at the headline
+size:
 the dragon-class mesh (``dragon_class_mesh(800_000)``, 800,130 triangles)
 at 960x540, 16x32 tiles, the bench camera (pos (0, 0, -3), look-at the
 origin, film_h 0.024, focal 0.055); bin_chunk 512 and backface cull for
@@ -71,7 +73,10 @@ Phases (any failure raises and the process exits non-zero):
      (``time_variants``), esub 4 and the plain version timed; the
      ray-entry pairs K3 scanned, and those accepted, give its bound at K1's
      count; the frame timed with and without the telemetry;
-  9. the cluster paths: build the ClusterAccel (seconds, clusters); the
+  9. the cluster paths: build the ClusterAccel (seconds, clusters), which
+     must go through the native KD builder, then the native builder
+     against the numpy one on the same boxes (seconds each, trees bitwise
+     equal); the
      tile-intersect kernels K4 and K5 against their plain versions on the
      same operands (a 96x64 sphere, headline frame 0, a grazing view
      with 4 candidates a tile whose overflow forces escalation, and a
@@ -110,13 +115,39 @@ Phases (any failure raises and the process exits non-zero):
      rays of the same camera (agreement >= 0.999) and each kernel path's
      launch counter moved; then ``animate.main`` for 30 ticks at 960x540
      with ``--second-object --method bin --json-out``: two objects, K1
-     twice a frame, which its launch counter must show.
+     twice a frame, which its launch counter must show;
+ 12. sharding, in this process at world size 1 over NCCL (a sharded phase
+     never falls back to gloo or the CPU): meshes (1,) and (1, 1);
+     ``render_sharded`` with ``bin``, ``pallas2`` and ``pallas``,
+     ``render_sharded_2d_bin`` and ``render_sharded_2d_accel`` (``pallas2``)
+     on frame 0 at the headline size, each bit for bit ``render``'s frame
+     (t, ids, object ids, image, radiance, normal, point) with its kernels'
+     launch counters reset just before and required to move
+     (K1, K4, K5); ``render_sharded_2d`` (the brute ``fixed`` path, about
+     4e11 ray-triangle pairs at the headline) on a cut mesh of
+     ``SHARDED_2D_TRIS`` triangles at 960x540, against ``render`` with
+     ``fixed``; one sharded all-leaves ``make_train_step`` step against the
+     single-device step from the same parameters: K1's and K2's counters
+     move, every gradient finite, gradients and parameters bitwise equal;
+     multi-GPU scaling is not measured (one card);
+ 13. the raster path (plain PyTorch, no kernel) on headline frame 0:
+     ``RASTER_FRAMES`` frames timed with CUDA events, the peak memory above
+     the scene, the overflow stats (nothing dropped), ids against K1's frame
+     (every difference an oracle tie or a ray where the raster id is the
+     oracle's and K1's is not, ROADMAP F2) and agreement with phase 4's
+     oracle rays >= 0.999; one frame each at ``RASTER_SPANS``;
+ 14. float64 on the card: ``brute`` and ``fixed`` frames of a 1,152-triangle
+     sphere in float64 (float64 outputs, finite, ids equal to float32's on
+     >= 98% of pixels), the analytic ray (|t - 3| <= 1e-12), a finite
+     float64 gradient of the mean radiance with respect to the camera
+     position, and ``bin`` and ``raster`` refusing float64.
 A differing id passes as a tie when both triangles' t, by the oracle's
 constants, lie within 1e-5 of the oracle's t. Each phase prints its seconds.
 Operation bounds are given at the FMA peak (``bound_ms``: 2 operations a
 lane a clock) and at one instruction an operation (``bound_issue_ms``: the
 kernels are built with -fmad=false). Prints a JSON line of per-kernel
-results, then, as the last line,
+results (``launches_by_path`` with phase 12's sharded paths), then, as the
+last line,
 ``{"ok": true, "device": {...}}``. Needs a CUDA device and never falls back
 to the CPU.
 """
@@ -158,6 +189,9 @@ KD_RES = (320, 180)            # the KD path is a validation path, no kernel
 N_ANIMATE_TICKS = 30
 BACKGROUND = (240, 130, 0)
 N_CLUSTER_FRAMES = {"pallas2": 8, "pallas": 3}
+SHARDED_2D_TRIS = 20_000       # render_sharded_2d (brute) at a cut size
+RASTER_FRAMES = 3
+RASTER_SPANS = (8, 16)         # timed once each against the default 4
 # K3's and K6's design levers, each switched off (one ray a thread, which at
 # P 512 is also one entry group of 512 threads; one entry group of P / 4
 # threads; two rays a thread in two groups; the next block or chunk copied
@@ -910,8 +944,8 @@ def main() -> None:
     phase_done(8)
 
     # ---- 9. the cluster paths (K4, K5) ----
-    cluster_kernels = run_cluster_paths(dev, headline_tv, frames, idx_t, ref,
-                                        smi, clock_mhz)
+    accel, ccfgs, cluster_kernels = run_cluster_paths(
+        dev, headline_tv, frames, idx_t, ref, smi, clock_mhz)
     phase_done(9)
 
     # ---- 10. the per-tile bin kernel K6 ----
@@ -922,7 +956,19 @@ def main() -> None:
     run_entry_points(dev, headline_tv, smi)
     phase_done(11)
 
-    print(json.dumps({"kernels": [{
+    # ---- 12. sharding at world size 1 over NCCL ----
+    sharded = run_sharded(dev, frames, cfg, accel, ccfgs, target, smi)
+    phase_done(12)
+
+    # ---- 13. the raster path on headline frame 0 ----
+    run_raster(dev, frames, outs, idx_t, ref, smi)
+    phase_done(13)
+
+    # ---- 14. float64 ----
+    run_f64(dev)
+    phase_done(14)
+
+    kernels = [{
         "name": "bin_intersect", "route": "cuda",
         "source": "cpp_cuda_raytracer_dev_torch/csrc/bin_intersect.cu",
         "replaces": "cpp_cuda_raytracer_dev_tpu/ops/pallas/bin_kernel3.py:43",
@@ -956,7 +1002,10 @@ def main() -> None:
         "backward_ms": k2_backward_ms,
         "launches_by_path": {"serve": 0, "train": train_k2,
                              "train_pose_light_camera": pose_k2}},
-        *cluster_kernels, k6_kernel]}), flush=True)
+        *cluster_kernels, k6_kernel]
+    for entry in kernels:     # phase 12's launches, path by path
+        entry["launches_by_path"].update(sharded.get(entry["name"], {}))
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -964,11 +1013,14 @@ def main() -> None:
 
 def run_cluster_paths(dev, headline_tv, frames, idx_t, ref, smi, clock_mhz):
     """Phase 9 (see the module docstring): the cluster paths at the
-    headline size. Returns the kernels line's entries for K4 and K5."""
+    headline size. Returns the ClusterAccel, the two configurations and the
+    kernels line's entries for K4 and K5."""
     from cpp_cuda_raytracer_dev_torch import (Camera, ClusterAccel, Pose,
                                               RenderConfig, Scene,
                                               SceneObject, Triangles, render)
+    from cpp_cuda_raytracer_dev_torch.accel import native
     from cpp_cuda_raytracer_dev_torch.accel import traverse as tr
+    from cpp_cuda_raytracer_dev_torch.accel.kd_build import build_kd
     from cpp_cuda_raytracer_dev_torch.ops.cuda import segment_sum as k2
     from cpp_cuda_raytracer_dev_torch.ops.cuda import tile_intersect as k45
     from cpp_cuda_raytracer_dev_torch.ops.quaternion import from_axis_angle
@@ -988,14 +1040,47 @@ def run_cluster_paths(dev, headline_tv, frames, idx_t, ref, smi, clock_mhz):
     end = torch.cuda.Event(enable_timing=True)
 
     tris = frames[0][0].objects[0].tris
-    t0 = time.perf_counter()
-    accel = ClusterAccel.build(tris, leaf_size=c2.leaf_size, cache=False)
-    torch.cuda.synchronize()
+    if not native.native_available():
+        raise RuntimeError(f"no native KD builder: {native.build_error()}")
+    native_calls = []
+    build_kd_native = native.build_kd_native
+    native.build_kd_native = (lambda *a: native_calls.append(a[2:])
+                              or build_kd_native(*a))
+    try:
+        t0 = time.perf_counter()
+        accel = ClusterAccel.build(tris, leaf_size=c2.leaf_size, cache=False)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    finally:
+        native.build_kd_native = build_kd_native
     fill = (accel.slot_mat >= 0).sum(dim=1).float()
     log(f"ClusterAccel: {accel.num_clusters} clusters of at most "
         f"{int(fill.max())} triangles (mean {float(fill.mean()):.2f}), "
-        f"{accel.geom9.shape[2]} slots, built in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{accel.geom9.shape[2]} slots, built in {build_s:.2f} s; native KD "
+        f"builder calls {native_calls}")
+    if not native_calls:
+        raise RuntimeError("the ClusterAccel build did not run the native "
+                           "KD builder")
+    # the native builder against the numpy one on the same boxes
+    p1, e1, e2 = (x.detach().cpu().numpy() for x in
+                  (tris.p1, tris.e1, tris.e2))
+    v = np.stack([p1, p1 + e1, p1 + e2], axis=1)
+    amin, amax = v.min(axis=1), v.max(axis=1)
+    t0 = time.perf_counter()
+    tree_native = native.build_kd_native(amin, amax, c2.leaf_size)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tree_numpy = build_kd(amin, amax, c2.leaf_size)
+    numpy_s = time.perf_counter() - t0
+    same = all(np.array_equal(getattr(tree_native, f), getattr(tree_numpy, f))
+               for f in ("bounds_min", "bounds_max", "cut_code", "s1", "s2",
+                         "left", "right", "parent", "leaf_start",
+                         "leaf_count", "perm"))
+    log(f"KD build at {tris.p1x.shape[0]} triangles, leaf {c2.leaf_size}: "
+        f"native {native_s:.3f} s, numpy {numpy_s:.3f} s; "
+        f"{tree_native.num_nodes} nodes, trees bitwise equal {same}")
+    if not same:
+        raise RuntimeError("the native KD tree differs from numpy's")
     n_slots = accel.slot_mat.shape[1]
 
     def camera(pos, w, h):
@@ -1273,7 +1358,7 @@ def run_cluster_paths(dev, headline_tv, frames, idx_t, ref, smi, clock_mhz):
                 f"{bound['bound_issue_ms'] / kms:.3f} of the issue bound "
                 f"({smi})")
 
-    return [{
+    return accel, cfgs, [{
         "name": "tile_intersect_v2", "route": "cuda",
         "source": "cpp_cuda_raytracer_dev_torch/csrc/tile_intersect.cu",
         "replaces": "cpp_cuda_raytracer_dev_tpu/ops/pallas/"
@@ -1552,6 +1637,302 @@ def run_bin_tile(dev, frames, idx_t, ref, cfg, smi, clock_mhz):
         "library_ms": None, "bound_issue_ms": bound["bound_issue_ms"],
         "pairs": pairs, "levers_ms": levers,
         "launches_by_path": {"bin_tile_frames": launches}}
+
+
+def run_sharded(dev, frames, cfg, accel, ccfgs, target, smi):
+    """Phase 12 (see the module docstring): the sharded entry points at
+    world size 1 over NCCL, in this process. Returns {kernel name: {path:
+    launches}} for the kernels line."""
+    import socket
+
+    import torch.distributed as dist
+
+    from cpp_cuda_raytracer_dev_torch import (Camera, Pose, RenderConfig,
+                                              Scene, SceneObject, Triangles,
+                                              render)
+    from cpp_cuda_raytracer_dev_torch.ops.cuda import bin_intersect as k1
+    from cpp_cuda_raytracer_dev_torch.ops.cuda import segment_sum as k2
+    from cpp_cuda_raytracer_dev_torch.ops.cuda import tile_intersect as k45
+    from cpp_cuda_raytracer_dev_torch.ops.quaternion import from_axis_angle
+    from cpp_cuda_raytracer_dev_torch.parallel import mesh as pm
+    from cpp_cuda_raytracer_dev_torch.parallel import render_pjit as pj
+    from cpp_cuda_raytracer_dev_torch.utils.procgen import dragon_class_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    pm.initialize_distributed(f"localhost:{port}", 1, 0, device_type="cuda")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    out = {}
+    try:
+        if dist.get_backend() != "nccl":
+            raise RuntimeError(f"backend {dist.get_backend()}, not NCCL")
+        mesh1 = pm.make_mesh(1)
+        mesh11 = pm.make_mesh(1, prims_axis=True)
+        log(f"process group: {dist.get_backend()}, world size "
+            f"{dist.get_world_size()}; meshes {mesh1.mesh_dim_names} "
+            f"{tuple(mesh1.shape)} and {mesh11.mesh_dim_names} "
+            f"{tuple(mesh11.shape)}")
+        scene, cam = frames[0]
+        c2, c5 = ccfgs["pallas2"], ccfgs["pallas"]
+        acc = (accel,)
+        cases = [
+            ("render_sharded bin", "sharded_bin",
+             lambda: pj.render_sharded(scene, cam, cfg, mesh1),
+             lambda: render(scene, cam, cfg), [k1.bin_intersect]),
+            ("render_sharded pallas2", "sharded_pallas2",
+             lambda: pj.render_sharded(scene, cam, c2, mesh1, acc),
+             lambda: render(scene, cam, c2, acc), [k45.tile_intersect_v2]),
+            ("render_sharded pallas", "sharded_pallas",
+             lambda: pj.render_sharded(scene, cam, c5, mesh1, acc),
+             lambda: render(scene, cam, c5, acc), [k45.tile_intersect]),
+            ("render_sharded_2d_bin", "sharded_2d_bin",
+             lambda: pj.render_sharded_2d_bin(scene, cam, cfg, mesh11),
+             lambda: render(scene, cam, cfg), [k1.bin_intersect]),
+            ("render_sharded_2d_accel pallas2", "sharded_2d_accel",
+             lambda: pj.render_sharded_2d_accel(scene, cam, c2, mesh11, acc),
+             lambda: render(scene, cam, c2, acc), [k45.tile_intersect_v2])]
+        # the brute 2-D path at a cut size: ~4e11 pairs at the headline
+        cut_tris = Triangles.from_vertices(
+            dragon_class_mesh(SHARDED_2D_TRIS), device=dev)
+        cut_scene = Scene([SceneObject(cut_tris)])
+        fixed = RenderConfig(method="fixed", chunk=2048)
+        cases.append((f"render_sharded_2d fixed ({cut_tris.p1x.shape[0]} "
+                      "triangles, cut)", "sharded_2d",
+                      lambda: pj.render_sharded_2d(cut_scene, cam, fixed,
+                                                   mesh11),
+                      lambda: render(cut_scene, cam, fixed), []))
+        for name, path, fn, ref_fn, kernels in cases:
+            with torch.inference_mode():
+                want = ref_fn()
+                fn()       # warm-up: a mesh's first collective sets up NCCL
+                torch.cuda.synchronize()
+                for k in kernels:
+                    k.launches = 0
+                start.record()
+                got = fn()
+                end.record()
+                torch.cuda.synchronize()
+            counts = [k.launches for k in kernels]
+            for k, n in zip(kernels, counts):
+                out.setdefault(k.__name__, {})[path] = n
+            equal = {f: torch.equal(getattr(got, f), getattr(want, f))
+                     for f in ("hit_t", "hit_tri", "hit_obj", "image",
+                               "radiance", "normal", "point")}
+            log(f"{name}: {start.elapsed_time(end):.3f} ms, launches "
+                f"{counts}, hit rate "
+                f"{float((got.hit_tri >= 0).float().mean()):.6f}; bitwise "
+                f"render's frame: {equal} ({smi})")
+            if not all(equal.values()):
+                raise RuntimeError(f"{name} differs from render's frame")
+            if not all(counts):
+                raise RuntimeError(f"{name} did not launch its kernels")
+
+        # one sharded all-leaves step against the single-device step from
+        # the same parameters
+        def params():
+            tris = Triangles.from_vertices(frames[0][0].objects[0].tris
+                                           .vertices().detach(), device=dev)
+            pose = Pose(from_axis_angle([0.0, 1.0, 0.0], math.radians(1.0),
+                                        device=dev),
+                        torch.zeros(3, device=dev))
+            tcam = Camera.create(RES_W, RES_H, pos=[0.0, 0.0, -3.0],
+                                 look_at=[0.0, 0.0, 0.0], up=[0.0, 1.0, 0.0],
+                                 film_h=0.024, focal=0.055,
+                                 device=dev).requires_grad_()
+            p = {"scene": Scene([SceneObject(tris, pose)]), "camera": tcam}
+            return p, [*p["scene"].parameters(), *tcam.parameters()]
+        single, single_list = params()
+        loss1 = pj.make_train_step(torch.optim.SGD(single_list, lr=LR),
+                                   cfg)(single, target)
+        shard, shard_list = params()
+        k1.bin_intersect.launches = 0
+        k2.segment_sum.launches = 0
+        start.record()
+        loss2 = pj.make_train_step(torch.optim.SGD(shard_list, lr=LR), cfg,
+                                   mesh1)(shard, target)
+        end.record()
+        torch.cuda.synchronize()
+        counts = (k1.bin_intersect.launches, k2.segment_sum.launches)
+        out.setdefault("bin_intersect", {})["sharded_train"] = counts[0]
+        out.setdefault("segment_sum", {})["sharded_train"] = counts[1]
+        finite = all(bool(torch.isfinite(p.grad).all()) for p in shard_list)
+        same_p = all(torch.equal(a, b) for a, b in zip(shard_list,
+                                                       single_list))
+        same_g = all(torch.equal(a.grad, b.grad)
+                     for a, b in zip(shard_list, single_list))
+        log(f"sharded all-leaves step: {start.elapsed_time(end):.3f} ms, "
+            f"loss {float(loss2)} (single device {float(loss1)}), launches "
+            f"bin_intersect {counts[0]} segment_sum {counts[1]}; "
+            f"{len(shard_list)} gradients finite {finite}, gradients "
+            f"bitwise the single-device step's {same_g}, parameters "
+            f"{same_p} ({smi})")
+        if not (finite and same_p and same_g and all(counts)):
+            raise RuntimeError("the sharded step differs from the "
+                               "single-device step or missed a kernel")
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def check_raster_against_k1(tri_r, tri_k, rays, o, tris, cfg) -> int:
+    """Every ray on which the raster frame's id and K1's differ must be an
+    oracle tie (both triangles' t within 1e-5 of the oracle's) or a ray
+    where the raster id is the mt_fixed_origin oracle's: K1's folded
+    epsilons accept a few edge pairs that the oracle rejects (ROADMAP F2).
+    Prints each ray; returns how many of them K1 got wrong."""
+    from cpp_cuda_raytracer_dev_torch.ops.intersect import (FixedOriginCache,
+                                                            mt_fixed_origin)
+    differ = tri_r != tri_k
+    if not bool(differ.any()):
+        return 0
+    d = rays[differ]
+    cache = FixedOriginCache.build(o, tris)
+    orc = mt_fixed_origin(d, cache, cfg.draw_distance, cfg.eps, chunk=16384)
+
+    def t_of(ids):   # each id's t by the oracle's constants; inf on a miss
+        t = (cache.tdet[ids.clamp_min(0).long()]
+             / (d * cache.m_det[ids.clamp_min(0).long()]).sum(dim=1))
+        return torch.where(ids >= 0, t, torch.inf)
+    tr, tk = t_of(tri_r[differ]), t_of(tri_k[differ])
+    rel = torch.maximum((tr - orc.t).abs(), (tk - orc.t).abs()) / orc.t
+    tie = (orc.tri >= 0) & (rel <= 1e-5)
+    raster_right = tri_r[differ] == orc.tri
+    rows = zip(differ.nonzero().squeeze(1).tolist(), tri_r[differ].tolist(),
+               tr.tolist(), tri_k[differ].tolist(), tk.tolist(),
+               orc.tri.tolist(), orc.t.tolist(), tie.tolist(),
+               raster_right.tolist())
+    for at, a, t_a, b, t_b, ot, o_t, is_tie, right in rows:
+        log(f"  ray {at}: raster triangle {a} t {t_a!r}, K1 triangle {b} t "
+            f"{t_b!r}, oracle triangle {ot} t {o_t!r}: "
+            + ("an oracle tie" if is_tie else "raster is the oracle's"
+               if right else "NEITHER"))
+    if not bool((tie | raster_right).all()):
+        raise RuntimeError("raster and K1 differ where the oracle sees no "
+                           "tie and the raster id is not the oracle's")
+    return int((~tie & raster_right).sum())
+
+
+def run_raster(dev, frames, outs, idx_t, ref, smi):
+    """Phase 13 (see the module docstring): the raster path (plain
+    PyTorch, no kernel) on headline frame 0."""
+    from cpp_cuda_raytracer_dev_torch import RenderConfig, render
+    from cpp_cuda_raytracer_dev_torch.accel.raster import intersect_raster
+
+    scene, cam = frames[0]
+    obj = scene.objects[0]
+    rcfg = RenderConfig(method="raster")
+    with torch.inference_mode():
+        render(scene, cam, rcfg)                          # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms = []
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        for _ in range(RASTER_FRAMES):
+            start.record()
+            out = render(scene, cam, rcfg)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        peak = torch.cuda.max_memory_allocated() - base
+        _, stats = intersect_raster(
+            obj.pose.inv_apply(cam.pos),
+            obj.pose.inv_apply_vec(cam.ray_directions()), obj.tris,
+            cam.projection().transformed(obj.pose),
+            dataclasses.replace(rcfg, with_stats=True), RES_H, RES_W)
+        got = out.hit_tri.reshape(-1)[idx_t]
+        agree = float((got == ref.tri).float().mean())
+        differ = int((out.hit_tri != outs[0].hit_tri).sum())
+        log(f"raster frame 0: median {float(np.median(ms)):.3f} ms "
+            f"{[round(x, 3) for x in ms]}, peak memory above the scene "
+            f"{peak / 2**20:.1f} MiB; stats {stats}; oracle agreement "
+            f"{agree:.6f} on {N_SAMPLE} rays; ids differ from K1's frame on "
+            f"{differ} of {out.hit_tri.numel()} rays; hit rate "
+            f"{float((out.hit_tri >= 0).float().mean()):.6f} ({smi})")
+        if stats["overflow"] != 0:
+            raise RuntimeError("the raster path dropped geometry")
+        # frame 0's pose is the identity: the world frame is the object's
+        k1_wrong = check_raster_against_k1(
+            out.hit_tri.reshape(-1), outs[0].hit_tri.reshape(-1),
+            cam.ray_directions(), cam.pos, obj.tris, rcfg)
+        log(f"raster vs K1: {differ} rays differ, {k1_wrong} of them rays "
+            f"where K1 is not the oracle's and raster is (ROADMAP F2), the "
+            f"rest oracle ties")
+        # a wider span moves triangles from the dense pass to the scatter
+        for span in RASTER_SPANS:
+            c = dataclasses.replace(rcfg, raster_span=span, with_stats=True)
+            start.record()
+            hit, st = intersect_raster(
+                obj.pose.inv_apply(cam.pos),
+                obj.pose.inv_apply_vec(cam.ray_directions()), obj.tris,
+                cam.projection().transformed(obj.pose), c, RES_H, RES_W)
+            end.record()
+            torch.cuda.synchronize()
+            log(f"raster at span {span}: {start.elapsed_time(end):.3f} ms "
+                f"(one call, with its stats' host reads), stats {st}; ids "
+                f"equal to span {rcfg.raster_span}'s "
+                f"{torch.equal(hit.tri, out.hit_tri.reshape(-1))} ({smi})")
+    if agree < MIN_AGREE:
+        raise RuntimeError(f"raster agreement {agree} < {MIN_AGREE}")
+
+
+def run_f64(dev):
+    """Phase 14 (see the module docstring): float64 on the card."""
+    from cpp_cuda_raytracer_dev_torch import (Camera, RenderConfig, Scene,
+                                              SceneObject, Triangles, render,
+                                              render_differentiable)
+    from cpp_cuda_raytracer_dev_torch.ops.intersect import mt_brute
+    from cpp_cuda_raytracer_dev_torch.utils.dtypes import F32, F64
+    from cpp_cuda_raytracer_dev_torch.utils.procgen import uv_sphere
+
+    tv = uv_sphere(24, 24)
+    tv = np.roll(tv, -tv.shape[0] // 2, axis=0)
+
+    def world(dtype):
+        return (Scene([SceneObject(Triangles.from_vertices(
+            tv, device=dev, dtype=dtype))]),
+            Camera.create(96, 64, pos=[0.1, 0.3, -3.0],
+                          look_at=[0.0, 0.0, 0.0], up=[0.0, 1.0, 0.0],
+                          film_h=0.024, focal=0.055, device=dev, dtype=dtype))
+    for method in ("brute", "fixed"):
+        c = RenderConfig(method=method, chunk=256)
+        out64 = render(*world(F64.fp), c)
+        out32 = render(*world(F32.fp), c)
+        dtypes = {f: getattr(out64, f).dtype for f in ("radiance", "hit_t")}
+        same = (out64.hit_tri == out32.hit_tri).float().mean()
+        log(f"float64 {method} on the card: dtypes {dtypes}, finite "
+            f"{bool(torch.isfinite(out64.radiance).all())}, ids equal to "
+            f"float32's on {float(same):.6f} of the pixels")
+        if set(dtypes.values()) != {torch.float64} or float(same) < 0.98 \
+                or not bool(torch.isfinite(out64.radiance).all()):
+            raise RuntimeError(f"float64 {method} frame")
+    # the analytic ray: t = 3 exactly
+    tri = np.array([[[-1, -1, 2], [1, -1, 2], [-1, 1, 2]]], np.float64)
+    with torch.no_grad():
+        errs = {str(dt): abs(float(mt_brute(
+            torch.tensor([-0.1, -0.1, -1.0], dtype=dt, device=dev),
+            torch.tensor([[0.0, 0.0, 1.0]], dtype=dt, device=dev),
+            Triangles.from_vertices(tri, device=dev, dtype=dt),
+            chunk=1).t[0]) - 3.0) for dt in (F64.fp, F32.fp)}
+    scene, cam = world(F64.fp)
+    cam.pos.requires_grad_(True)
+    render_differentiable(scene, cam, RenderConfig(
+        method="fixed", chunk=256)).radiance.mean().backward()
+    g = cam.pos.grad
+    refused = []
+    for method in ("bin", "raster"):
+        try:
+            render(scene, cam, RenderConfig(method=method))
+        except TypeError:
+            refused.append(method)
+    log(f"float64 analytic ray |t - 3|: {errs}; d mean radiance / d cam "
+        f"pos {g.tolist()} ({g.dtype}); float64 refused by {refused}")
+    if errs[str(F64.fp)] > 1e-12 or g.dtype != torch.float64 \
+            or not bool(torch.isfinite(g).all()) or len(refused) != 2:
+        raise RuntimeError("float64 on the card")
 
 
 def write_ply(path, tv: np.ndarray) -> None:

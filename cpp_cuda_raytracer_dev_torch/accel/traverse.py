@@ -36,7 +36,7 @@ from ..ops.cuda.tile_intersect import tile_intersect, tile_intersect_v2
 from ..ops.intersect import Hit, mt_test
 from .binning import BinnedScene, bin_triangles
 from ..utils.dtypes import DEFAULT_DRAW_DISTANCE, MT_EPSILON, SLAB_EPSILON
-from .kd_build import KDTree, build_kd
+from .kd_build import KDTree
 
 _CULL_ELEMS = 1 << 25     # (tile, plane, cluster) distances per cull group
 _GRID_PAIRS = 1 << 25     # (ray, slot) pairs per tile group of the grid path
@@ -79,9 +79,10 @@ class ClusterAccel:
     @classmethod
     def build(cls, tris, leaf_size: int = 128,
               cache: bool = True) -> "ClusterAccel":
-        """Host-side build (numpy): KD build -> leaf extraction -> padding,
-        then one copy to the triangles' device. With ``cache`` the KD tree
-        is loaded from or saved to the disk cache (utils/cache.py)."""
+        """Host-side build: KD build (the native builder where g++ is
+        there, accel/native.py) -> leaf extraction -> padding (numpy), then
+        one copy to the triangles' device. With ``cache`` the KD tree is
+        loaded from or saved to the disk cache (utils/cache.py)."""
         p1, e1, e2 = (x.detach().cpu().numpy() for x in
                       (tris.p1, tris.e1, tris.e2))
         v = np.stack([p1, p1 + e1, p1 + e2], axis=1)
@@ -90,7 +91,8 @@ class ClusterAccel:
             from ..utils.cache import build_kd_cached
             tree = build_kd_cached(amin, amax, min_node_size=leaf_size)
         else:
-            tree = build_kd(amin, amax, min_node_size=leaf_size)
+            from .native import build_kd_fast
+            tree = build_kd_fast(amin, amax, min_node_size=leaf_size)
         leaf_ids = np.nonzero(tree.is_leaf)[0]
         c = leaf_ids.shape[0]
         ln = leaf_size
@@ -477,16 +479,17 @@ def intersect_clustered_pallas_v2(o: torch.Tensor, d: torch.Tensor,
 def _ray_table(proj, o, bmin, bmax, n_tiles: int, n_tx: int,
                th: int, tw: int, draw_distance: float) -> torch.Tensor:
     """(n_tiles, th*tw, 4) f32 [dx | dy | dz | scene-exit bound] in
-    row-major tile order. The bound is the far slab intersection with the
-    object's root AABB (+1e-3), 0 when the ray misses the box; it is the
-    comparand of the kernel's depth gate."""
+    row-major tile order, the rows counted from ``proj.row0`` of the frame.
+    The bound is the far slab intersection with the object's root AABB
+    (+1e-3), 0 when the ray misses the box; it is the comparand of the
+    kernel's depth gate."""
     p = th * tw
     n = n_tiles * p
     idx = torch.arange(n, device=o.device)
     t = idx // p
     pi = idx - t * p
     ix = ((t % n_tx) * tw + pi % tw).to(torch.float32)
-    iy = ((t // n_tx) * th + pi // tw).to(torch.float32)
+    iy = ((t // n_tx) * th + pi // tw + proj.row0).to(torch.float32)
 
     um = proj.u / proj.sx
     vm = proj.v / proj.sy
@@ -535,7 +538,7 @@ def bin_object(o: torch.Tensor, tris, proj, config, res_h: int, res_w: int
         bmax.append(torch.maximum(torch.maximum(v1, v2), v3).amax())
     rays = _ray_table(proj, o, bmin, bmax, n_tiles, n_tx, th, tw,
                       config.draw_distance)
-    binned = bin_triangles(proj, o,
+    binned = bin_triangles(proj.band_local(), o,
                            (tris.p1x, tris.p1y, tris.p1z),
                            (tris.e1x, tris.e1y, tris.e1z),
                            (tris.e2x, tris.e2y, tris.e2z),
@@ -550,11 +553,13 @@ def intersect_binned(o: torch.Tensor, d: torch.Tensor, tris, proj, config,
     """Nearest hit per primary ray by screen-space binning + the
     bin-intersect kernel.
 
-    ``proj`` is the camera Projection in the object's frame and ``o`` the
-    object-frame origin. Primary rays only: directions are regenerated per
-    tile from ``proj``, so ``d`` is ignored (it keeps the call shape of the
-    other methods). The entry table is sized from the live count, so the
-    JAX package's ``bin_e_factor`` / ``bin_escalate`` have nothing to do.
+    ``proj`` is the camera Projection in the object's frame (of a band of
+    rows when ``proj.row0`` > 0, whose rays are then bitwise the whole
+    frame's) and ``o`` the object-frame origin. Primary rays only:
+    directions are regenerated per tile from ``proj``, so ``d`` is ignored
+    (it keeps the call shape of the other methods). The entry table is
+    sized from the live count, so the JAX package's ``bin_e_factor`` /
+    ``bin_escalate`` have nothing to do.
 
     With ``config.with_stats`` the kernel runs its telemetry switch (K3,
     with ``config.bin_esub`` slices) and the result is (Hit, stats):

@@ -28,7 +28,13 @@ def _adjust(res: int) -> float:
 class Projection:
     """World point -> subpixel coordinates (the inverse of ray generation):
     ix = adjust_x + sx·((p-origin)·u)/((p-origin)·n), iy likewise with
-    (v, sy)."""
+    (v, sy).
+
+    ``row0`` > 0 makes it the projection of a band of the frame whose pixel
+    rows start at frame row ``row0`` (the sharded renders): the paths that
+    regenerate rays from it do so at the frame's pixel coordinates, so a
+    band's rays are bitwise the frame's (a band's own pixel rows are those
+    of the projection with adjust_y - row0: `band_local`)."""
 
     origin: torch.Tensor     # (3,)
     n: torch.Tensor          # (3,) view direction (unit)
@@ -38,6 +44,14 @@ class Projection:
     sy: torch.Tensor         # scalar focal / pix_h
     adjust_x: torch.Tensor   # scalar pixel-centre offset
     adjust_y: torch.Tensor
+    row0: int = 0
+
+    def band_local(self) -> "Projection":
+        """The same band with row 0 at its first row: adjust_y - row0."""
+        if not self.row0:
+            return self
+        return dataclasses.replace(self, adjust_y=self.adjust_y - self.row0,
+                                   row0=0)
 
     def transformed(self, pose) -> "Projection":
         """This projection in an object's local frame."""
@@ -68,14 +82,16 @@ class Camera(nn.Module):
     @classmethod
     def create(cls, res_w: int, res_h: int, pos, look_at, up,
                film_h: float = 0.024, focal: float = 0.055,
-               film_w: float | None = None, *, device) -> "Camera":
+               film_w: float | None = None, *, device,
+               dtype=torch.float32) -> "Camera":
         """Reference construction (WinMain.cpp:69-74):
-        film_w = aspect · film_h."""
+        film_w = aspect · film_h. ``dtype`` is the camera's precision
+        (utils/dtypes.py `Precision`)."""
         if film_w is None:
             film_w = film_h * (res_w / res_h)
 
         def fp(x):
-            return torch.as_tensor(x, dtype=torch.float32, device=device)
+            return torch.as_tensor(x, dtype=dtype, device=device)
         return cls(pos=fp(pos), look_at=fp(look_at), up=fp(up),
                    film_w=fp(film_w), film_h=fp(film_h), focal=fp(focal),
                    res_w=res_w, res_h=res_h)

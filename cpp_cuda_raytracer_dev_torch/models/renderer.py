@@ -25,19 +25,24 @@ from .scene import Scene
 
 _ACCEL_METHODS = {"grid": "ClusterAccel", "pallas": "ClusterAccel",
                   "pallas2": "ClusterAccel", "kd": "KDTables"}
+# float32 by construction: their kernels' operands (bin, grid, pallas,
+# pallas2) or raster's bitcast of t to int32 (as in the JAX package)
+_FLOAT32_METHODS = ("bin", "grid", "pallas", "pallas2", "raster")
+_PROJ_METHODS = ("bin", "raster")
 
 
 @dataclasses.dataclass
 class RenderOutput:
-    """Frame outputs; row 0 of every image is the bottom."""
+    """Frame outputs; row 0 of every image is the bottom. Float outputs
+    have the scene's dtype (float32 unless it was built in float64)."""
 
     image: torch.Tensor      # (H, W, 3) uint8
-    radiance: torch.Tensor   # (H, W, 3) float32, pre-tonemap, 0 on miss
-    hit_t: torch.Tensor      # (H, W) float32
+    radiance: torch.Tensor   # (H, W, 3) pre-tonemap, 0 on miss
+    hit_t: torch.Tensor      # (H, W)
     hit_tri: torch.Tensor    # (H, W) int32, -1 = miss
     hit_obj: torch.Tensor    # (H, W) int32, -1 = miss
-    normal: torch.Tensor     # (H, W, 3) float32 world space (0 on miss)
-    point: torch.Tensor      # (H, W, 3) float32 world-space hit points
+    normal: torch.Tensor     # (H, W, 3) world space (0 on miss)
+    point: torch.Tensor      # (H, W, 3) world-space hit points
 
 
 @torch.no_grad()
@@ -48,7 +53,8 @@ def trace_rays(scene: Scene, origin: torch.Tensor, rmd: torch.Tensor,
     ``origin``; band_h * band_w == R (row-major) for the tiled paths.
     ``accel`` is a sequence of `ClusterAccel`, one per object, for the
     cluster methods ("grid", "pallas", "pallas2"), or of `KDTables` for
-    "kd"; the bin path needs the camera Projection ``proj`` (world frame).
+    "kd"; the bin and raster paths need the camera Projection ``proj``
+    (world frame). Only "brute", "fixed" and "kd" take float64 rays.
 
     Each object moves the rays into its own frame (pose-on-the-ray,
     Trixel.cu:60-66); geometry never moves, so an accel built once serves
@@ -61,7 +67,15 @@ def trace_rays(scene: Scene, origin: torch.Tensor, rmd: torch.Tensor,
     if config.method in _ACCEL_METHODS and accel is None:
         raise ValueError(f"method={config.method!r} needs accel, one "
                          f"{_ACCEL_METHODS[config.method]} per object")
-    best = Hit.miss(rmd.shape[0], config.draw_distance, device=rmd.device)
+    if config.method in _FLOAT32_METHODS and rmd.dtype != torch.float32:
+        raise TypeError(f"method={config.method!r} runs in float32 only, "
+                        f"not {rmd.dtype}; use 'brute' or 'fixed' for "
+                        "float64")
+    if config.method in _PROJ_METHODS and proj is None:
+        raise ValueError(f"method={config.method!r} needs the camera "
+                         "Projection (render() provides it)")
+    best = Hit.miss(rmd.shape[0], config.draw_distance, device=rmd.device,
+                    dtype=rmd.dtype)
     for oi, obj in enumerate(scene.objects):
         d_obj = obj.pose.inv_apply_vec(rmd)
         o_obj = obj.pose.inv_apply(origin)
@@ -90,10 +104,12 @@ def trace_rays(scene: Scene, origin: torch.Tensor, rmd: torch.Tensor,
                                config.eps)
         elif config.method == "bin":
             from ..accel.traverse import intersect_binned
-            if proj is None:
-                raise ValueError('method="bin" needs the camera Projection '
-                                 "(render() provides it)")
             hit = intersect_binned(o_obj, d_obj, obj.tris,
+                                   proj.transformed(obj.pose), config,
+                                   band_h, band_w)
+        elif config.method == "raster":
+            from ..accel.raster import intersect_raster
+            hit = intersect_raster(o_obj, d_obj, obj.tris,
                                    proj.transformed(obj.pose), config,
                                    band_h, band_w)
         else:
@@ -110,7 +126,9 @@ def shade_hits(scene: Scene, origin: torch.Tensor, rmd: torch.Tensor,
     Returns (radiance (R,3), normal (R,3), point (R,3), hit_mask (R,))."""
     num_r = rmd.shape[0]
     tri_idx = torch.clamp_min(hit.tri, 0)
-    gather = gather_rows if config.sorted_scatter else take_rows
+    # K2 sums float32 rows; a float64 scene keeps index_select's backward
+    gather = (gather_rows if config.sorted_scatter
+              and rmd.dtype == torch.float32 else take_rows)
     acc = [torch.zeros((num_r,), dtype=rmd.dtype, device=rmd.device)
            for _ in range(9)]
     dx, dy, dz = rmd[:, 0], rmd[:, 1], rmd[:, 2]
@@ -187,6 +205,14 @@ def render_rays(scene: Scene, origin: torch.Tensor, rmd: torch.Tensor,
     """Flat-ray pipeline (trace + shade + compose); a dict of flat per-ray
     tensors. The trace runs without gradients (hit topology is discrete)."""
     hit = trace_rays(scene, origin, rmd, config, accel, band_h, band_w, proj)
+    return shade_and_compose(scene, origin, rmd, hit, config)
+
+
+def shade_and_compose(scene: Scene, origin: torch.Tensor, rmd: torch.Tensor,
+                      hit: Hit, config: RenderConfig) -> dict:
+    """Shade the hits and compose the image: `render_rays`'s dict of flat
+    per-ray tensors for a given hit (the sharded paths combine hits across
+    ranks first)."""
     radiance, normal, point, hit_mask = shade_hits(scene, origin, rmd, hit,
                                                    config)
     image = compose_framebuffer(radiance, hit_mask, config.background_rgb)
@@ -204,7 +230,7 @@ def render_differentiable(scene: Scene, camera: Camera,
     ``accel``: one `ClusterAccel` per object for the cluster methods, one
     `KDTables` per object for "kd"."""
     rmd = camera.ray_directions()
-    proj = camera.projection() if config.method == "bin" else None
+    proj = camera.projection() if config.method in _PROJ_METHODS else None
     flat = render_rays(scene, camera.pos, rmd, config, accel, camera.res_h,
                        camera.res_w, proj=proj)
     h, w = camera.res_h, camera.res_w

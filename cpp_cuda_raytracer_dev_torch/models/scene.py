@@ -28,16 +28,17 @@ class Triangles(nn.Module):
         self.color = nn.Parameter(color)      # (T, 3) radiance rgb
 
     @classmethod
-    def from_vertices(cls, tri_vertices, *, device, color=None
-                      ) -> "Triangles":
+    def from_vertices(cls, tri_vertices, *, device, color=None,
+                      dtype=torch.float32) -> "Triangles":
         """Build from (T, 3, 3) vertex blocks (reference init_tri_mem_cuda,
-        Trixel.cu:11-27); the default colour is the reference scene's."""
-        tv = torch.as_tensor(tri_vertices, dtype=torch.float32, device=device)
+        Trixel.cu:11-27); the default colour is the reference scene's.
+        ``dtype`` is the scene's precision (utils/dtypes.py `Precision`)."""
+        tv = torch.as_tensor(tri_vertices, dtype=dtype, device=device)
         p1 = tv[:, 0]
         e1 = tv[:, 1] - p1
         e2 = tv[:, 2] - p1
         rgb = torch.as_tensor(DEFAULT_COLOR if color is None else color,
-                              dtype=torch.float32, device=device)
+                              dtype=dtype, device=device)
         comps = [c.contiguous() for v in (p1, e1, e2) for c in v.unbind(1)]
         return cls(*comps, rgb.expand(p1.shape).contiguous())
 
@@ -77,7 +78,8 @@ class SceneObject(nn.Module):
         super().__init__()
         self.tris = tris
         self.pose = (pose if pose is not None
-                     else Pose.identity(device=tris.p1x.device))
+                     else Pose.identity(device=tris.p1x.device,
+                                        dtype=tris.p1x.dtype))
 
 
 class PhongParams(nn.Module):
@@ -92,9 +94,9 @@ class PhongParams(nn.Module):
         self.exponent = nn.Parameter(exponent)        # scalar
 
     @classmethod
-    def reference(cls, *, device) -> "PhongParams":
+    def reference(cls, *, device, dtype=torch.float32) -> "PhongParams":
         def fp(x):
-            return torch.tensor(x, dtype=torch.float32, device=device)
+            return torch.tensor(x, dtype=dtype, device=device)
         return cls(fp([2.0, 2.0, 2.0]), fp([1.0, 1.0, 1.0]), fp(0.6),
                    fp(0.3), fp(5.0))
 
@@ -106,6 +108,6 @@ class Scene(nn.Module):
         super().__init__()
         self.objects = nn.ModuleList(objects)
         if phong is None:
-            phong = PhongParams.reference(
-                device=self.objects[0].tris.p1x.device)
+            p1x = self.objects[0].tris.p1x
+            phong = PhongParams.reference(device=p1x.device, dtype=p1x.dtype)
         self.phong = phong

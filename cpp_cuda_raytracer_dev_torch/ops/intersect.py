@@ -31,16 +31,16 @@ _NO_TRI = torch.iinfo(torch.int32).max
 class Hit:
     """Per-ray nearest hit: distance, triangle id, object id (-1 on miss)."""
 
-    t: torch.Tensor      # (R,) float32, draw_distance when missed
+    t: torch.Tensor      # (R,) the rays' float dtype, draw_distance on a miss
     tri: torch.Tensor    # (R,) int32
     obj: torch.Tensor    # (R,) int32
 
     @classmethod
     def miss(cls, num_rays: int,
-             draw_distance: float = DEFAULT_DRAW_DISTANCE, *, device
-             ) -> "Hit":
+             draw_distance: float = DEFAULT_DRAW_DISTANCE, *, device,
+             dtype=torch.float32) -> "Hit":
         return cls(
-            t=torch.full((num_rays,), draw_distance, dtype=torch.float32,
+            t=torch.full((num_rays,), draw_distance, dtype=dtype,
                          device=device),
             tri=torch.full((num_rays,), -1, dtype=torch.int32, device=device),
             obj=torch.full((num_rays,), -1, dtype=torch.int32, device=device))
@@ -89,7 +89,8 @@ def mt_brute(o: torch.Tensor, d: torch.Tensor, tris,
     """Every ray (R, 3) from origin ``o`` (3,) vs every triangle; the
     nearest valid hit below draw_distance."""
     p1, e1, e2 = tris.p1, tris.e1, tris.e2
-    best = Hit.miss(d.shape[0], draw_distance, device=d.device)
+    best = Hit.miss(d.shape[0], draw_distance, device=d.device,
+                    dtype=d.dtype)
     rstep = max(1, _PAIRS // chunk)
     for c0 in range(0, p1.shape[0], chunk):
         sl = slice(c0, c0 + chunk)
@@ -123,7 +124,8 @@ def mt_fixed_origin(d: torch.Tensor, cache: FixedOriginCache,
                     draw_distance: float = DEFAULT_DRAW_DISTANCE,
                     eps: float = MT_EPSILON, chunk: int = 2048) -> Hit:
     """Nearest hit for unit rays ``d`` (R, 3) sharing the cache's origin."""
-    best = Hit.miss(d.shape[0], draw_distance, device=d.device)
+    best = Hit.miss(d.shape[0], draw_distance, device=d.device,
+                    dtype=d.dtype)
     rstep = max(1, _PAIRS // chunk)
     for c0 in range(0, cache.tdet.shape[0], chunk):
         sl = slice(c0, c0 + chunk)

@@ -77,8 +77,9 @@ class Pose(nn.Module):
         self.translation = nn.Parameter(translation)  # (3,)
 
     @classmethod
-    def identity(cls, *, device) -> "Pose":
-        return cls(identity(device=device), torch.zeros(3, device=device))
+    def identity(cls, *, device, dtype=torch.float32) -> "Pose":
+        return cls(identity(device=device, dtype=dtype),
+                   torch.zeros(3, dtype=dtype, device=device))
 
     def matrix(self) -> torch.Tensor:
         return to_matrix(self.quat)

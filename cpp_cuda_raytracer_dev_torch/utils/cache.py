@@ -16,7 +16,7 @@ from pathlib import Path
 
 import numpy as np
 
-from ..accel.kd_build import KDTree, build_kd
+from ..accel.kd_build import KDTree
 
 DEFAULT_CACHE_DIR = str(Path(__file__).resolve().parents[2] / "build"
                         / "kd_cache")
@@ -55,11 +55,13 @@ def load_tree(key: str, cache_dir: str | None = None) -> KDTree | None:
 def build_kd_cached(aabb_min: np.ndarray, aabb_max: np.ndarray,
                     min_node_size: int = 1,
                     cache_dir: str | None = None) -> KDTree:
-    """Cache-through KD build (the numpy `build_kd` on a miss); the cache
-    directory defaults to `DEFAULT_CACHE_DIR`, read at the call."""
+    """Cache-through KD build (`build_kd_fast`, the native builder where
+    g++ is there, on a miss); the cache directory defaults to
+    `DEFAULT_CACHE_DIR`, read at the call."""
+    from ..accel.native import build_kd_fast
     key = mesh_key(aabb_min, aabb_max, min_node_size)
     tree = load_tree(key, cache_dir)
     if tree is None:
-        tree = build_kd(aabb_min, aabb_max, min_node_size)
+        tree = build_kd_fast(aabb_min, aabb_max, min_node_size)
         save_tree(tree, key, cache_dir)
     return tree

@@ -1,8 +1,10 @@
 """Render configuration: the JAX package's ``RenderConfig``, field for field.
 
 The fields and their defaults are the same, so a configuration translates
-one to one. What the port does not run yet raises ``NotImplementedError``
-at construction, naming the ROADMAP item that brings it.
+one to one. The TPU-only modes (the bf16 pass counts of the TPU's matrix
+unit, the bf16 preview of kernel K1 and K4's floor probes) raise
+``NotImplementedError`` at construction: a deliberate difference (ROADMAP
+F10, decided in queue 1's former item 8).
 """
 
 from __future__ import annotations
@@ -11,11 +13,9 @@ import dataclasses
 
 from .dtypes import DEFAULT_BACKGROUND_RGB, DEFAULT_DRAW_DISTANCE, MT_EPSILON
 
-_PORTED_METHODS = ("brute", "fixed", "bin", "grid", "pallas", "pallas2",
-                   "kd")
-_LATER_METHODS = {
-    "raster": "ROADMAP queue 1 item 10 (scatter-min raster path)",
-}
+_METHODS = ("brute", "fixed", "bin", "grid", "pallas", "pallas2", "kd",
+            "raster")
+_TPU_ONLY = "a TPU-only mode, ROADMAP F10"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,8 +29,9 @@ class RenderConfig:
     # Intersection backend: "brute" (oracle), "fixed" (matmul-form brute),
     # "bin" (screen-space binning + the bin-intersect kernel K1), or a
     # cluster path over a ClusterAccel: "grid" (plain PyTorch), "pallas"
-    # (kernel K5) or "pallas2" (kernel K4); or "kd", the reference's per-ray
-    # stack traversal over `KDTables` (a validation path, no kernel).
+    # (kernel K5) or "pallas2" (kernel K4); "kd", the reference's per-ray
+    # stack traversal over `KDTables` (a validation path, no kernel); or
+    # "raster", scatter-min rasterization (accel/raster.py, plain PyTorch).
     method: str = "fixed"
     # Triangle chunk for the brute paths (bounds rays x chunk memory).
     chunk: int = 2048
@@ -85,8 +86,12 @@ class RenderConfig:
     # binning. Exact for closed, consistently wound surfaces seen from
     # outside; off by default because the reference's MT is two-sided.
     backface_cull: bool = False
-    # --- raster path, not ported yet ---
+    # --- raster path (method="raster", accel/raster.py) ---
+    # Pixel span per triangle side enumerated by the scatter pass; wider
+    # triangles go to the dense pass.
     raster_span: int = 4
+    # Unused: the port sizes the dense pass from the live count, so nothing
+    # is dropped (as bin_e_factor). Kept so configs translate.
     raster_ovf_cap: int = 512
     # Shading-gather backward: True sorts the ids and sums segments with
     # kernel K2 (ops/gather.py); False leaves index_select's own
@@ -94,23 +99,17 @@ class RenderConfig:
     sorted_scatter: bool = True
 
     def __post_init__(self):
-        if self.method in _LATER_METHODS:
-            raise NotImplementedError(
-                f"method={self.method!r} is not ported yet: "
-                f"{_LATER_METHODS[self.method]}")
-        if self.method not in _PORTED_METHODS:
+        if self.method not in _METHODS:
             raise ValueError(f"unknown intersect method {self.method!r}")
         if self.mt_precision != "highest":
             raise NotImplementedError(
                 f"mt_precision={self.mt_precision!r} (bf16 passes of the "
-                "TPU's matrix unit) is not ported: ROADMAP queue 1 item 10 "
-                "(cluster path leftovers)")
+                f"TPU's matrix unit) is not ported: {_TPU_ONLY}")
         if self.debug_mode in (2, 3):
             raise NotImplementedError(
                 f"debug_mode={self.debug_mode} (a TPU floor probe that "
-                "skips the MT) is not ported: ROADMAP queue 1 item 10 "
-                "(cluster path leftovers)")
+                f"skips the MT) is not ported: {_TPU_ONLY}")
         if self.bin_mt_dtype != "float32":
             raise NotImplementedError(
                 "bin_mt_dtype='bfloat16' (the approximate preview of "
-                "kernel K1) is not ported")
+                f"kernel K1) is not ported: {_TPU_ONLY}")

@@ -49,10 +49,8 @@ def test_render_config_translates_one_to_one():
     fp = [(f.name, f.default) for f in dataclasses.fields(RenderConfig)]
     assert fj == fp
     for method in ("brute", "fixed", "bin", "grid", "pallas", "pallas2",
-                   "kd"):
+                   "kd", "raster"):
         RenderConfig(method=method)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RenderConfig(method="raster")
     # the cluster paths run float32 MT only, and count sub-tiles (debug
     # mode 1) but not the TPU floor probes
     RenderConfig(method="pallas2", debug_mode=1, with_stats=True)

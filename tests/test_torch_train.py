@@ -157,8 +157,11 @@ def test_loss_fn_is_the_mean_squared_error():
 
 
 def test_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 9"):
+    """The sharded step takes a ``DeviceMesh`` (parallel/mesh.py
+    `make_mesh`; tests/test_torch_parallel.py runs it); anything else is
+    refused before a frame is rendered."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         make_loss_fn(RenderConfig(), mesh="rays")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         make_train_step(torch.optim.SGD([torch.zeros(1)], lr=0.1),
                         RenderConfig(), mesh="rays")
