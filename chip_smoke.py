@@ -6,7 +6,8 @@
 Drives the port's ``method="bin"`` frame and its training step, the
 cluster paths ``method="pallas2"`` and ``"pallas"``, the per-tile bin
 kernel K6, the apps ``render_cli`` and ``animate``, the sharded entry points
-(at world size 1 over NCCL), the raster path and float64, at the headline
+(at world size 1 over NCCL), the raster path, float64, and the compiled
+frame and step (``render_jit``, ``make_train_step_jit``), at the headline
 size:
 the dragon-class mesh (``dragon_class_mesh(800_000)``, 800,130 triangles)
 at 960x540, 16x32 tiles, the bench camera (pos (0, 0, -3), look-at the
@@ -113,9 +114,10 @@ Phases (any failure raises and the process exits non-zero):
      ``pallas2`` at 960x540 and ``kd`` at 320x180 (a validation path with
      no kernel), each PNG's hit/miss against the oracle on 4,096 sampled
      rays of the same camera (agreement >= 0.999) and each kernel path's
-     launch counter moved; then ``animate.main`` for 30 ticks at 960x540
-     with ``--second-object --method bin --json-out``: two objects, K1
-     twice a frame, which its launch counter must show;
+     launch counter moved (the apps render through ``render_jit``: the
+     counter sees the capture); then ``animate.main`` for 30 ticks at
+     960x540 with ``--second-object --method bin --json-out``, profiled:
+     two objects, K1 twice a frame, which the profiler must show;
  12. sharding, in this process at world size 1 over NCCL (a sharded phase
      never falls back to gloo or the CPU): meshes (1,) and (1, 1);
      ``render_sharded`` with ``bin``, ``pallas2`` and ``pallas``,
@@ -140,13 +142,29 @@ Phases (any failure raises and the process exits non-zero):
      sphere in float64 (float64 outputs, finite, ids equal to float32's on
      >= 98% of pixels), the analytic ray (|t - 3| <= 1e-12), a finite
      float64 gradient of the mean radiance with respect to the camera
-     position, and ``bin`` and ``raster`` refusing float64.
+     position, and ``bin`` and ``raster`` refusing float64;
+ 15. ``render_jit`` (a captured CUDA graph a frame) on headline frames 0, 1
+     and 0 for ``bin``, ``pallas2`` and ``pallas``, each bit for bit
+     ``render``'s (t, ids, object ids, image, radiance, normal, point), one
+     graph captured a method; eager and replayed frames timed in turns
+     (CUDA events, medians and spread) and one of each profiled (device
+     busy ms, device operations, host operations = the host's CUDA runtime
+     calls, and K1, K4 and K5 seen by kernel name inside the replay); a
+     camera moved nearer until its live entry count outgrows frame 0's
+     bucket: captured again and still bitwise; the compiled all-leaves and
+     pose/light/camera-only steps (``make_train_step_jit``) against the
+     eager steps from twin parameter sets: parameters bitwise equal after
+     3 steps and again after the timed ones, K1 (and K2, all leaves only)
+     seen in the replayed step, step ms in turns. A capture that fails
+     fails the run: nothing falls back to the eager frame.
 A differing id passes as a tie when both triangles' t, by the oracle's
 constants, lie within 1e-5 of the oracle's t. Each phase prints its seconds.
 Operation bounds are given at the FMA peak (``bound_ms``: 2 operations a
 lane a clock) and at one instruction an operation (``bound_issue_ms``: the
 kernels are built with -fmad=false). Prints a JSON line of per-kernel
-results (``launches_by_path`` with phase 12's sharded paths), then, as the
+results (``launches_by_path`` with phase 12's sharded paths and phase 15's
+``serve_jit`` and ``train_jit``: kernel instances the profiler saw in one
+replayed frame or step, as a replay moves no launch counter), then, as the
 last line,
 ``{"ok": true, "device": {...}}``. Needs a CUDA device and never falls back
 to the CPU.
@@ -192,6 +210,12 @@ N_CLUSTER_FRAMES = {"pallas2": 8, "pallas": 3}
 SHARDED_2D_TRIS = 20_000       # render_sharded_2d (brute) at a cut size
 RASTER_FRAMES = 3
 RASTER_SPANS = (8, 16)         # timed once each against the default 4
+N_JIT_STEPS = 3                # compiled against eager steps, bitwise
+# each kernel's name in a profiler trace (a replay has no launch counter)
+KERNEL_NAMES = {"bin_intersect": "own_walk_kernel",
+                "segment_sum": "segment_sum_level",
+                "tile_intersect_v2": "tile_intersect_kernel<true",
+                "tile_intersect": "tile_intersect_kernel<false"}
 # K3's and K6's design levers, each switched off (one ray a thread, which at
 # P 512 is also one entry group of 512 threads; one entry group of P / 4
 # threads; two rays a thread in two groups; the next block or chunk copied
@@ -242,6 +266,29 @@ def device_profile(fn):
            for a in on_dev[:8]]
     return (sum(a.self_device_time_total for a in on_dev) / 1e3,
             sum(a.count for a in on_dev), top)
+
+
+def replay_profile(fn):
+    """Run ``fn()`` once under torch.profiler. Returns (device busy ms,
+    device operations, host operations, {kernel name: instances}): the host
+    operations are the CUDA runtime calls the host made (kernel and graph
+    launches, copies, fills, syncs: the host's events named ``cuda*``), the
+    instances count each `KERNEL_NAMES` kernel among the device events, a
+    captured graph's included."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    on_dev = [a for a in events if a.device_type == DeviceType.CUDA]
+    host = sum(a.count for a in events if a.device_type == DeviceType.CPU
+               and a.key.startswith("cuda"))
+    seen = {k: sum(a.count for a in on_dev if name in a.key)
+            for k, name in KERNEL_NAMES.items()}
+    return (sum(a.self_device_time_total for a in on_dev) / 1e3,
+            sum(a.count for a in on_dev), host, seen)
 
 
 def op_bounds(n_ops: int, n_bytes: int, clock_mhz: float) -> dict:
@@ -968,6 +1015,11 @@ def main() -> None:
     run_f64(dev)
     phase_done(14)
 
+    # ---- 15. render_jit and the compiled step ----
+    compiled = run_jit(dev, headline_tv, frames, cfg, accel, ccfgs, target,
+                       smi)
+    phase_done(15)
+
     kernels = [{
         "name": "bin_intersect", "route": "cuda",
         "source": "cpp_cuda_raytracer_dev_torch/csrc/bin_intersect.cu",
@@ -1003,8 +1055,9 @@ def main() -> None:
         "launches_by_path": {"serve": 0, "train": train_k2,
                              "train_pose_light_camera": pose_k2}},
         *cluster_kernels, k6_kernel]
-    for entry in kernels:     # phase 12's launches, path by path
+    for entry in kernels:     # phases 12 and 15, path by path
         entry["launches_by_path"].update(sharded.get(entry["name"], {}))
+        entry["launches_by_path"].update(compiled.get(entry["name"], {}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1935,6 +1988,164 @@ def run_f64(dev):
         raise RuntimeError("float64 on the card")
 
 
+def run_jit(dev, headline_tv, frames, cfg, accel, ccfgs, target, smi):
+    """Phase 15 (see the module docstring): `render_jit` and
+    `make_train_step_jit` at the headline size. Returns {kernel name:
+    {"serve_jit": n, "train_jit": n}} for the kernels line: the kernel's
+    instances the profiler saw in one replayed frame of its method and in
+    one replayed all-leaves step. The wrappers' counters count a graph's
+    capture (and its warm-up), not its replays."""
+    from cpp_cuda_raytracer_dev_torch import (Camera, Pose, Scene,
+                                              SceneObject, Triangles, render,
+                                              render_jit)
+    from cpp_cuda_raytracer_dev_torch.models import renderer
+    from cpp_cuda_raytracer_dev_torch.models.renderer import bin_entry_count
+    from cpp_cuda_raytracer_dev_torch.ops.quaternion import from_axis_angle
+    from cpp_cuda_raytracer_dev_torch.parallel.render_pjit import (
+        make_train_step, make_train_step_jit)
+    from cpp_cuda_raytracer_dev_torch.utils.graphs import next_bucket
+
+    cache = renderer.FRAME_GRAPHS
+    fields = ("hit_t", "hit_tri", "hit_obj", "image", "radiance", "normal",
+              "point")
+
+    def differ(a, b):
+        return [f for f in fields if not torch.equal(getattr(a, f),
+                                                     getattr(b, f))]
+
+    def spread(v):
+        return (f"median {float(np.median(v)):.3f} ms, min {min(v):.3f}, max "
+                f"{max(v):.3f} {[round(x, 3) for x in v]}")
+
+    out = {}
+    live0 = bin_entry_count(*frames[0], cfg)
+    bucket = next_bucket(live0, cfg.bin_chunk)
+    cases = {"bin": (cfg, None, "bin_intersect"),
+             "pallas2": (ccfgs["pallas2"], (accel,), "tile_intersect_v2"),
+             "pallas": (ccfgs["pallas"], (accel,), "tile_intersect")}
+    for method, (c, acc, kname) in cases.items():
+        captures = cache.captures
+        bad = []
+        for i in (0, 1, 0):      # frame 0, another camera and pose, frame 0
+            got = render_jit(*frames[i], c, acc)
+            bad += [f"frame {i} {f}" for f in
+                    differ(got, render(*frames[i], c, acc))]
+        torch.cuda.synchronize()
+        ms = in_turns(lambda kind, i: (render if kind == "eager"
+                                       else render_jit)(*frames[i % N_FRAMES],
+                                                        c, acc),
+                      ("eager", "replayed"), N_PAIRED)
+        prof = {k: replay_profile(lambda: f(*frames[0], c, acc))
+                for k, f in (("eager", render), ("replayed", render_jit))}
+        log(f"render_jit {method}: bitwise render's on frames 0, 1, 0 "
+            f"{not bad}; graphs captured {cache.captures - captures}"
+            + (f", frame 0's bucket {bucket} for {live0} live entries; "
+               if method == "bin" else "; ")
+            + "; ".join(f"{k} frames {spread(v)}, profiled frame: device "
+                        f"busy {prof[k][0]:.3f} ms in {prof[k][1]} device "
+                        f"operations, {prof[k][2]} host operations, kernels "
+                        f"seen {prof[k][3]}" for k, v in ms.items())
+            + f" ({smi})")
+        if bad:
+            raise RuntimeError(f"render_jit {method} differs from render: "
+                               f"{bad}")
+        if cache.captures - captures != 1:
+            raise RuntimeError(f"render_jit {method} captured "
+                               f"{cache.captures - captures} graphs, not 1")
+        seen = prof["replayed"][3][kname]
+        if seen < 1:
+            raise RuntimeError(f"{kname} not seen inside the replayed "
+                               f"{method} frame")
+        out[kname] = {"serve_jit": seen}
+
+    # growth: a camera moved nearer until its live count outgrows frame 0's
+    # bucket; the frame is captured again at a larger one and stays bitwise
+    scene = frames[0][0]
+    for z in (-2.5, -2.2, -2.0, -1.8, -1.6, -1.4, -1.2, -1.0):
+        near = Camera.create(RES_W, RES_H, pos=[0.0, 0.0, z],
+                             look_at=[0.0, 0.0, 0.0], up=[0.0, 1.0, 0.0],
+                             film_h=0.024, focal=0.055, device=dev)
+        live = bin_entry_count(scene, near, cfg)
+        if live > bucket:
+            break
+    else:
+        raise RuntimeError(f"no nearer camera outgrows the bucket {bucket}")
+    regrown, captures = cache.regrown, cache.captures
+    bad = differ(render_jit(scene, near, cfg), render(scene, near, cfg))
+    bad += differ(render_jit(*frames[0], cfg), render(*frames[0], cfg))
+    log(f"render_jit growth: camera at z {z} has {live} live entries above "
+        f"frame 0's bucket {bucket}; regrown {cache.regrown - regrown}, "
+        f"graphs captured {cache.captures - captures}, bitwise render's "
+        f"(that camera, then frame 0 at the new bucket) {not bad}")
+    if bad or cache.regrown != regrown + 1 or \
+            cache.captures != captures + 1:
+        raise RuntimeError(f"growth failed: {bad}")
+
+    # the compiled steps against the eager ones, from twin parameter sets
+    def train_set():
+        tris = Triangles.from_vertices(headline_tv, device=dev)
+        pose = Pose(from_axis_angle([0.0, 1.0, 0.0], math.radians(1.0),
+                                    device=dev), torch.zeros(3, device=dev))
+        cam = Camera.create(RES_W, RES_H, pos=[0.0, 0.0, -3.0],
+                            look_at=[0.0, 0.0, 0.0], up=[0.0, 1.0, 0.0],
+                            film_h=0.024, focal=0.055,
+                            device=dev).requires_grad_()
+        return {"scene": Scene([SceneObject(tris, pose)]), "camera": cam}
+
+    def leaves(p):
+        return [*p["scene"].parameters(), *p["camera"].parameters()]
+
+    sets = {"compiled": train_set(), "eager": train_set()}
+    makers = {"compiled": make_train_step_jit, "eager": make_train_step}
+    for kind in ("all-leaves", "pose/light/camera-only"):
+        if kind != "all-leaves":
+            for p in sets.values():
+                p["scene"].objects[0].tris.requires_grad_(False)
+                p["camera"].requires_grad_(False)
+                p["camera"].pos.requires_grad_(True)
+        opts = {k: torch.optim.SGD(
+            leaves(p) if kind == "all-leaves" else
+            [*p["scene"].objects[0].pose.parameters(),
+             *p["scene"].phong.parameters(), p["camera"].pos], lr=LR)
+            for k, p in sets.items()}
+        steps = {k: makers[k](opts[k], cfg) for k in sets}
+
+        def run(k, _i=0):
+            return steps[k](sets[k], target)
+        losses = {k: [float(run(k)) for _ in range(N_JIT_STEPS)]
+                  for k in sets}
+        same = all(torch.equal(a, b) for a, b in
+                   zip(leaves(sets["compiled"]), leaves(sets["eager"])))
+        ms = in_turns(run, ("eager", "compiled"), N_PAIRED // 2)
+        prof = {k: replay_profile(lambda: run(k)) for k in sets}
+        same_after = all(torch.equal(a, b) for a, b in
+                         zip(leaves(sets["compiled"]), leaves(sets["eager"])))
+        log(f"{kind} steps, compiled against eager: losses "
+            f"{losses['compiled']} / {losses['eager']}, parameters bitwise "
+            f"equal after {N_JIT_STEPS} steps {same}, after the timed and "
+            f"profiled ones {same_after}; "
+            + "; ".join(f"{k} steps {spread(v)}, profiled step: device busy "
+                        f"{prof[k][0]:.3f} ms in {prof[k][1]} device "
+                        f"operations, {prof[k][2]} host operations, kernels "
+                        f"seen {prof[k][3]}" for k, v in ms.items())
+            + f" ({smi})")
+        if not (same and same_after) or losses["compiled"] != losses["eager"]:
+            raise RuntimeError(f"the compiled {kind} step differs from the "
+                               "eager step")
+        seen = prof["compiled"][3]
+        k2_seen = seen["segment_sum"]
+        all_leaves = kind == "all-leaves"
+        if seen["bin_intersect"] < 1 or (k2_seen > 0) != all_leaves:
+            raise RuntimeError(f"the replayed {kind} step ran K1 "
+                               f"{seen['bin_intersect']} and K2 {k2_seen} "
+                               "times")
+        if all_leaves:
+            out["bin_intersect"]["train_jit"] = seen["bin_intersect"]
+            out["segment_sum"] = {"serve_jit": 0, "train_jit": k2_seen}
+        del steps, opts
+    return out
+
+
 def write_ply(path, tv: np.ndarray) -> None:
     """``tv`` (T, 3, 3) as a binary little-endian PLY: 3T vertices and T
     faces (p2, p3, p1), which the reader's rewind to (p3, p1, p2) turns back
@@ -2051,20 +2262,27 @@ def run_entry_points(dev, headline_tv, smi):
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    with open(hud, "w") as f, contextlib.redirect_stdout(f):
-        animate.main(["--mesh", str(mesh), "--res", str(RES_W), str(RES_H),
-                      "--frames", str(N_ANIMATE_TICKS), "--second-object",
-                      "--method", "bin", "--json-out", str(report)])
+
+    def run_animate():
+        with open(hud, "w") as f, contextlib.redirect_stdout(f):
+            animate.main(["--mesh", str(mesh), "--res", str(RES_W),
+                          str(RES_H), "--frames", str(N_ANIMATE_TICKS),
+                          "--second-object", "--method", "bin",
+                          "--json-out", str(report)])
+    # its frames are replays of one captured graph (render_jit): the
+    # counter sees the capture, the profiler every K1 in the replays
+    seen = replay_profile(run_animate)[3]["bin_intersect"]
     secs = time.perf_counter() - t0
     k1_launches = k1.bin_intersect.launches
     rep = json.loads(report.read_text())
     log(f"animate --second-object --method bin at {RES_W}x{RES_H}: "
-        f"{rep['frames']} ticks in {secs:.2f} s in all, objects "
+        f"{rep['frames']} ticks in {secs:.2f} s in all (profiled), objects "
         f"{rep['objects']}, device ms a frame {rep['device_ms_per_frame']!r} "
-        f"(animate's device_time), bin_intersect launches {k1_launches}; "
+        f"(animate's device_time), bin_intersect launches {k1_launches} "
+        f"(warm-ups and captures), K1 instances on the device {seen}; "
         f"HUD in {hud.name} ({smi})")
     if (rep["frames"] != N_ANIMATE_TICKS or rep["objects"] != 2
-            or k1_launches < 2 * N_ANIMATE_TICKS):
+            or k1_launches < 2 or seen < 2 * N_ANIMATE_TICKS):
         raise RuntimeError("animate did not render its ticks through K1 "
                            "twice a frame")
 

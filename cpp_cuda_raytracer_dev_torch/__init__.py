@@ -14,21 +14,27 @@ written for Hopper: the bin intersect with its telemetry switch
 (``csrc/bin_intersect.cu``), the gather backward's segment sum
 (``csrc/segment_sum.cu``), the cluster paths' tile intersects K4 and K5
 (``csrc/tile_intersect.cu``) and the per-tile bin kernel K6
-(``csrc/bin_tile_intersect.cu``). The package imports ``torch`` and never
-JAX.
+(``csrc/bin_tile_intersect.cu``). `render_jit` and
+``parallel/render_pjit.py`` `make_train_step_jit` replay the frame and the
+step as captured CUDA graphs (``utils/graphs.py``). The package imports
+``torch`` and never JAX.
 """
 
 from .accel.traverse import ClusterAccel, KDTables
-from .models.camera import Camera, Projection
-from .models.renderer import RenderOutput, render, render_differentiable
-from .models.scene import PhongParams, Scene, SceneObject, Triangles
+from .io.ply import MeshData, load_mesh, read_ply
+from .models.camera import Camera, Projection, RayBuffers
+from .models.renderer import (RenderOutput, render, render_differentiable,
+                              render_jit)
+from .models.scene import (PhongParams, Scene, SceneObject, Triangles,
+                           default_colors)
 from .ops.intersect import FixedOriginCache, Hit, mt_brute, mt_fixed_origin
 from .ops.quaternion import Pose
 from .utils.config import RenderConfig
 
 __all__ = [
     "Camera", "ClusterAccel", "FixedOriginCache", "Hit", "KDTables",
-    "PhongParams", "Pose", "Projection",
+    "MeshData", "PhongParams", "Pose", "Projection", "RayBuffers",
     "RenderConfig", "RenderOutput", "Scene", "SceneObject", "Triangles",
-    "mt_brute", "mt_fixed_origin", "render", "render_differentiable",
+    "default_colors", "load_mesh", "mt_brute", "mt_fixed_origin",
+    "read_ply", "render", "render_differentiable", "render_jit",
 ]

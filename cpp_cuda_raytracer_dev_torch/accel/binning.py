@@ -16,15 +16,21 @@ triangle whose projection covers the pixel. Per object and frame:
 5. gather the per-triangle MT constants into an (11, Epad) table in entry
    order, with the triangle ids beside it as int32.
 
-The entry table is sized from the live entry count (one host sync per
-frame), not from a static capacity, so no entry is ever dropped (ROADMAP
-F3). Entries with equal keys keep triangle order, as ``jax.lax.sort`` does,
-so the entry order, and with it every tie outcome of the kernel, is the
-JAX package's.
+By default the entry table is sized from the live entry count (one host
+sync per frame), so no entry is ever dropped (ROADMAP F3). With a
+``capacity`` (a bucket, `render_jit` and the compiled training step) every
+per-entry tensor has that static size and the live count stays on the
+device: the entries past it are dead, and the caller reads the count after
+the frame and runs it again at a larger bucket if it did not fit (ROADMAP
+F13). Entries with equal keys keep triangle order, as ``jax.lax.sort``
+does, so the entry order, and with it every tie outcome of the kernel, is
+the JAX package's.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 
 import torch
@@ -43,14 +49,55 @@ class BinnedScene:
     entry_tri: torch.Tensor   # (Epad,) i32 triangle id per entry, -1 = dead
     starts: torch.Tensor      # (nT + 1,) i32 entry range per tile
     qstep: torch.Tensor       # scalar f32 depth-quantisation bucket width
-    num_entries: int          # live entries E (Epad = E rounded up + chunk)
+    # live entries E (Epad = E rounded up + chunk); with a capacity a
+    # scalar i64 on the device (Epad = capacity + chunk)
+    num_entries: int | torch.Tensor
     cross_tris: torch.Tensor  # scalar i64 camera-plane-crossing triangles
+
+
+@dataclasses.dataclass
+class BinBudget:
+    """The entry capacity of every bin table built inside `bin_budget`, and
+    the largest live count among them (a scalar i64 on the device, None
+    until a table is built)."""
+
+    capacity: int
+    live: torch.Tensor | None = None
+
+    def record(self, n_e: torch.Tensor) -> None:
+        self.live = n_e if self.live is None else torch.maximum(self.live,
+                                                                n_e)
+
+
+_BUDGET: contextvars.ContextVar = contextvars.ContextVar("bin_budget",
+                                                         default=None)
+
+
+@contextlib.contextmanager
+def bin_budget(capacity: int | None):
+    """Inside, the renderer's bin tables have ``capacity`` entries and
+    record their live counts in the yielded `BinBudget`; ``None`` yields
+    None and changes nothing."""
+    if capacity is None:
+        yield None
+        return
+    budget = BinBudget(capacity)
+    token = _BUDGET.set(budget)
+    try:
+        yield budget
+    finally:
+        _BUDGET.reset(token)
+
+
+def active_bin_budget() -> BinBudget | None:
+    return _BUDGET.get()
 
 
 def bin_triangles(proj, origin: torch.Tensor, p1, e1, e2,
                   res_h: int, res_w: int, th: int, tw: int,
                   chunk: int = 512, eps: float = MT_EPSILON,
-                  backface_cull: bool = False) -> BinnedScene:
+                  backface_cull: bool = False,
+                  capacity: int | None = None) -> BinnedScene:
     """Bin object-frame triangles to (th x tw) pixel tiles.
 
     ``proj`` is the Projection in the object frame, ``origin`` the
@@ -58,6 +105,14 @@ def bin_triangles(proj, origin: torch.Tensor, p1, e1, e2,
     (T,) tensors (the Triangles leaves). The table's tail holds at least
     one dead chunk (det = 0, depth BIG), so that reading any tile's last
     block whole never runs past the end.
+
+    ``capacity`` (a multiple of ``chunk``): the table holds that many
+    entries, then the dead chunk, and nothing is read back. Entries past the
+    live count are dead (triangle -1, zero constants, depth BIG) and sort
+    after every live one, so the live entries, their order and ``starts``
+    are bitwise the live-count table's. A live count above the capacity
+    truncates the table: the caller must read ``num_entries`` and redo the
+    frame at a larger capacity.
     """
     dev = origin.device
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
@@ -139,9 +194,19 @@ def bin_triangles(proj, origin: torch.Tensor, p1, e1, e2,
 
     # ---- expansion: entry j -> triangle #{t : cum[t] <= j} ----
     cum = torch.cumsum(ntiles_tri, dim=0)                  # inclusive, i64
-    # the live count sizes every per-entry tensor: the frame's one sync
-    n_e = int(cum[-1]) if t_n else 0
-    j = torch.arange(n_e, dtype=i64, device=dev)
+    if capacity is None:
+        # the live count sizes every per-entry tensor: the frame's one sync
+        n_e = int(cum[-1]) if t_n else 0
+        size = n_e
+    else:
+        if capacity <= 0 or capacity % chunk:
+            raise ValueError(f"capacity {capacity} must be a positive "
+                             f"multiple of chunk {chunk}")
+        n_e = cum[-1] if t_n else torch.zeros((), dtype=i64, device=dev)
+        size = capacity
+    j = torch.arange(size, dtype=i64, device=dev)
+    # a dead entry (j >= n_e) finds triangle T, the dead row appended to
+    # each per-triangle table below
     tri_j = torch.searchsorted(cum, j, right=True)
 
     # ---- (tile, quantised depth) key ----
@@ -169,11 +234,17 @@ def bin_triangles(proj, origin: torch.Tensor, p1, e1, e2,
                      max=float(dmax)).to(i64).clamp_(max=dmax)
 
     itab = torch.stack([cum, ntiles_tri, ntx, tx0, ty0, dq], dim=1)
+    if capacity is not None:
+        itab = torch.cat([itab, itab.new_zeros((1, 6))])   # the dead row
     ient = itab.index_select(0, tri_j)                     # (E, 6)
     si = j - ient[:, 0] + ient[:, 1]
     ntx_j = torch.clamp_min(ient[:, 2], 1)
     tile_j = (ient[:, 4] + si // ntx_j) * n_tx + ient[:, 3] + si % ntx_j
     key = ((tile_j << dbits) | ient[:, 5]).to(i32)
+    if capacity is not None:
+        # dead entries: tile n_tiles at depth dmax, a key above every live
+        # one that still fits in 31 bits
+        key = torch.where(tri_j < t_n, key, (n_tiles << dbits) | dmax)
     key, order = torch.sort(key, stable=True)
     tri_sorted = tri_j.index_select(0, order)
 
@@ -208,13 +279,17 @@ def bin_triangles(proj, origin: torch.Tensor, p1, e1, e2,
          mvx - eps_f * mdx, mvy - eps_f * mdy, mvz - eps_f * mdz,
          k1 * td, depth], dim=1)                           # (T, 11)
 
-    e_pad = -(-n_e // chunk) * chunk + chunk
-    dead = torch.zeros((e_pad - n_e, GEOM_ROWS), dtype=f32, device=dev)
+    e_pad = -(-size // chunk) * chunk + chunk
+    dead = torch.zeros((e_pad - size, GEOM_ROWS), dtype=f32, device=dev)
     dead[:, 10] = BIG
+    ids = tri_sorted.to(i32)
+    if capacity is not None:
+        # dead entries gather the dead row T: zero constants, depth BIG
+        ftab = torch.cat([ftab, dead[:1]])
+        ids = torch.where(tri_sorted < t_n, ids, -1)
     geom = torch.cat([ftab.index_select(0, tri_sorted), dead]).T.contiguous()
-    entry_tri = torch.cat([tri_sorted.to(i32),
-                           torch.full((e_pad - n_e,), -1, dtype=i32,
-                                      device=dev)])
+    entry_tri = torch.cat([ids, torch.full((e_pad - size,), -1, dtype=i32,
+                                           device=dev)])
     return BinnedScene(geom=geom, entry_tri=entry_tri, starts=starts,
                        qstep=d_rng / dmax_f, num_entries=n_e,
                        cross_tris=cross.sum())

@@ -522,10 +522,12 @@ def _bin_meta(config, res_h: int, res_w: int):
     return (res_h + hp, res_w + wp, th, tw, hp, wp, 0, 0)
 
 
-def bin_object(o: torch.Tensor, tris, proj, config, res_h: int, res_w: int
+def bin_object(o: torch.Tensor, tris, proj, config, res_h: int, res_w: int,
+               capacity: int | None = None
                ) -> tuple[torch.Tensor, BinnedScene]:
     """The kernel's operands for one object: the per-tile ray table and
-    the binned entry table, at the image padded to whole tiles."""
+    the binned entry table, at the image padded to whole tiles (with
+    ``capacity`` entries: `bin_triangles`)."""
     h2, w2, th, tw = _bin_meta(config, res_h, res_w)[:4]
     n_tx = w2 // tw
     n_tiles = (h2 // th) * n_tx
@@ -544,12 +546,13 @@ def bin_object(o: torch.Tensor, tris, proj, config, res_h: int, res_w: int
                            (tris.e2x, tris.e2y, tris.e2z),
                            h2, w2, th, tw, chunk=config.bin_chunk,
                            eps=config.eps,
-                           backface_cull=config.backface_cull)
+                           backface_cull=config.backface_cull,
+                           capacity=capacity)
     return rays, binned
 
 
 def intersect_binned(o: torch.Tensor, d: torch.Tensor, tris, proj, config,
-                     res_h: int, res_w: int):
+                     res_h: int, res_w: int, capacity: int | None = None):
     """Nearest hit per primary ray by screen-space binning + the
     bin-intersect kernel.
 
@@ -559,19 +562,23 @@ def intersect_binned(o: torch.Tensor, d: torch.Tensor, tris, proj, config,
     directions are regenerated per tile from ``proj``, so ``d`` is ignored
     (it keeps the call shape of the other methods). The entry table is
     sized from the live count, so the JAX package's ``bin_e_factor`` /
-    ``bin_escalate`` have nothing to do.
+    ``bin_escalate`` have nothing to do. With ``capacity`` it has that many
+    entries and nothing is read back: the result is then (Hit, the live
+    entry count, a scalar i64 on the device), and a caller that finds the
+    count above the capacity must redo the frame at a larger one, so no
+    result that is kept has dropped an entry (F3, F13).
 
     With ``config.with_stats`` the kernel runs its telemetry switch (K3,
     with ``config.bin_esub`` slices) and the result is (Hit, stats):
     ``steps`` (nT,) slices scanned and ``chunks`` (nT,) blocks walked per
-    tile, ``entries`` (int), ``overflow`` (always 0: nothing is dropped)
-    and ``cross`` (camera-plane-crossing triangles).
+    tile, ``entries`` (the live count), ``overflow`` (always 0: nothing is
+    dropped) and ``cross`` (camera-plane-crossing triangles).
     """
     del d
     if config.sub_h or config.sub_w:
         raise ValueError("method='bin' generates rays in row-major tile "
                          "order; sub_h/sub_w are a cluster-path option")
-    rays, binned = bin_object(o, tris, proj, config, res_h, res_w)
+    rays, binned = bin_object(o, tris, proj, config, res_h, res_w, capacity)
     out = bin_intersect(rays, binned.geom, binned.entry_tri, binned.starts,
                         config.bin_chunk, config.eps, config.draw_distance,
                         esub=config.bin_esub if config.with_stats else 1,
@@ -581,6 +588,8 @@ def intersect_binned(o: torch.Tensor, d: torch.Tensor, tris, proj, config,
         return hit, {"steps": out[2][:, 0], "chunks": out[2][:, 1],
                      "overflow": 0, "entries": binned.num_entries,
                      "cross": binned.cross_tris}
+    if capacity is not None:
+        return hit, binned.num_entries
     return hit
 
 

@@ -1,7 +1,8 @@
 """Offline animation driver: the frame loop of WinMain, headless (the JAX
 package's ``apps/animate.py``, with the same flags, plus ``--device``).
 
-Replays a key script (models/animation.py) through the renderer, writing
+Replays a key script (models/animation.py) through `render_jit` (on CUDA
+one captured frame, replayed with each tick's poses), writing
 PNG frames and printing the reference's HUD block (resolution, FPS, camera
 basis; WinMain.cpp:225-234) in place via VT escapes. With
 ``--second-object`` a second posed instance of the mesh shares the first
@@ -53,7 +54,7 @@ def main(argv=None):
     dev = device_from_arg(args.device, p)
 
     from .. import (Camera, ClusterAccel, Pose, RenderConfig, Scene,
-                    SceneObject, Triangles, render)
+                    SceneObject, Triangles, render_jit)
     from ..io import ply
     from ..models.animation import demo_script, run_script
     from ..ops.quaternion import from_axis_angle
@@ -94,7 +95,7 @@ def main(argv=None):
     t_prev = time.perf_counter()
     total = 0
     for tick, key, scene in run_script(scene, camera, demo_script()):
-        img = render(scene, camera, config, accel).image.cpu().numpy()
+        img = render_jit(scene, camera, config, accel).image.cpu().numpy()
         t_now = time.perf_counter()
         fps = 1.0 / max(t_now - t_prev, 1e-9)
         t_prev = t_now
@@ -116,7 +117,8 @@ def main(argv=None):
 
     # the HUD FPS above is wall clock between host copies of the image; the
     # steady-state number is the frame's device time on the final pose
-    dt = device_time(lambda i: render(scene, camera, config, accel).image,
+    dt = device_time(lambda i: render_jit(scene, camera, config,
+                                          accel).image,
                      n_lo=1, n_hi=1, device=dev)
     kind = "device" if dev.type == "cuda" else "CPU wall-clock"
     print(f"steady-state {kind} frame: {dt * 1e3:.2f} ms "

@@ -3,7 +3,9 @@
 plus ``--device``).
 
 The minimal "WinMain" equivalent: scene setup (WinMain.cpp:69-156) plus one
-frame, with the reference's hardcoded choices exposed as flags.
+frame, with the reference's hardcoded choices exposed as flags. Frames run
+through `render_jit`, as the JAX app's do through its ``render_jit``: on
+CUDA the steady-state frame is the replayed CUDA graph.
 
 Usage:
     python -m cpp_cuda_raytracer_dev_torch.apps.render_cli \\
@@ -54,7 +56,7 @@ def main(argv=None):
     dev = device_from_arg(args.device, p)
 
     from .. import (Camera, ClusterAccel, RenderConfig, Scene, SceneObject,
-                    Triangles, render)
+                    Triangles, render_jit)
     from ..accel.kd_build import build_kd
     from ..accel.traverse import KDTables
     from ..io import ply
@@ -97,12 +99,13 @@ def main(argv=None):
               f"({tree.num_nodes} nodes, depth {tree.max_depth})")
 
     t0 = time.perf_counter()
-    out = render(scene, camera, config, accel)
+    out = render_jit(scene, camera, config, accel)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    print(f"first frame (incl. kernel build): "
+    print(f"first frame (incl. kernel build and capture): "
           f"{time.perf_counter() - t0:.2f}s")
-    dt = device_time(lambda i: render(scene, camera, config, accel).image,
+    dt = device_time(lambda i: render_jit(scene, camera, config,
+                                          accel).image,
                      n_lo=1, n_hi=1, device=dev)
     kind = "device" if dev.type == "cuda" else "CPU wall-clock"
     print(f"steady-state frame ({kind}): {dt * 1e3:.2f} ms "

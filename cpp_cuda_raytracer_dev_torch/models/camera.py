@@ -96,6 +96,10 @@ class Camera(nn.Module):
                    film_w=fp(film_w), film_h=fp(film_h), focal=fp(focal),
                    res_w=res_w, res_h=res_h)
 
+    @property
+    def num_pixels(self) -> int:
+        return self.res_w * self.res_h
+
     def pixel_pitch(self) -> tuple[torch.Tensor, torch.Tensor]:
         return self.film_w / self.res_w, self.film_h / self.res_h
 
@@ -143,3 +147,27 @@ class Camera(nn.Module):
         dz = n_mod[2] + u_mod[2] * ix + v_mod[2] * iy
         inv = torch.rsqrt(dx * dx + dy * dy + dz * dz)
         return torch.stack([dx * inv, dy * inv, dz * inv], dim=-1)
+
+
+@dataclasses.dataclass
+class RayBuffers:
+    """Per-pixel ray state, the reference's ``Camera::pixel_memory``
+    (Camera.h:15-97, filled by Camera.cu:89-111)."""
+
+    rmd: torch.Tensor        # (N, 3) unit ray directions
+    inv_rmd: torch.Tensor    # (N, 3) 1 / rmd (Camera.cu:106)
+    sign_rmd: torch.Tensor   # (N, 3) int32 sign bits (Camera.cu:107)
+    dist: torch.Tensor       # (N,) hit distance, draw_distance at first
+    rmi: torch.Tensor        # (N,) int32 hit triangle, -1 at first
+
+    @classmethod
+    def create(cls, camera: Camera, draw_distance: float = 400.0
+               ) -> "RayBuffers":
+        rmd = camera.ray_directions()
+        n = rmd.shape[0]
+        return cls(rmd=rmd, inv_rmd=1.0 / rmd,
+                   sign_rmd=vecmath.sign_bits(rmd),
+                   dist=torch.full((n,), draw_distance, dtype=rmd.dtype,
+                                   device=rmd.device),
+                   rmi=torch.full((n,), -1, dtype=torch.int32,
+                                  device=rmd.device))

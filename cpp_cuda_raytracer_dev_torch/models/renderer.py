@@ -7,7 +7,10 @@ geometry, so autograd reaches vertices, poses, camera and Phong parameters
 at fixed topology.
 
 `render_differentiable` is the frame with autograd (the loss calls it);
-`render` is the same body under ``torch.inference_mode``, for serving.
+`render` is the same body under ``torch.inference_mode``, for serving;
+`render_jit` is `render` captured into a CUDA graph and replayed
+(utils/graphs.py), the port's counterpart of the JAX package's
+``render_jit``.
 """
 
 from __future__ import annotations
@@ -16,9 +19,11 @@ import dataclasses
 
 import torch
 
+from ..accel.binning import active_bin_budget, bin_budget
 from ..ops.gather import gather_rows, take_rows
 from ..ops.intersect import FixedOriginCache, Hit, mt_brute, mt_fixed_origin
 from ..ops.shade import compose_framebuffer, phong_radiance_c
+from ..utils import graphs
 from ..utils.config import RenderConfig
 from .camera import Camera
 from .scene import Scene
@@ -29,6 +34,9 @@ _ACCEL_METHODS = {"grid": "ClusterAccel", "pallas": "ClusterAccel",
 # pallas2) or raster's bitcast of t to int32 (as in the JAX package)
 _FLOAT32_METHODS = ("bin", "grid", "pallas", "pallas2", "raster")
 _PROJ_METHODS = ("bin", "raster")
+# render_jit runs these uncaptured: kd loops on a host read, raster sizes
+# its dense list from the live count (ROADMAP queue 1)
+_UNCAPTURED = ("kd", "raster")
 
 
 @dataclasses.dataclass
@@ -104,9 +112,14 @@ def trace_rays(scene: Scene, origin: torch.Tensor, rmd: torch.Tensor,
                                config.eps)
         elif config.method == "bin":
             from ..accel.traverse import intersect_binned
+            budget = active_bin_budget()
             hit = intersect_binned(o_obj, d_obj, obj.tris,
                                    proj.transformed(obj.pose), config,
-                                   band_h, band_w)
+                                   band_h, band_w, capacity=None
+                                   if budget is None else budget.capacity)
+            if budget is not None:
+                hit, live = hit
+                budget.record(live)
         elif config.method == "raster":
             from ..accel.raster import intersect_raster
             hit = intersect_raster(o_obj, d_obj, obj.tris,
@@ -245,3 +258,67 @@ def render(scene: Scene, camera: Camera,
     """One forward frame on the scene's device: the serving entry point,
     run under ``torch.inference_mode``."""
     return render_differentiable(scene, camera, config, accel)
+
+
+def jit_captures(config: RenderConfig) -> bool:
+    """Whether `render_jit` captures ``config.method`` on CUDA (every
+    method but "kd" and "raster")."""
+    return config.method not in _UNCAPTURED
+
+
+def bin_entry_count(scene: Scene, camera: Camera, config: RenderConfig) -> int:
+    """The largest live entry count of the frame's bin tables: the probe
+    that picks a key's first bucket (one uncaptured prepass an object)."""
+    from ..accel.traverse import bin_object
+    with torch.no_grad():
+        proj = camera.projection()
+        return max(bin_object(obj.pose.inv_apply(camera.pos), obj.tris,
+                              proj.transformed(obj.pose), config,
+                              camera.res_h, camera.res_w)[1].num_entries
+                   for obj in scene.objects)
+
+
+# render_jit's graphs, one memory pool (utils/graphs.py `GraphCache`)
+FRAME_GRAPHS = graphs.GraphCache()
+
+
+def render_jit(scene: Scene, camera: Camera,
+               config: RenderConfig = RenderConfig(), accel=None
+               ) -> RenderOutput:
+    """`render` compiled: on CUDA the frame is captured into a CUDA graph,
+    one a key (the config, the scene's and camera's leaf shapes, dtypes and
+    device, the resolution, the ``accel`` objects) and bucket, and each
+    call copies the scene's and camera's leaves into the graph's inputs,
+    replays it and returns clones of its outputs, which no later call
+    overwrites. The outputs are bitwise `render`'s.
+
+    Method "bin" sizes its tables at a bucket of the live entry count
+    (`utils/graphs.py`): the frame's only host read is the live count after
+    the replay, and a frame that outgrew its bucket is captured again at a
+    larger one and replayed, so nothing is dropped. Every other method makes
+    no host read. "kd" (a traversal that loops on a host read) and "raster"
+    (a dense list sized from the live count) are not captured: they run as
+    `render` does (`jit_captures` says which). A capture that fails raises;
+    nothing falls back to the uncaptured frame.
+
+    On the CPU there is no graph: the frame runs as `render`'s, with the
+    bin tables at the bucket and the same growth check.
+
+    `FRAME_GRAPHS` is the `GraphCache` (captures, buckets, regrowths).
+    """
+    if not jit_captures(config):
+        return render(scene, camera, config, accel)
+    key = (config, graphs.signature((scene, camera)),
+           camera.res_h, camera.res_w,
+           None if accel is None else tuple(id(a) for a in accel))
+
+    def body(args, bucket):
+        scene_, camera_ = args
+        with torch.no_grad(), bin_budget(bucket) as budget:
+            out = render_differentiable(scene_, camera_, config, accel)
+        return out, None if budget is None else budget.live
+
+    probe = ((lambda args: bin_entry_count(*args, config))
+             if config.method == "bin" else None)
+    return FRAME_GRAPHS.run(key, (scene, camera), body, probe,
+                            config.bin_chunk, pin=accel)

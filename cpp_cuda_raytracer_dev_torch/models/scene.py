@@ -8,6 +8,7 @@ JAX pytree paths, so ``Scene.state_dict()`` keys (``objects.0.tris.p1x``,
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -53,6 +54,21 @@ class Triangles(nn.Module):
     @property
     def e2(self) -> torch.Tensor:
         return torch.stack([self.e2x, self.e2y, self.e2z], dim=-1)
+
+    @property
+    def n(self) -> torch.Tensor:
+        """(T, 3) unit geometric normals normalize(e1 x e2), derived (a
+        zero-area triangle's is clamped, not NaN)."""
+        cnx = self.e1y * self.e2z - self.e1z * self.e2y
+        cny = self.e1z * self.e2x - self.e1x * self.e2z
+        cnz = self.e1x * self.e2y - self.e1y * self.e2x
+        inv = torch.rsqrt(torch.clamp_min(cnx * cnx + cny * cny + cnz * cnz,
+                                          1e-30))
+        return torch.stack([cnx * inv, cny * inv, cnz * inv], dim=-1)
+
+    @property
+    def num_triangles(self) -> int:
+        return self.p1x.shape[0]
 
     def vertices(self) -> torch.Tensor:
         """Back to (T, 3, 3) vertex blocks (p1, p2, p3)."""
@@ -111,3 +127,10 @@ class Scene(nn.Module):
             p1x = self.objects[0].tris.p1x
             phong = PhongParams.reference(device=p1x.device, dtype=p1x.dtype)
         self.phong = phong
+
+
+def default_colors(num_tri: int) -> np.ndarray:
+    """(num_tri, 3) float32 per-triangle colours of the reference scene
+    (WinMain.cpp:117-121)."""
+    return np.broadcast_to(np.array(DEFAULT_COLOR, np.float32),
+                           (num_tri, 3)).copy()

@@ -5,6 +5,13 @@ the repository root, as a shared library with a plain C interface, keyed on
 a hash of the source and the flags, and loaded with ctypes. `build` starts
 one nvcc process per source that is not built yet, all at once, and waits
 for them together.
+
+A library links nvcc's default static CUDA runtime. Its launches still go
+into a stream that PyTorch is capturing into a CUDA graph (both runtimes
+share the context and its stream handles), and the launchers'
+``cudaFuncSetAttribute`` and ``cudaGetLastError`` are legal during a
+capture: tests/test_torch_jit.py and chip_smoke.py phase 15 capture every
+kernel of the frame and the step and replay them bit for bit.
 """
 
 from __future__ import annotations

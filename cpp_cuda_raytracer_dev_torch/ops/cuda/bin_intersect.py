@@ -20,7 +20,11 @@ per-tile scan counts.
   pairs it accepts, for their bounds.
 - `bin_intersect.launches` counts kernel launches, and
   `bin_intersect.telemetry_launches` those of them with the telemetry
-  switch (K3: ``esub`` above 1 or ``with_steps``).
+  switch (K3: ``esub`` above 1 or ``with_steps``). Inside a captured CUDA
+  graph (`render_jit`, `make_train_step_jit`) a count is the capture's
+  launch, not the replays': chip_smoke.py counts a replay's kernels by
+  name in the profiler. The launch is capture-safe: it allocates with
+  ``torch.empty`` and runs on ``torch.cuda.current_stream()``.
 
 The kernels are built by `._build` (nvcc at first use, ctypes).
 """

@@ -11,7 +11,9 @@ backward of the packed row gather (kernel K2 of the JAX package,
 - `segment_sum_reference` is the plain PyTorch version: the rows permuted
   into sort order, then ``index_add_`` into zeros (sequential, in row
   order, on the CPU).
-- `segment_sum.launches` counts kernel launches.
+- `segment_sum.launches` counts kernel launches; inside a captured CUDA
+  graph (`make_train_step_jit`) that is the capture's launch, not the
+  replays' (chip_smoke.py counts a replay's kernels in the profiler).
 
 The two sum in different orders, so they agree to a float32 rounding
 bound, not bit for bit: within n·2⁻²³·Σ|x| of the exact sum for a segment

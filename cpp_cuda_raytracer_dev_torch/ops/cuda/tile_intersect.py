@@ -12,7 +12,9 @@ clusters, kernels K4 (``method="pallas2"``, the JAX package's
   they step the candidate index k for all tiles at once (in tile groups to
   bound memory), apply the same per-ray gate and, for K4, the same
   per-tile exit at each k, and agree with the kernels bit for bit.
-- ``.launches`` on each wrapper counts kernel launches.
+- ``.launches`` on each wrapper counts kernel launches; inside a captured
+  CUDA graph (`render_jit`) that is the capture's launch, not the
+  replays' (chip_smoke.py counts a replay's kernels in the profiler).
 - The kernels take P <= 2048 rays a tile (a multiple of 32, and above 512
   of 512), n_sub <= 2048 and eps > 0; the wrappers raise otherwise.
 

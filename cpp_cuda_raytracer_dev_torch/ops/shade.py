@@ -14,6 +14,22 @@ from __future__ import annotations
 
 import torch
 
+from . import vecmath
+
+
+def phong_radiance(hit_point: torch.Tensor, normal: torch.Tensor,
+                   ray_dir: torch.Tensor, tri_color: torch.Tensor,
+                   params) -> torch.Tensor:
+    """Per-pixel Phong radiance (R, 3) from world-space (R, 3) inputs; the
+    (R, 3) form of `phong_radiance_c`."""
+    l = vecmath.normalize(params.light_pos[None, :] - hit_point)
+    dot_r_n = vecmath.dot(l, normal)
+    r = (l - 2.0 * dot_r_n[..., None] * normal) * ray_dir
+    diffuse = params.diffuse * dot_r_n.abs()
+    spec = params.specular * r.sum(dim=-1).abs() ** params.exponent
+    return (tri_color * diffuse[..., None] * params.light_color[None, :]
+            + params.light_color[None, :] * spec[..., None])
+
 
 def phong_radiance_c(hit_point, normal, ray_dir, tri_color, params):
     """Phong radiance on (x, y, z)-tuples of flat (R,) tensors; returns the
@@ -53,8 +69,11 @@ def compose_framebuffer(radiance: torch.Tensor, hit_mask: torch.Tensor,
     56-59); ``torch.round`` is half-to-even like ``jnp.round``."""
     shaded = torch.clamp(torch.round(tonemap_maxnorm(radiance) * 255.0),
                          0.0, 255.0)
-    bg = torch.as_tensor(background_rgb, dtype=radiance.dtype,
-                         device=radiance.device)
+    # filled on the device: no host copy in the frame (a captured frame
+    # may not make one)
+    bg = torch.stack([torch.full((), float(c), dtype=radiance.dtype,
+                                 device=radiance.device)
+                      for c in background_rgb])
     return torch.where(hit_mask[..., None], shaded, bg).to(torch.uint8)
 
 

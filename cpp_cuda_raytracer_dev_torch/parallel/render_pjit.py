@@ -31,6 +31,10 @@ computes the loss of its band, scaled as the whole image's mean (band sum
 / (H·W·3)), reports the loss summed over "rays", and sums the gradients
 before the optimizer steps.
 
+`make_train_step_jit` is `make_train_step` compiled (single device): on
+CUDA two captured graphs a step, the forward and backward, then the
+optimizer's step (utils/graphs.py).
+
 One deliberate difference: the port traces hits without gradients and
 shades differentiably on every path, so `render_sharded_2d` is
 differentiable; JAX's is not (its nearest-hit ``pmin`` has no
@@ -45,10 +49,13 @@ import torch
 import torch.distributed as dist
 
 from ..models.camera import Camera
-from ..models.renderer import (RenderOutput, render_differentiable,
-                               render_rays, shade_and_compose, trace_rays)
+from ..accel.binning import bin_budget
+from ..models.renderer import (RenderOutput, bin_entry_count,
+                               render_differentiable, render_rays,
+                               shade_and_compose, trace_rays)
 from ..models.scene import Scene
 from ..ops.intersect import FixedOriginCache, Hit, mt_fixed_origin
+from ..utils import graphs
 from ..utils.config import RenderConfig
 from .collectives import allreduce_nearest_hit
 from .mesh import (PRIMS_AXIS, RAYS_AXIS, axis_group, axis_index, axis_size,
@@ -380,4 +387,97 @@ def make_train_step(optimizer: torch.optim.Optimizer, config: RenderConfig,
                                  *params["camera"].parameters()], mesh)
         optimizer.step()
         return loss.detach()
+    return step
+
+
+def _check_capturable(optimizer: torch.optim.Optimizer) -> None:
+    """A captured optimizer step must read nothing back from the host and
+    keep its state on the device: ``torch.optim.SGD`` without momentum (=
+    ``optax.sgd``), or an optimizer built with ``capturable=True``."""
+    groups = optimizer.param_groups
+    if isinstance(optimizer, torch.optim.SGD) and all(
+            g["momentum"] == 0 for g in groups):
+        return
+    if all(g.get("capturable", False) for g in groups):
+        return
+    raise ValueError(
+        f"{type(optimizer).__name__} cannot be captured: make_train_step_jit "
+        "takes torch.optim.SGD without momentum (optax.sgd) or an optimizer "
+        "built with capturable=True; use make_train_step otherwise")
+
+
+def make_train_step_jit(optimizer: torch.optim.Optimizer,
+                        config: RenderConfig, mesh=None, accel=None):
+    """`make_train_step` compiled: ``step(params, target)`` with its
+    contract (the parameters updated in place, the loss returned detached;
+    here a clone that no later step overwrites).
+
+    On CUDA a step replays two captured graphs (utils/graphs.py):
+    - G1: the gradients set to None before its capture, so that they come
+      from the graph's memory pool and every replay writes them anew; the
+      forward, the loss and the backward (kernels K1 and K2 inside it).
+      Method "bin" sizes its tables at a bucket of the live entry count.
+    - Between the graphs the host reads the live count; a step whose count
+      outgrew its bucket is captured again at a larger one and replayed
+      before any parameter changes, so a truncated table never reaches the
+      optimizer.
+    - G2: ``optimizer.step()``. It is captured at the second step: the
+      first steps eagerly, a real step that builds the optimizer's state,
+      so that no warm-up ever steps the optimizer.
+    G1 reads the parameters of ``params`` in place and the caller's target
+    through a static copy; a step with other parameters, or a target of
+    another shape, captures anew (one pair of graphs is kept).
+
+    The optimizer must capture (`_check_capturable`: SGD without momentum,
+    or ``capturable=True``). On the CPU there are no graphs: the step runs
+    as `make_train_step`'s, with the bin tables at the bucket and the same
+    growth check. A mesh raises ``NotImplementedError`` (ROADMAP queue 1,
+    capture of the sharded paths).
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_train_step_jit has no sharded form: capturing the "
+            "torch.distributed collectives of a mesh is ROADMAP queue 1 "
+            "(the sharded paths); use make_train_step(optimizer, config, "
+            "mesh)")
+    _check_capturable(optimizer)
+    loss_fn = make_loss_fn(config, None, accel)
+    state = {"key": None, "cache": None, "g1": None, "g2": None}
+
+    def forward_backward(params):
+        def body(target, bucket):
+            optimizer.zero_grad(set_to_none=True)
+            with bin_budget(bucket) as budget:
+                loss = loss_fn(params, target)
+                loss.backward()
+            return loss.detach(), None if budget is None else budget.live
+        return body
+
+    def step(params, target: torch.Tensor) -> torch.Tensor:
+        scene, camera = params["scene"], params["camera"]
+        key = (config, tuple(id(p) for p in graphs.leaves((scene, camera))),
+               graphs.signature((scene, camera, target)), camera.res_h,
+               camera.res_w)
+        if key != state["key"]:         # one pair of graphs is kept
+            state.update(key=key, cache=graphs.GraphCache(), g1=None,
+                         g2=None)
+        cache = state["cache"]
+        probe = ((lambda _: bin_entry_count(scene, camera, config))
+                 if config.method == "bin" else None)
+        loss = cache.run(key, target, forward_backward(params), probe,
+                         config.bin_chunk, pin=(params, accel))
+        if target.device.type != "cuda":
+            optimizer.step()
+            return loss
+        g1 = cache.graphs[key, cache.buckets.get(key)]
+        if state["g1"] is None:          # the first step: eager
+            optimizer.step()
+        else:
+            if state["g2"] is None or state["g1"] is not g1:
+                state["g2"] = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(state["g2"], pool=cache.pool):
+                    optimizer.step()
+            state["g2"].replay()
+        state["g1"] = g1
+        return loss
     return step
