@@ -6,9 +6,9 @@
 Drives the port's ``method="bin"`` frame and its training step, the
 cluster paths ``method="pallas2"`` and ``"pallas"``, the per-tile bin
 kernel K6, the apps ``render_cli`` and ``animate``, the sharded entry points
-(at world size 1 over NCCL), the raster path, float64, and the compiled
-frame and step (``render_jit``, ``make_train_step_jit``), at the headline
-size:
+(at world size 1 over NCCL), the raster path, float64, the compiled
+frame and step (``render_jit``, ``make_train_step_jit``) and the KD path
+``method="kd"`` (kernel K7), at the headline size:
 the dragon-class mesh (``dragon_class_mesh(800_000)``, 800,130 triangles)
 at 960x540, 16x32 tiles, the bench camera (pos (0, 0, -3), look-at the
 origin, film_h 0.024, focal 0.055); bin_chunk 512 and backface cull for
@@ -110,12 +110,12 @@ Phases (any failure raises and the process exits non-zero):
      switched off timed in turns, the plain version timed; the chunks
      whose gate opened and the walked chunks' constants give its bound;
  11. the entry points: the headline mesh written as a binary PLY under
-     build/chip_smoke/, then ``render_cli.main`` with ``--method bin`` and
-     ``pallas2`` at 960x540 and ``kd`` at 320x180 (a validation path with
-     no kernel), each PNG's hit/miss against the oracle on 4,096 sampled
-     rays of the same camera (agreement >= 0.999) and each kernel path's
-     launch counter moved (the apps render through ``render_jit``: the
-     counter sees the capture); then ``animate.main`` for 30 ticks at
+     build/chip_smoke/, then ``render_cli.main`` with ``--method bin``,
+     ``pallas2`` and ``kd`` (leaf 128) at 960x540, each PNG's hit/miss
+     against the oracle on 4,096 sampled rays of the same camera
+     (agreement >= 0.999) and each path's kernel counter moved (K1, K4,
+     K7; the apps render through ``render_jit``: the counter sees the
+     capture); then ``animate.main`` for 30 ticks at
      960x540 with ``--second-object --method bin --json-out``, profiled:
      two objects, K1 twice a frame, which the profiler must show;
  12. sharding, in this process at world size 1 over NCCL (a sharded phase
@@ -156,7 +156,26 @@ Phases (any failure raises and the process exits non-zero):
      eager steps from twin parameter sets: parameters bitwise equal after
      3 steps and again after the timed ones, K1 (and K2, all leaves only)
      seen in the replayed step, step ms in turns. A capture that fails
-     fails the run: nothing falls back to the eager frame.
+     fails the run: nothing falls back to the eager frame;
+ 16. the KD path: the KD traversal kernel K7 against its plain version
+     (``kd_intersect_plain``), t and ids bitwise, on a 96x64 sphere and a
+     sphere whose every triangle is there twice (every hit an exact tie) at
+     leaf sizes 1, 8 and 128, and on axis-aligned rays through the split
+     planes of a height field on exact binary fractions (a zero direction
+     component on a box plane: NaN in the slab test) at leaf sizes 1, 4
+     and 128, each in float32 and float64; then on headline frame 0 at
+     960x540, leaf 128, every ray (the plain version in runs of
+     ``KD_PLAIN_CHUNK``, timed once); K7 timed with CUDA events; the
+     (ray, internal node) slab tests and (ray, slot) pairs the plain run
+     counts give its bound; 8 kd frames through ``render`` after resetting
+     K7's counter, which must show them, frame 0's ids those of the
+     bitwise run and agreement with phase 4's oracle rays >= 0.999;
+     ``render_jit`` kd frames 0, 1, 0 bitwise ``render``'s, one graph, K7
+     seen in the replay, eager and replayed frames in turns; the compiled
+     kd all-leaves and pose/light/camera-only steps bitwise the eager
+     ones, as phase 15's; ``make_train_step_jit`` with raster, which runs
+     uncaptured (``make_train_step``'s step), ``N_RASTER_STEPS`` steps
+     bitwise the eager ones.
 A differing id passes as a tie when both triangles' t, by the oracle's
 constants, lie within 1e-5 of the oracle's t. Each phase prints its seconds.
 Operation bounds are given at the FMA peak (``bound_ms``: 2 operations a
@@ -203,7 +222,11 @@ K5_OPS_PER_PAIR = 26
 K6_OPS_PER_PAIR = 29           # csrc/bin_tile_intersect.cu, "Bound"
 K6_OPS_PER_ENTRY = 52          # its constants (51) and depth minimum, a chunk
 K6_CHUNK = 128
-KD_RES = (320, 180)            # the KD path is a validation path, no kernel
+KD_LEAF = 128                  # render_cli's default leaf size
+KD_PLAIN_CHUNK = 131072        # rays a run of K7's plain version
+K7_OPS_PER_NODE = 36           # csrc/kd_traverse.cu, "Bound"
+K7_OPS_PER_PAIR = 54
+N_RASTER_STEPS = 2             # uncaptured compiled raster steps vs eager
 N_ANIMATE_TICKS = 30
 BACKGROUND = (240, 130, 0)
 N_CLUSTER_FRAMES = {"pallas2": 8, "pallas": 3}
@@ -215,7 +238,8 @@ N_JIT_STEPS = 3                # compiled against eager steps, bitwise
 KERNEL_NAMES = {"bin_intersect": "own_walk_kernel",
                 "segment_sum": "segment_sum_level",
                 "tile_intersect_v2": "tile_intersect_kernel<true",
-                "tile_intersect": "tile_intersect_kernel<false"}
+                "tile_intersect": "tile_intersect_kernel<false",
+                "kd_traverse": "kd_traverse_kernel"}
 # K3's and K6's design levers, each switched off (one ray a thread, which at
 # P 512 is also one entry group of 512 threads; one entry group of P / 4
 # threads; two rays a thread in two groups; the next block or chunk copied
@@ -270,11 +294,12 @@ def device_profile(fn):
 
 def replay_profile(fn):
     """Run ``fn()`` once under torch.profiler. Returns (device busy ms,
-    device operations, host operations, {kernel name: instances}): the host
-    operations are the CUDA runtime calls the host made (kernel and graph
-    launches, copies, fills, syncs: the host's events named ``cuda*``), the
-    instances count each `KERNEL_NAMES` kernel among the device events, a
-    captured graph's included."""
+    device operations, host operations, {kernel name: instances}, graph
+    launches): the host operations are the CUDA runtime calls the host made
+    (kernel and graph launches, copies, fills, syncs: the host's events
+    named ``cuda*``), the instances count each `KERNEL_NAMES` kernel among
+    the device events, a captured graph's included, and the graph launches
+    are the host's ``cudaGraphLaunch`` calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -287,8 +312,10 @@ def replay_profile(fn):
                and a.key.startswith("cuda"))
     seen = {k: sum(a.count for a in on_dev if name in a.key)
             for k, name in KERNEL_NAMES.items()}
+    graphs = sum(a.count for a in events if a.device_type == DeviceType.CPU
+                 and a.key.startswith("cudaGraphLaunch"))
     return (sum(a.self_device_time_total for a in on_dev) / 1e3,
-            sum(a.count for a in on_dev), host, seen)
+            sum(a.count for a in on_dev), host, seen, graphs)
 
 
 def op_bounds(n_ops: int, n_bytes: int, clock_mhz: float) -> dict:
@@ -423,7 +450,7 @@ def main() -> None:
     log(f"max SM clock {clock_mhz} MHz")
     t0 = time.perf_counter()
     built = _build.build("bin_intersect", "segment_sum", "tile_intersect",
-                         "bin_tile_intersect")
+                         "bin_tile_intersect", "kd_traverse")
     log(f"built {', '.join(lib.name for lib, _ in built.values())} in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, (_, build_log) in built.items():
@@ -1000,7 +1027,7 @@ def main() -> None:
     phase_done(10)
 
     # ---- 11. the entry points: render_cli and animate ----
-    run_entry_points(dev, headline_tv, smi)
+    cli_launches = run_entry_points(dev, headline_tv, smi)
     phase_done(11)
 
     # ---- 12. sharding at world size 1 over NCCL ----
@@ -1019,6 +1046,13 @@ def main() -> None:
     compiled = run_jit(dev, headline_tv, frames, cfg, accel, ccfgs, target,
                        smi)
     phase_done(15)
+
+    # ---- 16. the KD path: K7, its frame and its compiled step ----
+    k7_kernel = run_kd(dev, headline_tv, frames, idx_t, ref, target, smi,
+                       clock_mhz)
+    k7_kernel["launches_by_path"]["render_cli"] = cli_launches["kd"]
+    compiled["segment_sum"]["train_jit_kd"] = k7_kernel.pop("k2_train_jit")
+    phase_done(16)
 
     kernels = [{
         "name": "bin_intersect", "route": "cuda",
@@ -1054,7 +1088,7 @@ def main() -> None:
         "backward_ms": k2_backward_ms,
         "launches_by_path": {"serve": 0, "train": train_k2,
                              "train_pose_light_camera": pose_k2}},
-        *cluster_kernels, k6_kernel]
+        *cluster_kernels, k6_kernel, k7_kernel]
     for entry in kernels:     # phases 12 and 15, path by path
         entry["launches_by_path"].update(sharded.get(entry["name"], {}))
         entry["launches_by_path"].update(compiled.get(entry["name"], {}))
@@ -1988,6 +2022,145 @@ def run_f64(dev):
         raise RuntimeError("float64 on the card")
 
 
+FIELDS = ("hit_t", "hit_tri", "hit_obj", "image", "radiance", "normal",
+          "point")
+
+
+def differ(a, b):
+    """The output fields in which two frames are not bitwise equal."""
+    return [f for f in FIELDS if not torch.equal(getattr(a, f),
+                                                 getattr(b, f))]
+
+
+def spread(v):
+    return (f"median {float(np.median(v)):.3f} ms, min {min(v):.3f}, max "
+            f"{max(v):.3f} {[round(x, 3) for x in v]}")
+
+
+def jit_frames(method, c, acc, kname, frames, smi, note=""):
+    """`render_jit` against `render` for one method: frames 0, 1 and 0
+    bitwise, one graph captured, eager and replayed frames timed in turns
+    and one of each profiled; ``kname`` must be seen inside the replay.
+    Returns its instances in the replayed frame."""
+    from cpp_cuda_raytracer_dev_torch import render, render_jit
+    from cpp_cuda_raytracer_dev_torch.models import renderer
+
+    cache = renderer.FRAME_GRAPHS
+    captures = cache.captures
+    bad = []
+    for i in (0, 1, 0):          # frame 0, another camera and pose, frame 0
+        got = render_jit(*frames[i], c, acc)
+        bad += [f"frame {i} {f}" for f in
+                differ(got, render(*frames[i], c, acc))]
+    torch.cuda.synchronize()
+    ms = in_turns(lambda kind, i: (render if kind == "eager"
+                                   else render_jit)(*frames[i % N_FRAMES],
+                                                    c, acc),
+                  ("eager", "replayed"), N_PAIRED)
+    prof = {k: replay_profile(lambda: f(*frames[0], c, acc))
+            for k, f in (("eager", render), ("replayed", render_jit))}
+    log(f"render_jit {method}: bitwise render's on frames 0, 1, 0 "
+        f"{not bad}; graphs captured {cache.captures - captures}{note}; "
+        + "; ".join(f"{k} frames {spread(v)}, profiled frame: device "
+                    f"busy {prof[k][0]:.3f} ms in {prof[k][1]} device "
+                    f"operations, {prof[k][2]} host operations "
+                    f"({prof[k][4]} graph launches), kernels seen "
+                    f"{prof[k][3]}" for k, v in ms.items())
+        + f" ({smi})")
+    if bad:
+        raise RuntimeError(f"render_jit {method} differs from render: {bad}")
+    if cache.captures - captures != 1:
+        raise RuntimeError(f"render_jit {method} captured "
+                           f"{cache.captures - captures} graphs, not 1")
+    seen = prof["replayed"][3][kname]
+    if seen < 1 or prof["replayed"][4] < 1:
+        raise RuntimeError(f"{kname} not seen inside the replayed {method} "
+                           "frame")
+    return seen
+
+
+def train_set(dev, headline_tv):
+    """Parameters of the headline training step: the mesh under a pose
+    turned by 1 degree, the bench camera, every leaf trainable."""
+    from cpp_cuda_raytracer_dev_torch import (Camera, Pose, Scene,
+                                              SceneObject, Triangles)
+    from cpp_cuda_raytracer_dev_torch.ops.quaternion import from_axis_angle
+    tris = Triangles.from_vertices(headline_tv, device=dev)
+    pose = Pose(from_axis_angle([0.0, 1.0, 0.0], math.radians(1.0),
+                                device=dev), torch.zeros(3, device=dev))
+    cam = Camera.create(RES_W, RES_H, pos=[0.0, 0.0, -3.0],
+                        look_at=[0.0, 0.0, 0.0], up=[0.0, 1.0, 0.0],
+                        film_h=0.024, focal=0.055,
+                        device=dev).requires_grad_()
+    return {"scene": Scene([SceneObject(tris, pose)]), "camera": cam}
+
+
+def jit_steps(dev, headline_tv, c, acc, kname, target, smi):
+    """The compiled all-leaves and pose/light/camera-only steps
+    (`make_train_step_jit`) against the eager ones from twin parameter
+    sets: parameters and losses bitwise after `N_JIT_STEPS` steps and after
+    the timed and profiled ones; ``kname`` seen in every replayed step, K2
+    in the all-leaves one only. Returns {kernel name: instances in the
+    replayed all-leaves step}."""
+    from cpp_cuda_raytracer_dev_torch.parallel.render_pjit import (
+        make_train_step, make_train_step_jit)
+
+    def leaves(p):
+        return [*p["scene"].parameters(), *p["camera"].parameters()]
+
+    sets = {"compiled": train_set(dev, headline_tv),
+            "eager": train_set(dev, headline_tv)}
+    makers = {"compiled": make_train_step_jit, "eager": make_train_step}
+    out = {}
+    for kind in ("all-leaves", "pose/light/camera-only"):
+        if kind != "all-leaves":
+            for p in sets.values():
+                p["scene"].objects[0].tris.requires_grad_(False)
+                p["camera"].requires_grad_(False)
+                p["camera"].pos.requires_grad_(True)
+        opts = {k: torch.optim.SGD(
+            leaves(p) if kind == "all-leaves" else
+            [*p["scene"].objects[0].pose.parameters(),
+             *p["scene"].phong.parameters(), p["camera"].pos], lr=LR)
+            for k, p in sets.items()}
+        steps = {k: makers[k](opts[k], c, accel=acc) for k in sets}
+
+        def run(k, _i=0):
+            return steps[k](sets[k], target)
+        losses = {k: [float(run(k)) for _ in range(N_JIT_STEPS)]
+                  for k in sets}
+        same = all(torch.equal(a, b) for a, b in
+                   zip(leaves(sets["compiled"]), leaves(sets["eager"])))
+        ms = in_turns(run, ("eager", "compiled"), N_PAIRED // 2)
+        prof = {k: replay_profile(lambda: run(k)) for k in sets}
+        same_after = all(torch.equal(a, b) for a, b in
+                         zip(leaves(sets["compiled"]), leaves(sets["eager"])))
+        log(f"{c.method} {kind} steps, compiled against eager: losses "
+            f"{losses['compiled']} / {losses['eager']}, parameters bitwise "
+            f"equal after {N_JIT_STEPS} steps {same}, after the timed and "
+            f"profiled ones {same_after}; "
+            + "; ".join(f"{k} steps {spread(v)}, profiled step: device busy "
+                        f"{prof[k][0]:.3f} ms in {prof[k][1]} device "
+                        f"operations, {prof[k][2]} host operations "
+                        f"({prof[k][4]} graph launches), kernels seen "
+                        f"{prof[k][3]}" for k, v in ms.items())
+            + f" ({smi})")
+        if not (same and same_after) or losses["compiled"] != losses["eager"]:
+            raise RuntimeError(f"the compiled {c.method} {kind} step differs "
+                               "from the eager step")
+        seen = prof["compiled"][3]
+        k2_seen = seen["segment_sum"]
+        all_leaves = kind == "all-leaves"
+        if seen[kname] < 1 or (k2_seen > 0) != all_leaves \
+                or prof["compiled"][4] < 1:
+            raise RuntimeError(f"the replayed {c.method} {kind} step ran "
+                               f"{kname} {seen[kname]} and K2 {k2_seen} times")
+        if all_leaves:
+            out = {kname: seen[kname], "segment_sum": k2_seen}
+        del steps, opts
+    return out
+
+
 def run_jit(dev, headline_tv, frames, cfg, accel, ccfgs, target, smi):
     """Phase 15 (see the module docstring): `render_jit` and
     `make_train_step_jit` at the headline size. Returns {kernel name:
@@ -1995,28 +2168,12 @@ def run_jit(dev, headline_tv, frames, cfg, accel, ccfgs, target, smi):
     instances the profiler saw in one replayed frame of its method and in
     one replayed all-leaves step. The wrappers' counters count a graph's
     capture (and its warm-up), not its replays."""
-    from cpp_cuda_raytracer_dev_torch import (Camera, Pose, Scene,
-                                              SceneObject, Triangles, render,
-                                              render_jit)
+    from cpp_cuda_raytracer_dev_torch import Camera, render, render_jit
     from cpp_cuda_raytracer_dev_torch.models import renderer
     from cpp_cuda_raytracer_dev_torch.models.renderer import bin_entry_count
-    from cpp_cuda_raytracer_dev_torch.ops.quaternion import from_axis_angle
-    from cpp_cuda_raytracer_dev_torch.parallel.render_pjit import (
-        make_train_step, make_train_step_jit)
     from cpp_cuda_raytracer_dev_torch.utils.graphs import next_bucket
 
     cache = renderer.FRAME_GRAPHS
-    fields = ("hit_t", "hit_tri", "hit_obj", "image", "radiance", "normal",
-              "point")
-
-    def differ(a, b):
-        return [f for f in fields if not torch.equal(getattr(a, f),
-                                                     getattr(b, f))]
-
-    def spread(v):
-        return (f"median {float(np.median(v)):.3f} ms, min {min(v):.3f}, max "
-                f"{max(v):.3f} {[round(x, 3) for x in v]}")
-
     out = {}
     live0 = bin_entry_count(*frames[0], cfg)
     bucket = next_bucket(live0, cfg.bin_chunk)
@@ -2024,39 +2181,10 @@ def run_jit(dev, headline_tv, frames, cfg, accel, ccfgs, target, smi):
              "pallas2": (ccfgs["pallas2"], (accel,), "tile_intersect_v2"),
              "pallas": (ccfgs["pallas"], (accel,), "tile_intersect")}
     for method, (c, acc, kname) in cases.items():
-        captures = cache.captures
-        bad = []
-        for i in (0, 1, 0):      # frame 0, another camera and pose, frame 0
-            got = render_jit(*frames[i], c, acc)
-            bad += [f"frame {i} {f}" for f in
-                    differ(got, render(*frames[i], c, acc))]
-        torch.cuda.synchronize()
-        ms = in_turns(lambda kind, i: (render if kind == "eager"
-                                       else render_jit)(*frames[i % N_FRAMES],
-                                                        c, acc),
-                      ("eager", "replayed"), N_PAIRED)
-        prof = {k: replay_profile(lambda: f(*frames[0], c, acc))
-                for k, f in (("eager", render), ("replayed", render_jit))}
-        log(f"render_jit {method}: bitwise render's on frames 0, 1, 0 "
-            f"{not bad}; graphs captured {cache.captures - captures}"
-            + (f", frame 0's bucket {bucket} for {live0} live entries; "
-               if method == "bin" else "; ")
-            + "; ".join(f"{k} frames {spread(v)}, profiled frame: device "
-                        f"busy {prof[k][0]:.3f} ms in {prof[k][1]} device "
-                        f"operations, {prof[k][2]} host operations, kernels "
-                        f"seen {prof[k][3]}" for k, v in ms.items())
-            + f" ({smi})")
-        if bad:
-            raise RuntimeError(f"render_jit {method} differs from render: "
-                               f"{bad}")
-        if cache.captures - captures != 1:
-            raise RuntimeError(f"render_jit {method} captured "
-                               f"{cache.captures - captures} graphs, not 1")
-        seen = prof["replayed"][3][kname]
-        if seen < 1:
-            raise RuntimeError(f"{kname} not seen inside the replayed "
-                               f"{method} frame")
-        out[kname] = {"serve_jit": seen}
+        note = (f", frame 0's bucket {bucket} for {live0} live entries"
+                if method == "bin" else "")
+        out[kname] = {"serve_jit": jit_frames(method, c, acc, kname, frames,
+                                              smi, note)}
 
     # growth: a camera moved nearer until its live count outgrows frame 0's
     # bucket; the frame is captured again at a larger one and stays bitwise
@@ -2082,68 +2210,220 @@ def run_jit(dev, headline_tv, frames, cfg, accel, ccfgs, target, smi):
         raise RuntimeError(f"growth failed: {bad}")
 
     # the compiled steps against the eager ones, from twin parameter sets
-    def train_set():
-        tris = Triangles.from_vertices(headline_tv, device=dev)
-        pose = Pose(from_axis_angle([0.0, 1.0, 0.0], math.radians(1.0),
-                                    device=dev), torch.zeros(3, device=dev))
-        cam = Camera.create(RES_W, RES_H, pos=[0.0, 0.0, -3.0],
-                            look_at=[0.0, 0.0, 0.0], up=[0.0, 1.0, 0.0],
-                            film_h=0.024, focal=0.055,
-                            device=dev).requires_grad_()
-        return {"scene": Scene([SceneObject(tris, pose)]), "camera": cam}
-
-    def leaves(p):
-        return [*p["scene"].parameters(), *p["camera"].parameters()]
-
-    sets = {"compiled": train_set(), "eager": train_set()}
-    makers = {"compiled": make_train_step_jit, "eager": make_train_step}
-    for kind in ("all-leaves", "pose/light/camera-only"):
-        if kind != "all-leaves":
-            for p in sets.values():
-                p["scene"].objects[0].tris.requires_grad_(False)
-                p["camera"].requires_grad_(False)
-                p["camera"].pos.requires_grad_(True)
-        opts = {k: torch.optim.SGD(
-            leaves(p) if kind == "all-leaves" else
-            [*p["scene"].objects[0].pose.parameters(),
-             *p["scene"].phong.parameters(), p["camera"].pos], lr=LR)
-            for k, p in sets.items()}
-        steps = {k: makers[k](opts[k], cfg) for k in sets}
-
-        def run(k, _i=0):
-            return steps[k](sets[k], target)
-        losses = {k: [float(run(k)) for _ in range(N_JIT_STEPS)]
-                  for k in sets}
-        same = all(torch.equal(a, b) for a, b in
-                   zip(leaves(sets["compiled"]), leaves(sets["eager"])))
-        ms = in_turns(run, ("eager", "compiled"), N_PAIRED // 2)
-        prof = {k: replay_profile(lambda: run(k)) for k in sets}
-        same_after = all(torch.equal(a, b) for a, b in
-                         zip(leaves(sets["compiled"]), leaves(sets["eager"])))
-        log(f"{kind} steps, compiled against eager: losses "
-            f"{losses['compiled']} / {losses['eager']}, parameters bitwise "
-            f"equal after {N_JIT_STEPS} steps {same}, after the timed and "
-            f"profiled ones {same_after}; "
-            + "; ".join(f"{k} steps {spread(v)}, profiled step: device busy "
-                        f"{prof[k][0]:.3f} ms in {prof[k][1]} device "
-                        f"operations, {prof[k][2]} host operations, kernels "
-                        f"seen {prof[k][3]}" for k, v in ms.items())
-            + f" ({smi})")
-        if not (same and same_after) or losses["compiled"] != losses["eager"]:
-            raise RuntimeError(f"the compiled {kind} step differs from the "
-                               "eager step")
-        seen = prof["compiled"][3]
-        k2_seen = seen["segment_sum"]
-        all_leaves = kind == "all-leaves"
-        if seen["bin_intersect"] < 1 or (k2_seen > 0) != all_leaves:
-            raise RuntimeError(f"the replayed {kind} step ran K1 "
-                               f"{seen['bin_intersect']} and K2 {k2_seen} "
-                               "times")
-        if all_leaves:
-            out["bin_intersect"]["train_jit"] = seen["bin_intersect"]
-            out["segment_sum"] = {"serve_jit": 0, "train_jit": k2_seen}
-        del steps, opts
+    seen = jit_steps(dev, headline_tv, cfg, None, "bin_intersect", target,
+                     smi)
+    out["bin_intersect"]["train_jit"] = seen["bin_intersect"]
+    out["segment_sum"] = {"serve_jit": 0, "train_jit": seen["segment_sum"]}
     return out
+
+
+def grid_mesh(n: int = 8) -> np.ndarray:
+    """A height field of n x n quads over [-1, 1]^2 whose vertices lie on
+    exact binary fractions (x = 0 and y = 0 among them), so that split
+    planes and box faces fall exactly on `axis_rays`, in front of a small
+    sphere."""
+    from cpp_cuda_raytracer_dev_torch.utils.procgen import uv_sphere
+    xs = np.linspace(-1.0, 1.0, n + 1)
+
+    def v(i, j):
+        return (xs[i], xs[j], 0.125 * ((i + 2 * j) % 3))
+    tv = []
+    for i in range(n):
+        for j in range(n):
+            tv.append([v(i, j), v(i + 1, j), v(i, j + 1)])
+            tv.append([v(i + 1, j + 1), v(i, j + 1), v(i + 1, j)])
+    sphere = uv_sphere(12, 12) * 0.5 + np.array([0.0, 0.0, -1.0])
+    return np.concatenate([np.asarray(tv, np.float32), sphere])
+
+
+def axis_rays(dtype, dev):
+    """Directions with a zero component ((0, s, 1), (s, 0, 1), the six
+    axes), normalised: on a box plane through the origin the slab test
+    meets 0 * inf = NaN."""
+    s = np.linspace(-0.4, 0.4, 33)
+    d = np.array([(0.0, v, 1.0) for v in s] + [(v, 0.0, 1.0) for v in s]
+                 + [(0, 0, 1), (1, 0, 0), (0, 1, 0), (-1, 0, 0), (0, -1, 0),
+                    (0, 0, -1), (0, 0.2, 0.9), (0.3, 0, 0.8)], np.float64)
+    return torch.tensor(d / np.linalg.norm(d, axis=1, keepdims=True),
+                        dtype=dtype, device=dev)
+
+
+def run_kd(dev, headline_tv, frames, idx_t, ref, target, smi, clock_mhz):
+    """Phase 16 (see the module docstring): K7 against its plain version,
+    timed with its bound; kd frames served through `render`, through
+    `render_jit`; the compiled kd steps; the compiled raster step, which
+    runs uncaptured. Returns K7's entry of the kernels line (with
+    ``k2_train_jit``, K2's instances in the replayed kd step, to move)."""
+    from cpp_cuda_raytracer_dev_torch import (Camera, RenderConfig,
+                                              Triangles, render)
+    from cpp_cuda_raytracer_dev_torch.accel.native import build_kd_fast
+    from cpp_cuda_raytracer_dev_torch.accel.traverse import (
+        KDTables, kd_intersect, kd_intersect_plain)
+    from cpp_cuda_raytracer_dev_torch.ops.cuda import kd_traverse as k7
+    from cpp_cuda_raytracer_dev_torch.ops.cuda.kd_traverse import \
+        kd_traverse_reference
+    from cpp_cuda_raytracer_dev_torch.parallel.render_pjit import (
+        make_train_step, make_train_step_jit)
+    from cpp_cuda_raytracer_dev_torch.utils.procgen import uv_sphere
+
+    def tables(tv, leaf, dtype=torch.float32):
+        tree = build_kd_fast(tv.min(axis=1), tv.max(axis=1), leaf)
+        return KDTables.from_tree(tree, Triangles.from_vertices(
+            tv, device=dev, dtype=dtype))
+
+    max_err = 0.0
+
+    def hold(name, o, d, tab, chunk=32768):
+        """K7 against the plain version on the same rays: t and ids
+        bitwise. Returns (K7's hit, the plain version's ms)."""
+        nonlocal max_err
+        launches = k7.kd_traverse.launches
+        got = kd_intersect(o, d, tab)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = kd_intersect_plain(o, d, tab, ray_chunk=chunk)
+        end.record()
+        torch.cuda.synchronize()
+        t_eq, tri_eq = torch.equal(got.t, want.t), torch.equal(got.tri,
+                                                               want.tri)
+        err = float((got.t - want.t).abs().max())
+        max_err = max(max_err, err)
+        log(f"K7 vs plain [{name}]: rays {d.shape[0]} depth "
+            f"{tab.max_depth} widest leaf {tab.max_leaf} t_bitwise_equal "
+            f"{t_eq} tri_equal {tri_eq} max_abs_err {err} hit_rate "
+            f"{float((got.tri >= 0).float().mean()):.6f}")
+        if not (t_eq and tri_eq and torch.equal(got.obj, want.obj)):
+            raise RuntimeError(f"K7 and its plain version disagree on {name}")
+        if k7.kd_traverse.launches != launches + 1:
+            raise RuntimeError("kd_intersect did not launch K7 once")
+        return got, start.elapsed_time(end)
+
+    sphere = uv_sphere(50, 50)
+    for dtype in (torch.float32, torch.float64):
+        cam = Camera.create(96, 64, pos=[0.0, 0.0, -3.0],
+                            look_at=[0.0, 0.0, 0.0], up=[0.0, 1.0, 0.0],
+                            film_h=0.024, focal=0.055, device=dev,
+                            dtype=dtype)
+        with torch.no_grad():
+            o, d = cam.pos.detach().clone(), cam.ray_directions()
+        for name, tv in (("sphere", sphere),
+                         ("duplicated-triangle ties",
+                          np.concatenate([sphere, sphere]))):
+            for leaf in (1, 8, 128):
+                hold(f"{name} 96x64 leaf {leaf} {dtype}", o, d,
+                     tables(tv, leaf, dtype))
+        grid = grid_mesh()
+        for leaf in (1, 4, 128):
+            tab = tables(grid, leaf, dtype)
+            for pos in ((0.0, 0.0, -3.0), (0.25, -0.5, -2.0)):
+                hold(f"axis-aligned rays from {pos} leaf {leaf} {dtype}",
+                     torch.tensor(pos, dtype=dtype, device=dev),
+                     axis_rays(dtype, dev), tab)
+
+    # headline frame 0 at 960x540, leaf 128: every ray
+    t0 = time.perf_counter()
+    kd_tab = tables(headline_tv, KD_LEAF)
+    build_s = time.perf_counter() - t0
+    scene, cam = frames[0]
+    obj = scene.objects[0]
+    with torch.no_grad():
+        o = obj.pose.inv_apply(cam.pos)
+        d = obj.pose.inv_apply_vec(cam.ray_directions())
+    log(f"headline KD tables: leaf {KD_LEAF}, {kd_tab.node_link.shape[0]} "
+        f"nodes, depth {kd_tab.max_depth}, widest leaf {kd_tab.max_leaf}, "
+        f"built in {build_s:.2f} s")
+    hit, plain_ms = hold(f"headline frame 0 {RES_W}x{RES_H} leaf {KD_LEAF}, "
+                         f"all {d.shape[0]} rays, the plain version in runs "
+                         f"of {KD_PLAIN_CHUNK}", o, d, kd_tab, KD_PLAIN_CHUNK)
+    counts = {}
+    kd_traverse_reference(o, d, kd_tab, RenderConfig().draw_distance,
+                          RenderConfig().eps, KD_PLAIN_CHUNK, counts)
+    slab_tests, mt_pairs = (int(counts["slab_tests"]),
+                            int(counts["mt_pairs"]))
+    k7_ms = cuda_ms(lambda: kd_intersect(o, d, kd_tab), KERNEL_REPS)
+    n_nodes, n_tris = kd_tab.node_link.shape[0], kd_tab.perm.shape[0]
+    k7_bytes = (d.numel() * 4 + 12 + d.shape[0] * 8 + n_nodes * 48
+                + n_tris * 40)
+    bound = op_bounds(slab_tests * K7_OPS_PER_NODE
+                      + mt_pairs * K7_OPS_PER_PAIR, k7_bytes, clock_mhz)
+    log(f"K7 at the headline shapes ({d.shape[0]} rays, {n_tris} triangles, "
+        f"leaf {KD_LEAF}): kernel {k7_ms:.4f} ms, plain {plain_ms:.4f} ms "
+        f"(once, the bitwise run); {slab_tests} (ray, internal node) slab "
+        f"tests at {K7_OPS_PER_NODE} operations, {mt_pairs} (ray, slot) MT "
+        f"pairs at {K7_OPS_PER_PAIR}, {mt_pairs / d.shape[0]:.1f} pairs a "
+        f"ray; {bound['text']} ({smi})")
+
+    # kd frames through render, the counter from 0 (the main path)
+    kcfg = RenderConfig(method="kd")
+    acc = (kd_tab,)
+    k7.kd_traverse.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    frame_ms, outs = [], []
+    for f in frames:
+        start.record()
+        outs.append(render(*f, kcfg, acc))
+        end.record()
+        torch.cuda.synchronize()
+        frame_ms.append(start.elapsed_time(end))
+    serve = k7.kd_traverse.launches
+    got_tri = outs[0].hit_tri.reshape(-1)[idx_t]
+    agree = float((got_tri == ref.tri).float().mean())
+    same0 = torch.equal(outs[0].hit_tri.reshape(-1), hit.tri)
+    log(f"kd frames through render: {spread(frame_ms)}; K7 launches "
+        f"{serve} for {len(frames)} frames; frame 0's ids those of the "
+        f"bitwise run {same0}; oracle agreement {agree:.6f} on {N_SAMPLE} "
+        f"rays ({smi})")
+    for i, out in enumerate(outs):
+        for fld in ("radiance", "hit_t", "normal", "point"):
+            if not bool(torch.isfinite(getattr(out, fld)).all()):
+                raise RuntimeError(f"kd frame {i}: non-finite {fld}")
+    if serve < len(frames) or agree < MIN_AGREE or not same0:
+        raise RuntimeError("kd frames: K7 not launched a frame, or wrong hits")
+    del outs
+
+    serve_jit = jit_frames("kd", kcfg, acc, "kd_traverse", frames, smi)
+    seen = jit_steps(dev, headline_tv, kcfg, acc, "kd_traverse", target, smi)
+
+    # raster: make_train_step_jit runs it uncaptured, as make_train_step
+    rcfg = RenderConfig(method="raster")
+    sets = {"compiled": train_set(dev, headline_tv),
+            "eager": train_set(dev, headline_tv)}
+    losses, names = {}, {}
+    for kind, make in (("compiled", make_train_step_jit),
+                       ("eager", make_train_step)):
+        p = sets[kind]
+        step = make(torch.optim.SGD([*p["scene"].parameters(),
+                                     *p["camera"].parameters()], lr=LR), rcfg)
+        names[kind] = step.__qualname__
+        losses[kind] = [float(step(p, target)) for _ in range(N_RASTER_STEPS)]
+    same = all(torch.equal(a, b) for a, b in zip(
+        [*sets["compiled"]["scene"].parameters(),
+         *sets["compiled"]["camera"].parameters()],
+        [*sets["eager"]["scene"].parameters(),
+         *sets["eager"]["camera"].parameters()]))
+    log(f"raster steps through make_train_step_jit ({names['compiled']}) "
+        f"and make_train_step ({names['eager']}): losses "
+        f"{losses['compiled']} / {losses['eager']}, parameters bitwise equal "
+        f"after {N_RASTER_STEPS} steps {same}")
+    if not same or losses["compiled"] != losses["eager"] \
+            or names["compiled"] != names["eager"]:
+        raise RuntimeError("the compiled raster step is not the eager step")
+    del sets
+
+    return {"name": "kd_traverse", "route": "cuda",
+            "source": "cpp_cuda_raytracer_dev_torch/csrc/kd_traverse.cu",
+            "replaces": "cpp_cuda_raytracer_dev_tpu/accel/traverse.py:876",
+            "launches": serve, "max_abs_err": max_err, "ms": k7_ms,
+            "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"], "library_ms": None,
+            "bound_issue_ms": bound["bound_issue_ms"],
+            "slab_tests": slab_tests, "mt_pairs": mt_pairs,
+            "launches_by_path": {"serve": serve, "serve_jit": serve_jit,
+                                 "train_jit": seen["kd_traverse"]},
+            "k2_train_jit": seen["segment_sum"]}
 
 
 def write_ply(path, tv: np.ndarray) -> None:
@@ -2188,7 +2468,8 @@ def read_png(path) -> np.ndarray:
 
 def run_entry_points(dev, headline_tv, smi):
     """Phase 11 (see the module docstring): the apps on the headline mesh,
-    written to a PLY file."""
+    written to a PLY file. Returns {method: its kernel's launches in
+    ``render_cli``}."""
     import contextlib
     from pathlib import Path
 
@@ -2198,6 +2479,7 @@ def run_entry_points(dev, headline_tv, smi):
     from cpp_cuda_raytracer_dev_torch.models.renderer import trace_rays
     from cpp_cuda_raytracer_dev_torch.ops.cuda import bin_intersect as k1
     from cpp_cuda_raytracer_dev_torch.ops.cuda import bin_tile_intersect as bt
+    from cpp_cuda_raytracer_dev_torch.ops.cuda import kd_traverse as k7
     from cpp_cuda_raytracer_dev_torch.ops.cuda import segment_sum as k2
     from cpp_cuda_raytracer_dev_torch.ops.cuda import tile_intersect as k45
 
@@ -2210,7 +2492,7 @@ def run_entry_points(dev, headline_tv, smi):
         f"{time.perf_counter() - t0:.2f} s")
     counters = {"K1": k1.bin_intersect, "K2": k2.segment_sum,
                 "K4": k45.tile_intersect_v2, "K5": k45.tile_intersect,
-                "K6": bt.bin_tile_intersect}
+                "K6": bt.bin_tile_intersect, "K7": k7.kd_traverse}
 
     # the apps' camera (render_cli.py): framed on the mesh's bounding box
     v = headline_tv.reshape(-1, 3)
@@ -2220,9 +2502,10 @@ def run_entry_points(dev, headline_tv, smi):
                                                        device=dev))])
     oracle_cfg = RenderConfig(method="fixed", chunk=16384,
                               draw_distance=max(400.0, 10 * size))
-    kernel_of = {"bin": "K1", "pallas2": "K4", "kd": None}
-    for method, (w, h) in (("bin", (RES_W, RES_H)),
-                           ("pallas2", (RES_W, RES_H)), ("kd", KD_RES)):
+    kernel_of = {"bin": "K1", "pallas2": "K4", "kd": "K7"}
+    cli_launches = {}
+    w, h = RES_W, RES_H
+    for method in kernel_of:
         png = out_dir / f"render_cli_{method}.png"
         for fn in counters.values():
             fn.launches = 0
@@ -2250,10 +2533,11 @@ def run_entry_points(dev, headline_tv, smi):
             f"{float(orc_hit.mean()):.6f} on {N_SAMPLE} rays, hit/miss "
             f"agreement {agree:.6f}; launches {launched} ({smi})")
         want = kernel_of[method]
+        cli_launches[method] = launched[want]
         if agree < MIN_AGREE:
             raise RuntimeError(f"render_cli {method}: PNG and oracle agree on "
                                f"{agree}")
-        if want is not None and launched[want] < 1:
+        if launched[want] < 1:
             raise RuntimeError(f"render_cli {method} did not launch {want}")
 
     # animate: the key script on two objects sharing one Triangles
@@ -2285,6 +2569,7 @@ def run_entry_points(dev, headline_tv, smi):
             or k1_launches < 2 or seen < 2 * N_ANIMATE_TICKS):
         raise RuntimeError("animate did not render its ticks through K1 "
                            "twice a frame")
+    return cli_launches
 
 
 if __name__ == "__main__":

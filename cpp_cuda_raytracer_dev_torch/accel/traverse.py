@@ -19,8 +19,9 @@ Bin path (``method="bin"``): per-tile ray table, screen-space binning, the
 bin-intersect kernel K1, and back to image order.
 
 KD path (``method="kd"``): `KDTables`, the flattened KD tree, and
-`kd_intersect`, the reference's per-ray stack traversal run in lockstep over
-all rays in plain PyTorch: a validation path, with no kernel of its own.
+`kd_intersect`, the reference's per-ray stack traversal: kernel K7 on the
+card (one thread a ray), its plain version `kd_intersect_plain` (in
+lockstep over all rays) on the CPU.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch
 
 from ..ops import vecmath
 from ..ops.cuda.bin_intersect import bin_intersect
+from ..ops.cuda.kd_traverse import kd_traverse, kd_traverse_reference
 from ..ops.cuda.tile_intersect import tile_intersect, tile_intersect_v2
 from ..ops.intersect import Hit, mt_test
 from .binning import BinnedScene, bin_triangles
@@ -615,6 +617,9 @@ class KDTables:
     e1: torch.Tensor           # (T, 3)
     e2: torch.Tensor           # (T, 3)
     perm: torch.Tensor         # (T,) int32 original triangle ids
+    node_box: torch.Tensor     # (N, 8) float32 (bmin, s1, bmax, s2): K7's
+    node_link: torch.Tensor    # (N, 4) int32 (-1, leaf_start, leaf_count, 0)
+    #                            at a leaf, (axis, left, right, 0) elsewhere
     max_depth: int
     max_leaf: int
 
@@ -628,6 +633,14 @@ class KDTables:
 
         def t(x, dtype=None):
             return torch.from_numpy(np.ascontiguousarray(x)).to(dev, dtype)
+        leaf = np.asarray(tree.is_leaf)
+        zero = np.zeros(leaf.shape, np.int64)
+        link = np.stack([np.where(leaf, -1, tree.cut_code % 3),
+                         np.where(leaf, tree.leaf_start, tree.left),
+                         np.where(leaf, tree.leaf_count, tree.right), zero],
+                        axis=1)
+        box = np.concatenate([tree.bounds_min, tree.s1[:, None],
+                              tree.bounds_max, tree.s2[:, None]], axis=1)
         return cls(bounds_min=t(tree.bounds_min),
                    bounds_max=t(tree.bounds_max),
                    axis=t(tree.cut_code % 3, torch.int64), s1=t(tree.s1),
@@ -636,99 +649,35 @@ class KDTables:
                    leaf_start=t(tree.leaf_start, torch.int64),
                    leaf_count=t(tree.leaf_count, torch.int64),
                    p1=tris.p1[perm], e1=tris.e1[perm], e2=tris.e2[perm],
-                   perm=perm.to(torch.int32), max_depth=int(tree.max_depth),
+                   perm=perm.to(torch.int32),
+                   node_box=t(box, torch.float32),
+                   node_link=t(link, torch.int32),
+                   max_depth=int(tree.max_depth),
                    max_leaf=int(tree.leaf_count.max()))
 
 
-@torch.no_grad()
 def kd_intersect(o: torch.Tensor, d: torch.Tensor, tables: KDTables,
                  draw_distance: float = DEFAULT_DRAW_DISTANCE,
                  eps: float = MT_EPSILON, ray_chunk: int = 32768) -> Hit:
-    """The reference's stack traversal, in lockstep over rays.
+    """The nearest hit of each ray over the KD tree, the reference's stack
+    traversal (Trixel.cu:41-172): on CUDA tensors kernel K7
+    (``ops/cuda/kd_traverse.py``, one thread a ray, its own stack; no host
+    read, so `render_jit` and `make_train_step_jit` capture it), on CPU
+    tensors `kd_intersect_plain`. The two agree bit for bit in t and ids.
+    ``ray_chunk`` is the plain version's (it changes no result)."""
+    t, tri = kd_traverse(o, d, tables, draw_distance, eps, ray_chunk)
+    return Hit(t=t, tri=tri, obj=torch.where(tri >= 0, 0, -1).to(torch.int32))
 
-    Per step each ray with a non-empty stack pops a node and slab-tests it
-    (Trixel.cu:76-95); at a leaf it intersects the leaf's triangles
-    (Trixel.cu:98-145), the lowest slot winning at the leaf's minimum t and
-    the best changing only on a strictly smaller t; at an internal node it
-    pushes the children by the s1/s2 split-plane rule (Trixel.cu:146-169),
-    the far one first. It runs until every stack is empty. Rays go in runs
-    of ``ray_chunk`` (0: all at once), which bound the per-ray state; the
-    runs change no result.
-    """
-    num_r = d.shape[0]
-    if ray_chunk and num_r > ray_chunk:
-        hits = [kd_intersect(o, d[i:i + ray_chunk], tables, draw_distance,
-                             eps, ray_chunk=0)
-                for i in range(0, num_r, ray_chunk)]
-        return Hit(t=torch.cat([h.t for h in hits]),
-                   tri=torch.cat([h.tri for h in hits]),
-                   obj=torch.cat([h.obj for h in hits]))
-    dev = d.device
-    depth = tables.max_depth + 2
-    lmax = tables.max_leaf
-    rows = torch.arange(num_r, device=dev)
-    lanes = torch.arange(lmax, device=dev)
-    stack = torch.zeros((num_r, depth), dtype=torch.int64, device=dev)
-    sp = torch.zeros((num_r,), dtype=torch.int64, device=dev)  # root at 0
-    best_t = torch.full((num_r,), draw_distance, dtype=d.dtype, device=dev)
-    best_tri = torch.full((num_r,), -1, dtype=torch.int32, device=dev)
-    inv_d = torch.reciprocal(d)
 
-    while bool((sp >= 0).any()):
-        active = sp >= 0
-        node = stack[rows, sp.clamp_min(0)]
-        node = torch.where(active, node, 0)
-        sp = torch.where(active, sp - 1, sp)
-
-        t0 = (tables.bounds_min[node] - o) * inv_d
-        t1 = (tables.bounds_max[node] - o) * inv_d
-        t_entry = torch.minimum(t0, t1).amax(dim=-1)
-        t_exit = torch.maximum(t0, t1).amin(dim=-1)
-        # Trixel.cu:146: mint1 >= maxt0 - eps && maxt0 > -eps
-        box_hit = ((t_exit >= t_entry - SLAB_EPSILON)
-                   & (t_entry > -SLAB_EPSILON))
-
-        leaf = tables.is_leaf[node]
-        # leaf: MT over the leaf's (padded) triangle range, for the rays
-        # that popped a leaf only
-        lr = torch.nonzero(active & leaf).squeeze(1)
-        ln = node[lr]
-        in_leaf = lanes < tables.leaf_count[ln][:, None]
-        slot = torch.where(in_leaf, tables.leaf_start[ln][:, None] + lanes,
-                           0)                                 # (n, lmax)
-        t_mt, _, _, ok = mt_test(o, d[lr, None, :], tables.p1[slot],
-                                 tables.e1[slot], tables.e2[slot], eps)
-        t_mt = torch.where(in_leaf & ok, t_mt, torch.inf)
-        tmin = t_mt.amin(dim=1)
-        amin = torch.where(t_mt == tmin[:, None], lanes, lmax).amin(dim=1)
-        tri = tables.perm[slot.gather(1, amin.clamp_max(lmax - 1)[:, None])
-                          [:, 0]]
-        better = tmin < best_t[lr]
-        best_t[lr] = torch.where(better, tmin, best_t[lr])
-        best_tri[lr] = torch.where(better, tri, best_tri[lr])
-
-        # internal: push children near-to-far (reference s1/s2 rule)
-        axis = tables.axis[node]
-        d_ax = d.gather(1, axis[:, None])[:, 0]
-        o_ax = o[axis]
-        c_entry = o_ax + t_entry * d_ax
-        c_exit = o_ax + t_exit * d_ax
-        s1 = tables.s1[node] + SLAB_EPSILON
-        s2 = tables.s2[node]
-        go_left_first = c_entry < s2 + SLAB_EPSILON           # Trixel.cu:155
-        also_right = c_exit > s2 - SLAB_EPSILON               # Trixel.cu:156
-        also_left = (c_exit < s1) | (c_entry < s1)            # Trixel.cu:163
-
-        expand = active & box_hit & ~leaf
-        # the far child first, the near child last (popped first)
-        lchild, rchild = tables.left[node], tables.right[node]
-        far = torch.where(go_left_first, rchild, lchild)
-        near = torch.where(go_left_first, lchild, rchild)
-        for push, child in ((expand & torch.where(go_left_first, also_right,
-                                                  also_left), far),
-                            (expand, near)):
-            sp = torch.where(push, sp + 1, sp)
-            at = sp.clamp(0, depth - 1)
-            stack[rows, at] = torch.where(push, child, stack[rows, at])
-    return Hit(t=best_t, tri=best_tri,
-               obj=torch.where(best_tri >= 0, 0, -1).to(torch.int32))
+def kd_intersect_plain(o: torch.Tensor, d: torch.Tensor, tables: KDTables,
+                       draw_distance: float = DEFAULT_DRAW_DISTANCE,
+                       eps: float = MT_EPSILON, ray_chunk: int = 32768
+                       ) -> Hit:
+    """`kd_intersect` by the plain PyTorch version on any device: the
+    traversal in lockstep over rays, a host read a step
+    (``ops/cuda/kd_traverse.py`` `kd_traverse_reference`), in runs of
+    ``ray_chunk`` rays (0: all at once), which change no result. K7's
+    oracle."""
+    t, tri = kd_traverse_reference(o, d, tables, draw_distance, eps,
+                                   ray_chunk)
+    return Hit(t=t, tri=tri, obj=torch.where(tri >= 0, 0, -1).to(torch.int32))

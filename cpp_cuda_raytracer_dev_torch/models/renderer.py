@@ -34,9 +34,9 @@ _ACCEL_METHODS = {"grid": "ClusterAccel", "pallas": "ClusterAccel",
 # pallas2) or raster's bitcast of t to int32 (as in the JAX package)
 _FLOAT32_METHODS = ("bin", "grid", "pallas", "pallas2", "raster")
 _PROJ_METHODS = ("bin", "raster")
-# render_jit runs these uncaptured: kd loops on a host read, raster sizes
-# its dense list from the live count (ROADMAP queue 1)
-_UNCAPTURED = ("kd", "raster")
+# render_jit and make_train_step_jit run these uncaptured: raster sizes its
+# dense list from the live count (ROADMAP queue 1)
+_UNCAPTURED = ("raster",)
 
 
 @dataclasses.dataclass
@@ -261,8 +261,9 @@ def render(scene: Scene, camera: Camera,
 
 
 def jit_captures(config: RenderConfig) -> bool:
-    """Whether `render_jit` captures ``config.method`` on CUDA (every
-    method but "kd" and "raster")."""
+    """Whether `render_jit` and `make_train_step_jit` capture
+    ``config.method`` on CUDA (every method but "raster"; "kd" since its
+    traversal is kernel K7, with no host read)."""
     return config.method not in _UNCAPTURED
 
 
@@ -296,10 +297,10 @@ def render_jit(scene: Scene, camera: Camera,
     (`utils/graphs.py`): the frame's only host read is the live count after
     the replay, and a frame that outgrew its bucket is captured again at a
     larger one and replayed, so nothing is dropped. Every other method makes
-    no host read. "kd" (a traversal that loops on a host read) and "raster"
-    (a dense list sized from the live count) are not captured: they run as
-    `render` does (`jit_captures` says which). A capture that fails raises;
-    nothing falls back to the uncaptured frame.
+    no host read; "kd" replays its traversal kernel K7 inside the graph.
+    "raster" (a dense list sized from the live count) is not captured: it
+    runs as `render` does (`jit_captures` says which). A capture that fails
+    raises; nothing falls back to the uncaptured frame.
 
     On the CPU there is no graph: the frame runs as `render`'s, with the
     bin tables at the bucket and the same growth check.

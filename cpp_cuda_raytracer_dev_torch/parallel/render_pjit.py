@@ -50,7 +50,7 @@ import torch.distributed as dist
 
 from ..models.camera import Camera
 from ..accel.binning import bin_budget
-from ..models.renderer import (RenderOutput, bin_entry_count,
+from ..models.renderer import (RenderOutput, bin_entry_count, jit_captures,
                                render_differentiable, render_rays,
                                shade_and_compose, trace_rays)
 from ..models.scene import Scene
@@ -415,8 +415,9 @@ def make_train_step_jit(optimizer: torch.optim.Optimizer,
     On CUDA a step replays two captured graphs (utils/graphs.py):
     - G1: the gradients set to None before its capture, so that they come
       from the graph's memory pool and every replay writes them anew; the
-      forward, the loss and the backward (kernels K1 and K2 inside it).
-      Method "bin" sizes its tables at a bucket of the live entry count.
+      forward, the loss and the backward (the method's kernel, K1 for "bin"
+      or K7 for "kd", and K2 inside it). Method "bin" sizes its tables at
+      a bucket of the live entry count.
     - Between the graphs the host reads the live count; a step whose count
       outgrew its bucket is captured again at a larger one and replayed
       before any parameter changes, so a truncated table never reaches the
@@ -429,10 +430,13 @@ def make_train_step_jit(optimizer: torch.optim.Optimizer,
     another shape, captures anew (one pair of graphs is kept).
 
     The optimizer must capture (`_check_capturable`: SGD without momentum,
-    or ``capturable=True``). On the CPU there are no graphs: the step runs
-    as `make_train_step`'s, with the bin tables at the bucket and the same
-    growth check. A mesh raises ``NotImplementedError`` (ROADMAP queue 1,
-    capture of the sharded paths).
+    or ``capturable=True``). A method that `render_jit` does not capture
+    (`jit_captures`: "raster", whose dense list is sized by a host read) is
+    not captured here either: its step is `make_train_step`'s, uncaptured.
+    On the CPU there are no graphs: the step runs as `make_train_step`'s,
+    with the bin tables at the bucket and the same growth check. A mesh
+    raises ``NotImplementedError`` (ROADMAP queue 1, capture of the sharded
+    paths).
     """
     if mesh is not None:
         raise NotImplementedError(
@@ -441,6 +445,8 @@ def make_train_step_jit(optimizer: torch.optim.Optimizer,
             "(the sharded paths); use make_train_step(optimizer, config, "
             "mesh)")
     _check_capturable(optimizer)
+    if not jit_captures(config):
+        return make_train_step(optimizer, config, None, accel)
     loss_fn = make_loss_fn(config, None, accel)
     state = {"key": None, "cache": None, "g1": None, "g2": None}
 

@@ -30,7 +30,7 @@ class RenderConfig:
     # "bin" (screen-space binning + the bin-intersect kernel K1), or a
     # cluster path over a ClusterAccel: "grid" (plain PyTorch), "pallas"
     # (kernel K5) or "pallas2" (kernel K4); "kd", the reference's per-ray
-    # stack traversal over `KDTables` (a validation path, no kernel); or
+    # stack traversal over `KDTables` (kernel K7 on the card); or
     # "raster", scatter-min rasterization (accel/raster.py, plain PyTorch).
     method: str = "fixed"
     # Triangle chunk for the brute paths (bounds rays x chunk memory).

@@ -158,9 +158,8 @@ def test_undersized_bucket_is_caught_and_redone(monkeypatch):
 
 def test_uncaptured_methods_are_named():
     assert all(jit_captures(P.RenderConfig(method=m)) for m in
-               ("bin", "pallas2", "pallas", "grid", "brute", "fixed"))
-    assert not any(jit_captures(P.RenderConfig(method=m)) for m in
-                   ("kd", "raster"))
+               ("bin", "pallas2", "pallas", "grid", "brute", "fixed", "kd"))
+    assert not jit_captures(P.RenderConfig(method="raster"))
 
 
 @pytest.fixture(scope="module")
