@@ -158,23 +158,28 @@ Phases (any failure raises and the process exits non-zero):
      seen in the replayed step, step ms in turns. A capture that fails
      fails the run: nothing falls back to the eager frame;
  16. the KD path: the KD traversal kernel K7 against its plain version
-     (``kd_intersect_plain``), t and ids bitwise, on a 96x64 sphere and a
-     sphere whose every triangle is there twice (every hit an exact tie) at
-     leaf sizes 1, 8 and 128, and on axis-aligned rays through the split
-     planes of a height field on exact binary fractions (a zero direction
-     component on a box plane: NaN in the slab test) at leaf sizes 1, 4
-     and 128, each in float32 and float64; then on headline frame 0 at
-     960x540, leaf 128, every ray (the plain version in runs of
-     ``KD_PLAIN_CHUNK``, timed once); K7 timed with CUDA events; the
-     (ray, internal node) slab tests and (ray, slot) pairs the plain run
-     counts give its bound; 8 kd frames through ``render`` after resetting
-     K7's counter, which must show them, frame 0's ids those of the
-     bitwise run and agreement with phase 4's oracle rays >= 0.999;
-     ``render_jit`` kd frames 0, 1, 0 bitwise ``render``'s, one graph, K7
-     seen in the replay, eager and replayed frames in turns; the compiled
-     kd all-leaves and pose/light/camera-only steps bitwise the eager
-     ones, as phase 15's; ``make_train_step_jit`` with raster, which runs
-     uncaptured (``make_train_step``'s step), ``N_RASTER_STEPS`` steps
+     (``kd_intersect_plain``, with the near-first exit), t and ids
+     bitwise, and K7 with the exit switched off against the walk without
+     it (``near_first=False``), and the two walks against each other, on a
+     96x64 sphere and a sphere whose every triangle is there twice (every
+     hit an exact tie) at leaf sizes 1, 8 and 128, and on axis-aligned rays
+     through the split planes of a height field on exact binary fractions
+     (a zero direction component on a box plane: NaN in the slab test) at
+     leaf sizes 1, 4 and 128, each in float32 and float64; then on headline
+     frame 0 at 960x540, leaf 128, every ray, in float32 and (the same rays
+     widened) float64 (the plain version in runs of ``KD_PLAIN_CHUNK``,
+     timed once); K7 timed with CUDA events in both; the slab tests, MT
+     pairs and skipped pops that the plain walks count, with and without
+     the exit, give its bounds (float64 at the FP64 rate); each design
+     lever switched against the design (off where the design has it, on
+     where it does not), in turns, in both dtypes; 8 kd frames through
+     ``render`` after resetting K7's counter, which must show them, frame
+     0's ids those of the bitwise run and agreement with phase 4's oracle
+     rays >= 0.999; ``render_jit`` kd frames 0, 1, 0 bitwise ``render``'s,
+     one graph, K7 seen in the replay, eager and replayed frames in turns;
+     the compiled kd all-leaves and pose/light/camera-only steps bitwise the
+     eager ones, as phase 15's; ``make_train_step_jit`` with raster, which
+     runs uncaptured (``make_train_step``'s step), ``N_RASTER_STEPS`` steps
      bitwise the eager ones.
 A differing id passes as a tie when both triangles' t, by the oracle's
 constants, lie within 1e-5 of the oracle's t. Each phase prints its seconds.
@@ -215,6 +220,7 @@ N_PAIRED = 8                   # frames or steps of each kind, in turns
 LR = 1e-4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 N_SMS, FP32_LANES = 132, 128   # per SM; FMA peak = SMs x lanes x 2 x clock
+FP64_LANES = 64                # per SM (H100 SXM data sheet: 34 TFLOP/s FP64)
 K1_OPS_PER_PAIR = 29           # csrc/bin_intersect.cu, "Bound"
 K1_OPS_PER_ACCEPTED = 3        # K1's select and division, accepted pairs
 K4_OPS_PER_PAIR = 29           # csrc/tile_intersect.cu, "Bound"
@@ -226,6 +232,8 @@ KD_LEAF = 128                  # render_cli's default leaf size
 KD_PLAIN_CHUNK = 131072        # rays a run of K7's plain version
 K7_OPS_PER_NODE = 36           # csrc/kd_traverse.cu, "Bound"
 K7_OPS_PER_PAIR = 54
+K7_LEVER_ROUNDS = 4            # rounds of K7's levers in turns (ABBA)
+K7_LEVER_REPS = 5              # launches a timed sample
 N_RASTER_STEPS = 2             # uncaptured compiled raster steps vs eager
 N_ANIMATE_TICKS = 30
 BACKGROUND = (240, 130, 0)
@@ -318,13 +326,15 @@ def replay_profile(fn):
             sum(a.count for a in on_dev), host, seen, graphs)
 
 
-def op_bounds(n_ops: int, n_bytes: int, clock_mhz: float) -> dict:
+def op_bounds(n_ops: int, n_bytes: int, clock_mhz: float,
+              lanes: int = FP32_LANES) -> dict:
     """A kernel's least time on the card: the larger of its bytes over the
-    memory rate and its FP32 operations over the FMA peak (``bound_ms``,
-    2 operations a lane a clock) or over the issue rate at one instruction
+    memory rate and its operations over the FMA peak (``bound_ms``, 2
+    operations a lane a clock) or over the issue rate at one instruction
     an operation (``bound_issue_ms``: the kernels are built with
-    -fmad=false, so no multiply and add fuse)."""
-    issue_ms = n_ops / (N_SMS * FP32_LANES * clock_mhz * 1e6) * 1e3
+    -fmad=false, so no multiply and add fuse); ``lanes`` an SM:
+    `FP32_LANES`, or `FP64_LANES` for float64 operations."""
+    issue_ms = n_ops / (N_SMS * lanes * clock_mhz * 1e6) * 1e3
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     fma_ms = issue_ms / 2
     return {"bound_ms": max(fma_ms, bytes_ms),
@@ -333,8 +343,8 @@ def op_bounds(n_ops: int, n_bytes: int, clock_mhz: float) -> dict:
             "text": f"bound {max(fma_ms, bytes_ms):.4f} ms at the FMA peak, "
                     f"{max(issue_ms, bytes_ms):.4f} ms at one instruction "
                     f"an operation (operations {fma_ms:.4f} / {issue_ms:.4f} "
-                    f"ms at {clock_mhz} MHz, bytes {bytes_ms:.4f} ms, "
-                    f"{n_bytes} bytes)"}
+                    f"ms at {lanes} lanes an SM and {clock_mhz} MHz, bytes "
+                    f"{bytes_ms:.4f} ms, {n_bytes} bytes)"}
 
 
 def check_ties(name_a, tri_a, name_b, tri_b, rays, o, tris, cfg) -> None:
@@ -2266,39 +2276,82 @@ def run_kd(dev, headline_tv, frames, idx_t, ref, target, smi, clock_mhz):
         make_train_step, make_train_step_jit)
     from cpp_cuda_raytracer_dev_torch.utils.procgen import uv_sphere
 
-    def tables(tv, leaf, dtype=torch.float32):
-        tree = build_kd_fast(tv.min(axis=1), tv.max(axis=1), leaf)
+    def tables(tv, leaf, dtype=torch.float32, tree=None):
+        if tree is None:
+            tree = build_kd_fast(tv.min(axis=1), tv.max(axis=1), leaf)
         return KDTables.from_tree(tree, Triangles.from_vertices(
             tv, device=dev, dtype=dtype))
 
+    draw, eps = RenderConfig().draw_distance, RenderConfig().eps
+    no_exit = k7.DESIGN & ~k7.LEVERS["near_first"]
     max_err = 0.0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
 
-    def hold(name, o, d, tab, chunk=32768):
-        """K7 against the plain version on the same rays: t and ids
-        bitwise. Returns (K7's hit, the plain version's ms)."""
+    def hold(name, o, d, tab, width=0, chunk=32768):
+        """K7 against the plain version on the same rays, t, ids and object
+        ids bitwise: the design (`kd_intersect`) against the near-first
+        walk, K7 with the exit switched off against the walk without it,
+        and the two walks against each other (the exit's exactness).
+        Returns (K7's hit, the near-first plain version's ms)."""
         nonlocal max_err
         launches = k7.kd_traverse.launches
-        got = kd_intersect(o, d, tab)
+        got = kd_intersect(o, d, tab, width=width)
         torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+        if k7.kd_traverse.launches != launches + 1:
+            raise RuntimeError("kd_intersect did not launch K7 once")
+        t_off, tri_off = k7._launch(o, d, tab, draw, eps, width, no_exit)
         start.record()
         want = kd_intersect_plain(o, d, tab, ray_chunk=chunk)
         end.record()
         torch.cuda.synchronize()
-        t_eq, tri_eq = torch.equal(got.t, want.t), torch.equal(got.tri,
-                                                               want.tri)
-        err = float((got.t - want.t).abs().max())
+        old = kd_intersect_plain(o, d, tab, ray_chunk=chunk, near_first=False)
+        same = {"K7": torch.equal(got.t, want.t)
+                and torch.equal(got.tri, want.tri)
+                and torch.equal(got.obj, want.obj),
+                "K7 without the exit": torch.equal(t_off, old.t)
+                and torch.equal(tri_off, old.tri),
+                "the walks": torch.equal(want.t, old.t)
+                and torch.equal(want.tri, old.tri)}
+        err = max(float((got.t - want.t).abs().max()),
+                  float((t_off - old.t).abs().max()))
         max_err = max(max_err, err)
         log(f"K7 vs plain [{name}]: rays {d.shape[0]} depth "
-            f"{tab.max_depth} widest leaf {tab.max_leaf} t_bitwise_equal "
-            f"{t_eq} tri_equal {tri_eq} max_abs_err {err} hit_rate "
+            f"{tab.max_depth} widest leaf {tab.max_leaf}; bitwise: K7 and "
+            f"the near-first walk {same['K7']}, K7 without the exit and the "
+            f"walk without it {same['K7 without the exit']}, the two walks "
+            f"{same['the walks']}; max_abs_err {err} hit_rate "
             f"{float((got.tri >= 0).float().mean()):.6f}")
-        if not (t_eq and tri_eq and torch.equal(got.obj, want.obj)):
-            raise RuntimeError(f"K7 and its plain version disagree on {name}")
-        if k7.kd_traverse.launches != launches + 1:
-            raise RuntimeError("kd_intersect did not launch K7 once")
+        if not all(same.values()):
+            raise RuntimeError(f"K7 and its plain version disagree on {name}: "
+                               f"{same}")
         return got, start.elapsed_time(end)
+
+    def walk_counts(o, d, tab, near_first):
+        counts = {}
+        kd_traverse_reference(o, d, tab, draw, eps, KD_PLAIN_CHUNK, counts,
+                              near_first=near_first)
+        return {k: int(v) for k, v in counts.items()}
+
+    def time_levers(o, d, tab, width):
+        """{"design" or a lever switched against the design, "no x" (off)
+        or "with x" (on): [ms]}: the mean of `K7_LEVER_REPS` launches a
+        sample, the variants in turns (ABBA), `K7_LEVER_ROUNDS` samples
+        each."""
+        masks = {"design": k7.DESIGN,
+                 **{(f"no {k}" if k7.DESIGN & v else f"with {k}"):
+                    k7.DESIGN ^ v for k, v in k7.LEVERS.items()}}
+        ms = {k: [] for k in masks}
+        for i in range(K7_LEVER_ROUNDS):
+            for k in (list(masks) if i % 2 == 0 else list(masks)[::-1]):
+                k7._launch(o, d, tab, draw, eps, width, masks[k])
+                start.record()
+                for _ in range(K7_LEVER_REPS):
+                    k7._launch(o, d, tab, draw, eps, width, masks[k])
+                end.record()
+                torch.cuda.synchronize()
+                ms[k].append(start.elapsed_time(end) / K7_LEVER_REPS)
+        return ms
 
     sphere = uv_sphere(50, 50)
     for dtype in (torch.float32, torch.float64):
@@ -2313,7 +2366,7 @@ def run_kd(dev, headline_tv, frames, idx_t, ref, target, smi, clock_mhz):
                           np.concatenate([sphere, sphere]))):
             for leaf in (1, 8, 128):
                 hold(f"{name} 96x64 leaf {leaf} {dtype}", o, d,
-                     tables(tv, leaf, dtype))
+                     tables(tv, leaf, dtype), 96)
         grid = grid_mesh()
         for leaf in (1, 4, 128):
             tab = tables(grid, leaf, dtype)
@@ -2322,45 +2375,75 @@ def run_kd(dev, headline_tv, frames, idx_t, ref, target, smi, clock_mhz):
                      torch.tensor(pos, dtype=dtype, device=dev),
                      axis_rays(dtype, dev), tab)
 
-    # headline frame 0 at 960x540, leaf 128: every ray
+    # headline frame 0 at 960x540, leaf 128: every ray, in float32 and (the
+    # same rays widened) in float64
     t0 = time.perf_counter()
-    kd_tab = tables(headline_tv, KD_LEAF)
+    tree = build_kd_fast(headline_tv.min(axis=1), headline_tv.max(axis=1),
+                         KD_LEAF)
+    kd_tab = tables(headline_tv, KD_LEAF, tree=tree)
     build_s = time.perf_counter() - t0
+    kd_tab64 = tables(headline_tv, KD_LEAF, torch.float64, tree=tree)
     scene, cam = frames[0]
     obj = scene.objects[0]
     with torch.no_grad():
         o = obj.pose.inv_apply(cam.pos)
         d = obj.pose.inv_apply_vec(cam.ray_directions())
+    o64, d64 = o.double(), d.double()
     log(f"headline KD tables: leaf {KD_LEAF}, {kd_tab.node_link.shape[0]} "
         f"nodes, depth {kd_tab.max_depth}, widest leaf {kd_tab.max_leaf}, "
         f"built in {build_s:.2f} s")
-    hit, plain_ms = hold(f"headline frame 0 {RES_W}x{RES_H} leaf {KD_LEAF}, "
-                         f"all {d.shape[0]} rays, the plain version in runs "
-                         f"of {KD_PLAIN_CHUNK}", o, d, kd_tab, KD_PLAIN_CHUNK)
-    counts = {}
-    kd_traverse_reference(o, d, kd_tab, RenderConfig().draw_distance,
-                          RenderConfig().eps, KD_PLAIN_CHUNK, counts)
-    slab_tests, mt_pairs = (int(counts["slab_tests"]),
-                            int(counts["mt_pairs"]))
-    k7_ms = cuda_ms(lambda: kd_intersect(o, d, kd_tab), KERNEL_REPS)
+    what = (f"headline frame 0 {RES_W}x{RES_H} leaf {KD_LEAF}, all "
+            f"{d.shape[0]} rays, the plain version in runs of "
+            f"{KD_PLAIN_CHUNK}")
+    hit, plain_ms = hold(what, o, d, kd_tab, RES_W, KD_PLAIN_CHUNK)
+    _, plain_ms64 = hold(f"{what}, float64", o64, d64, kd_tab64, RES_W,
+                         KD_PLAIN_CHUNK)
+    walks = {"near_first": walk_counts(o, d, kd_tab, True),
+             "no_exit": walk_counts(o, d, kd_tab, False),
+             "near_first_f64": walk_counts(o64, d64, kd_tab64, True)}
+    k7_ms = cuda_ms(lambda: kd_intersect(o, d, kd_tab, width=RES_W),
+                    KERNEL_REPS)
+    k7_ms64 = cuda_ms(lambda: kd_intersect(o64, d64, kd_tab64, width=RES_W),
+                      KERNEL_REPS)
     n_nodes, n_tris = kd_tab.node_link.shape[0], kd_tab.perm.shape[0]
-    k7_bytes = (d.numel() * 4 + 12 + d.shape[0] * 8 + n_nodes * 48
-                + n_tris * 40)
-    bound = op_bounds(slab_tests * K7_OPS_PER_NODE
-                      + mt_pairs * K7_OPS_PER_PAIR, k7_bytes, clock_mhz)
+    bounds = {}
+    for key, walk in walks.items():
+        f64 = key.endswith("f64")
+        wide = 8 if f64 else 4
+        # rays in, t and ids out, the node tables and the slots (packed
+        # geometry and perm) once
+        n_bytes = (d.numel() * wide + 3 * wide + d.shape[0] * (wide + 4)
+                   + n_nodes * 48 + n_tris * (12 * wide + 4))
+        bounds[key] = op_bounds(walk["slab_tests"] * K7_OPS_PER_NODE
+                                + walk["mt_pairs"] * K7_OPS_PER_PAIR,
+                                n_bytes, clock_mhz,
+                                FP64_LANES if f64 else FP32_LANES)
+    per_ray = {k: {c: round(v / d.shape[0], 2) for c, v in w.items()}
+               for k, w in walks.items()}
     log(f"K7 at the headline shapes ({d.shape[0]} rays, {n_tris} triangles, "
-        f"leaf {KD_LEAF}): kernel {k7_ms:.4f} ms, plain {plain_ms:.4f} ms "
-        f"(once, the bitwise run); {slab_tests} (ray, internal node) slab "
-        f"tests at {K7_OPS_PER_NODE} operations, {mt_pairs} (ray, slot) MT "
-        f"pairs at {K7_OPS_PER_PAIR}, {mt_pairs / d.shape[0]:.1f} pairs a "
-        f"ray; {bound['text']} ({smi})")
+        f"leaf {KD_LEAF}): float32 {k7_ms:.4f} ms, float64 {k7_ms64:.4f} ms; "
+        f"plain (the near-first walk, once, the bitwise runs) float32 "
+        f"{plain_ms:.4f} ms, float64 {plain_ms64:.4f} ms; the walks' counts "
+        f"(slab tests at {K7_OPS_PER_NODE} operations, MT pairs at "
+        f"{K7_OPS_PER_PAIR}, skipped pops) {walks}, a ray {per_ray}; "
+        + "; ".join(f"{k}: {b['text']}" for k, b in bounds.items())
+        + f"; the float64 bound at the FP64 rate ({smi})")
+
+    lever_med = {}
+    for key, args in (("float32", (o, d, kd_tab)),
+                      ("float64", (o64, d64, kd_tab64))):
+        lever_ms = time_levers(*args, RES_W)
+        lever_med[key] = {k: float(np.median(v)) for k, v in lever_ms.items()}
+        log(f"K7's levers at headline frame 0, {key}, each switched against "
+            f"the design (mask {k7.DESIGN}) in turns ({K7_LEVER_ROUNDS} "
+            f"samples of {K7_LEVER_REPS} launches): "
+            + "; ".join(f"{k} {spread(v)}" for k, v in lever_ms.items())
+            + f" ({smi})")
 
     # kd frames through render, the counter from 0 (the main path)
     kcfg = RenderConfig(method="kd")
     acc = (kd_tab,)
     k7.kd_traverse.launches = 0
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
     frame_ms, outs = [], []
     for f in frames:
         start.record()
@@ -2413,6 +2496,7 @@ def run_kd(dev, headline_tv, frames, idx_t, ref, target, smi, clock_mhz):
         raise RuntimeError("the compiled raster step is not the eager step")
     del sets
 
+    bound = bounds["near_first"]
     return {"name": "kd_traverse", "route": "cuda",
             "source": "cpp_cuda_raytracer_dev_torch/csrc/kd_traverse.cu",
             "replaces": "cpp_cuda_raytracer_dev_tpu/accel/traverse.py:876",
@@ -2420,7 +2504,11 @@ def run_kd(dev, headline_tv, frames, idx_t, ref, target, smi, clock_mhz):
             "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
             "bound_by": bound["bound_by"], "library_ms": None,
             "bound_issue_ms": bound["bound_issue_ms"],
-            "slab_tests": slab_tests, "mt_pairs": mt_pairs,
+            "ms_f64": k7_ms64, "plain_ms_f64": plain_ms64,
+            "bound_ms_f64": bounds["near_first_f64"]["bound_ms"],
+            "bound_issue_ms_f64": bounds["near_first_f64"]["bound_issue_ms"],
+            "bound_issue_ms_no_exit": bounds["no_exit"]["bound_issue_ms"],
+            "walks": walks, "levers_ms": lever_med,
             "launches_by_path": {"serve": serve, "serve_jit": serve_jit,
                                  "train_jit": seen["kd_traverse"]},
             "k2_train_jit": seen["segment_sum"]}

@@ -620,6 +620,8 @@ class KDTables:
     node_box: torch.Tensor     # (N, 8) float32 (bmin, s1, bmax, s2): K7's
     node_link: torch.Tensor    # (N, 4) int32 (-1, leaf_start, leaf_count, 0)
     #                            at a leaf, (axis, left, right, 0) elsewhere
+    slot_geom: torch.Tensor    # (T, 12) (p1, 0, e1, 0, e2, 0) in leaf
+    #                            order, the geometry's dtype: K7's slots
     max_depth: int
     max_leaf: int
 
@@ -641,6 +643,9 @@ class KDTables:
                         axis=1)
         box = np.concatenate([tree.bounds_min, tree.s1[:, None],
                               tree.bounds_max, tree.s2[:, None]], axis=1)
+        p1, e1, e2 = tris.p1[perm], tris.e1[perm], tris.e2[perm]
+        pad = p1.new_zeros((p1.shape[0], 1))
+        slot_geom = torch.cat([p1, pad, e1, pad, e2, pad], dim=1)
         return cls(bounds_min=t(tree.bounds_min),
                    bounds_max=t(tree.bounds_max),
                    axis=t(tree.cut_code % 3, torch.int64), s1=t(tree.s1),
@@ -648,36 +653,39 @@ class KDTables:
                    right=t(tree.right, torch.int64), is_leaf=t(tree.is_leaf),
                    leaf_start=t(tree.leaf_start, torch.int64),
                    leaf_count=t(tree.leaf_count, torch.int64),
-                   p1=tris.p1[perm], e1=tris.e1[perm], e2=tris.e2[perm],
-                   perm=perm.to(torch.int32),
+                   p1=p1, e1=e1, e2=e2, perm=perm.to(torch.int32),
                    node_box=t(box, torch.float32),
-                   node_link=t(link, torch.int32),
+                   node_link=t(link, torch.int32), slot_geom=slot_geom,
                    max_depth=int(tree.max_depth),
                    max_leaf=int(tree.leaf_count.max()))
 
 
 def kd_intersect(o: torch.Tensor, d: torch.Tensor, tables: KDTables,
                  draw_distance: float = DEFAULT_DRAW_DISTANCE,
-                 eps: float = MT_EPSILON, ray_chunk: int = 32768) -> Hit:
+                 eps: float = MT_EPSILON, ray_chunk: int = 32768,
+                 width: int = 0) -> Hit:
     """The nearest hit of each ray over the KD tree, the reference's stack
-    traversal (Trixel.cu:41-172): on CUDA tensors kernel K7
-    (``ops/cuda/kd_traverse.py``, one thread a ray, its own stack; no host
-    read, so `render_jit` and `make_train_step_jit` capture it), on CPU
-    tensors `kd_intersect_plain`. The two agree bit for bit in t and ids.
-    ``ray_chunk`` is the plain version's (it changes no result)."""
-    t, tri = kd_traverse(o, d, tables, draw_distance, eps, ray_chunk)
+    traversal (Trixel.cu:41-172) with the near-first exit, which changes no
+    t and no id: on CUDA tensors kernel K7 (``ops/cuda/kd_traverse.py``,
+    one thread a ray, its own stack; no host read, so `render_jit` and
+    `make_train_step_jit` capture it), on CPU tensors `kd_intersect_plain`.
+    The two agree bit for bit in t and ids. ``ray_chunk`` is the plain
+    version's and ``width`` (the rays are rows of an image that wide) the
+    kernel's; neither changes a result."""
+    t, tri = kd_traverse(o, d, tables, draw_distance, eps, ray_chunk, width)
     return Hit(t=t, tri=tri, obj=torch.where(tri >= 0, 0, -1).to(torch.int32))
 
 
 def kd_intersect_plain(o: torch.Tensor, d: torch.Tensor, tables: KDTables,
                        draw_distance: float = DEFAULT_DRAW_DISTANCE,
-                       eps: float = MT_EPSILON, ray_chunk: int = 32768
-                       ) -> Hit:
+                       eps: float = MT_EPSILON, ray_chunk: int = 32768,
+                       near_first: bool = True) -> Hit:
     """`kd_intersect` by the plain PyTorch version on any device: the
     traversal in lockstep over rays, a host read a step
     (``ops/cuda/kd_traverse.py`` `kd_traverse_reference`), in runs of
     ``ray_chunk`` rays (0: all at once), which change no result. K7's
-    oracle."""
+    oracle; ``near_first=False`` walks without the exit (JAX's loop), the
+    oracle of the exit's exactness."""
     t, tri = kd_traverse_reference(o, d, tables, draw_distance, eps,
-                                   ray_chunk)
+                                   ray_chunk, near_first=near_first)
     return Hit(t=t, tri=tri, obj=torch.where(tri >= 0, 0, -1).to(torch.int32))

@@ -109,7 +109,7 @@ def trace_rays(scene: Scene, origin: torch.Tensor, rmd: torch.Tensor,
         elif config.method == "kd":
             from ..accel.traverse import kd_intersect
             hit = kd_intersect(o_obj, d_obj, accel[oi], config.draw_distance,
-                               config.eps)
+                               config.eps, width=band_w or 0)
         elif config.method == "bin":
             from ..accel.traverse import intersect_binned
             budget = active_bin_budget()

@@ -4,24 +4,32 @@
 
 - `kd_traverse` is the wrapper. For CUDA tensors it launches the
   hand-written kernel in ``csrc/kd_traverse.cu`` (one thread a ray, its own
-  stack) and raises if the launch fails or the tree or dtype is one it does
-  not take; for CPU tensors it runs `kd_traverse_reference`. Nothing falls
-  back from the card to the plain version.
+  stack, the near-first exit) and raises if the launch fails or the tree or
+  dtype is one it does not take; for CPU tensors it runs
+  `kd_traverse_reference`. Nothing falls back from the card to the plain
+  version.
 - `kd_traverse_reference` is the plain PyTorch version: the reference's
   stack traversal in lockstep over rays, one (pop, test, push) step for all
-  rays a loop iteration, until every stack is empty (a host read a step).
-  The kernel and it agree bit for bit in t and ids.
+  rays a loop iteration, until every stack is empty (a host read a step),
+  with the near-first exit (``near_first=False``: without it, JAX's loop,
+  the exit's exactness oracle). The kernel and it agree bit for bit in t
+  and ids.
 - `kd_traverse.launches` counts kernel launches; inside a captured CUDA
   graph (`render_jit`, `make_train_step_jit`) that is the capture's launch,
   not the replays' (chip_smoke.py counts a replay's kernels in the
   profiler).
+- `LEVERS` names the kernel's design levers (``csrc/kd_traverse.cu``);
+  `_launch` takes a mask of them so that chip_smoke.py and the GPU tests
+  can switch each off. No caller of `kd_traverse` sets them.
 
 Operands: ``o`` (3,) the object-frame origin, ``d`` (R, 3) directions, of
 one dtype, float32 or float64, which the tables' geometry (``p1``, ``e1``,
-``e2``) shares; the kernel takes a tree of at most `max_stack` - 2 levels
-(its stack has ``max_depth + 2`` entries). Returns (t (R,) in the rays'
-dtype, ``draw_distance`` on a miss; tri (R,) int32 original triangle ids,
--1 on a miss).
+``e2``, ``slot_geom``) shares; the kernel takes a tree of at most
+`max_stack` - 2 levels (its stack has ``max_depth + 2`` entries). ``width``
+> 0 says the rays are rows of an image that wide, row-major (the kernel
+then gives a warp an 8x4 pixel block); it changes no result. Returns (t
+(R,) in the rays' dtype, ``draw_distance`` on a miss; tri (R,) int32
+original triangle ids, -1 on a miss).
 """
 
 from __future__ import annotations
@@ -37,17 +45,70 @@ from . import _build
 _DTYPES = (torch.float32, torch.float64)
 _fn = []
 
+# The near-first exit's margin. The exit slab-tests a popped node's box
+# grown by a pad on every side, pad = NEAR_PAD * (max |o| + max |root box|)
+# in the rays' dtype; it skips the node when that box's entry t exceeds
+# best_t * (1 + NEAR_REL) + NEAR_ABS, and a leaf also when the ray misses
+# that box or the box lies behind it by as much. For that to skip nothing
+# that could change the result, the grown box must hold every point where
+# MT can accept a triangle of the node, and its computed entry t must not
+# exceed the computed MT t of such a hit by more than the margin:
+# - every triangle lies in its leaf's box and in each ancestor's (a box is
+#   the hull of its triangles' AABBs, accel/kd_build.py `node_bounds`, and
+#   each triangle is in one leaf);
+# - MT accepts a ray that misses a triangle by its rounding: u, v and t
+#   are inv * dots of o - p1, d x e2 and (o - p1) x e1, about ten
+#   roundings, so in space an accepted hit lies within a few ulps of |o -
+#   p1| of the triangle, scaled by about 1 / sin of the angle between the
+#   ray and the triangle's plane. On a ray parallel to a box face that
+#   spatial miss is an infinite slab t (the grid scene of the tests: a
+#   gap of 3e-17 beside a hit at t 1.5), so the margin has to be spatial:
+#   the pad. It is 1e-4 of a length no smaller than |o - p1| (1,700 float32
+#   ulps: hits down to about a third of a degree from their plane); it also
+#   covers the float32 boxes (node_box) of float64 vertices, which may lie
+#   2^-24 |b| inside the true hull, and MT_EPSILON's widening (1e-16 of the
+#   edges);
+# - along the ray, the slab t is (b - o) * (1 / d), three roundings, 3u
+#   relative (u = 2^-24 in float32, 2^-53 in float64), min and max add
+#   none, and MT's t is off by a few ulps, more on grazing hits: NEAR_REL
+#   (1e-4 relative) covers that, and NEAR_ABS t near 0.
+# A wider margin only skips less and can never change t or an id; the exit
+# is exact because the best changes only on a strictly smaller t. The
+# argument holds for hits at least about a third of a degree off their
+# triangle's plane in float32 (about 1e-11 radians in float64): a more
+# grazing hit's t has lost most of its digits, may lie outside the grown
+# box, and could then be skipped where the walk without the exit takes it.
+# Held bitwise against the walk without the exit in tests/test_torch_kd.py
+# and chip_smoke.py phase 16 (every headline ray, float32 and float64).
+NEAR_REL = 1e-4
+NEAR_ABS = 1e-4
+NEAR_PAD = 1e-4
+
+# K7's design levers, one bit each (csrc/kd_traverse.cu): (a) the near-first
+# exit, (b) packed slot geometry, (c) sign rejects before the division, (d)
+# 8x4 pixel blocks a warp and a common leaf staged in shared memory, (e)
+# the stack in shared memory. `DESIGN` is the mask the wrapper launches:
+# the levers that measured faster than their absence on the H100
+# (chip_smoke.py phase 16); (c), the staged leaf and (e) measured slower
+# and stay off.
+LEVERS = {"near_first": 1, "packed": 2, "sign_reject": 4, "warp_blocks": 8,
+          "shared_leaf": 16, "shared_stack": 32}
+DESIGN = LEVERS["near_first"] | LEVERS["packed"] | LEVERS["warp_blocks"]
+
 
 def _lib():
     if not _fn:
         lib = _build.load("kd_traverse")
-        lib.kd_traverse_max_stack.argtypes = []
-        lib.kd_traverse_max_stack.restype = ctypes.c_int
+        for name in ("kd_traverse_max_stack", "kd_traverse_all_levers"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
         lib.kd_traverse_launch.argtypes = (
-            [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 6
-            + [ctypes.c_int] * 2 + [ctypes.c_double] * 3
-            + [ctypes.c_void_p] * 3)
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+            + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+            + [ctypes.c_double] * 6 + [ctypes.c_void_p] * 3)
         lib.kd_traverse_launch.restype = ctypes.c_int
+        if lib.kd_traverse_all_levers() != sum(LEVERS.values()):
+            raise RuntimeError("kd_traverse.cu and LEVERS name other levers")
         _fn.append(lib)
     return _fn[0]
 
@@ -73,7 +134,8 @@ def _check(o, d, tables):
             ("node_box", (n_nodes, 8), torch.float32),
             ("node_link", (n_nodes, 4), torch.int32),
             ("p1", (n_tris, 3), d.dtype), ("e1", (n_tris, 3), d.dtype),
-            ("e2", (n_tris, 3), d.dtype), ("perm", (n_tris,), torch.int32)):
+            ("e2", (n_tris, 3), d.dtype), ("perm", (n_tris,), torch.int32),
+            ("slot_geom", (n_tris, 12), d.dtype)):
         x = getattr(tables, name)
         if x.shape != shape or x.dtype != dtype:
             raise ValueError(f"{name} must be {shape} {dtype}, got "
@@ -84,21 +146,39 @@ def _check(o, d, tables):
 
 def kd_traverse(o: torch.Tensor, d: torch.Tensor, tables,
                 draw_distance: float = DEFAULT_DRAW_DISTANCE,
-                eps: float = MT_EPSILON, ray_chunk: int = 32768):
+                eps: float = MT_EPSILON, ray_chunk: int = 32768,
+                width: int = 0):
     """(t, tri) of the nearest hit of each ray ``o + t d`` over ``tables``
     (a `KDTables`). ``ray_chunk`` bounds the plain version's per-ray state
-    (0: all rays at once) and changes no result; the kernel ignores it."""
+    (0: all rays at once) and changes no result; the kernel ignores it, as
+    the plain version ignores ``width``."""
     _check(o, d, tables)
     dev = d.device
     if dev.type == "cpu":
         return kd_traverse_reference(o, d, tables, draw_distance, eps,
                                      ray_chunk)
+    t, tri = _launch(o, d, tables, draw_distance, eps, width, DESIGN)
+    kd_traverse.launches += 1
+    return t, tri
+
+
+kd_traverse.launches = 0
+
+
+def _launch(o, d, tables, draw_distance, eps, width, levers):
+    """Launch K7 with the design levers in the mask ``levers`` (`LEVERS`)
+    on checked operands; returns (t, tri). Counts nothing."""
+    dev = d.device
     if dev.type != "cuda":
         raise ValueError(f"no kd_traverse kernel for {dev}")
     depth = tables.max_depth + 2
     if depth > max_stack():
         raise ValueError(f"a KD tree of depth {tables.max_depth} needs a "
                          f"stack of {depth}; the kernel holds {max_stack()}")
+    if width < 0 or levers & ~sum(LEVERS.values()):
+        raise ValueError(f"width {width} or levers {levers} out of range")
+    if tables.slot_geom.data_ptr() % 16:
+        raise ValueError("slot_geom must be 16-byte aligned")
     num_r = d.shape[0]
     t = torch.empty((num_r,), dtype=d.dtype, device=dev)
     tri = torch.empty((num_r,), dtype=torch.int32, device=dev)
@@ -106,20 +186,17 @@ def kd_traverse(o: torch.Tensor, d: torch.Tensor, tables,
         return t, tri
     o, d = o.contiguous(), d.contiguous()
     err = _lib().kd_traverse_launch(
-        o.data_ptr(), d.data_ptr(), num_r, tables.node_box.data_ptr(),
-        tables.node_link.data_ptr(), tables.p1.data_ptr(),
-        tables.e1.data_ptr(), tables.e2.data_ptr(), tables.perm.data_ptr(),
-        depth, int(d.dtype == torch.float64), float(draw_distance),
-        float(eps), float(SLAB_EPSILON), t.data_ptr(), tri.data_ptr(),
+        o.data_ptr(), d.data_ptr(), num_r, width, tables.node_box.data_ptr(),
+        tables.node_link.data_ptr(), tables.slot_geom.data_ptr(),
+        tables.p1.data_ptr(), tables.e1.data_ptr(), tables.e2.data_ptr(),
+        tables.perm.data_ptr(), depth, int(d.dtype == torch.float64), levers,
+        float(draw_distance), float(eps), float(SLAB_EPSILON),
+        1.0 + NEAR_REL, NEAR_ABS, NEAR_PAD, t.data_ptr(), tri.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"kd_traverse kernel launch failed: CUDA error "
                            f"{err}")
-    kd_traverse.launches += 1
     return t, tri
-
-
-kd_traverse.launches = 0
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -147,7 +224,8 @@ def _mt(o, d, p1, e1, e2, eps):
 def kd_traverse_reference(o: torch.Tensor, d: torch.Tensor, tables,
                           draw_distance: float = DEFAULT_DRAW_DISTANCE,
                           eps: float = MT_EPSILON, ray_chunk: int = 32768,
-                          counts: dict | None = None):
+                          counts: dict | None = None,
+                          near_first: bool = True):
     """Plain PyTorch version of `kd_traverse` (same contract): the
     reference's stack traversal, in lockstep over rays.
 
@@ -156,16 +234,29 @@ def kd_traverse_reference(o: torch.Tensor, d: torch.Tensor, tables,
     (Trixel.cu:98-145), the lowest slot winning at the leaf's minimum t and
     the best changing only on a strictly smaller t; at an internal node it
     pushes the children by the s1/s2 split-plane rule (Trixel.cu:146-169),
-    the far one first. It runs until every stack is empty. Rays go in runs
-    of ``ray_chunk`` (0: all at once), which bound the per-ray state; the
-    runs change no result. With ``counts`` (a dict) it adds the work it did
-    as 0-d device tensors: ``slab_tests``, the (ray, internal node) pops,
-    and ``mt_pairs``, the (ray, leaf slot) pairs.
+    the far one first. It runs until every stack is empty.
+
+    With ``near_first`` (the default, and K7's rule) a popped node, leaf or
+    internal, is skipped when its box's slab entry t lies beyond the ray's
+    best t by more than a margin, and a popped leaf also when the ray
+    misses its box by more than the margin; the exit tests the box grown by
+    a spatial pad (`NEAR_REL`, `NEAR_ABS` and `NEAR_PAD`, and why neither
+    skip changes t or an id). A NaN slab t keeps the node.
+    ``near_first=False`` is the walk without the exit, JAX's loop: it
+    serves only as the oracle of the exit's exactness.
+
+    Rays go in runs of ``ray_chunk`` (0: all at once), which bound the
+    per-ray state; the runs change no result. With ``counts`` (a dict) it
+    adds the work it did as 0-d device tensors: ``slab_tests``, the pops
+    that ran a slab test (every internal node; with ``near_first`` every
+    leaf too), ``mt_pairs``, the (ray, leaf slot) pairs, and ``skipped``,
+    the pops the exit dropped.
     """
     num_r = d.shape[0]
     if ray_chunk and num_r > ray_chunk:
         parts = [kd_traverse_reference(o, d[i:i + ray_chunk], tables,
-                                       draw_distance, eps, 0, counts)
+                                       draw_distance, eps, 0, counts,
+                                       near_first)
                  for i in range(0, num_r, ray_chunk)]
         return (torch.cat([p[0] for p in parts]),
                 torch.cat([p[1] for p in parts]))
@@ -179,8 +270,15 @@ def kd_traverse_reference(o: torch.Tensor, d: torch.Tensor, tables,
     best_t = torch.full((num_r,), draw_distance, dtype=d.dtype, device=dev)
     best_tri = torch.full((num_r,), -1, dtype=torch.int32, device=dev)
     inv_d = torch.reciprocal(d)
+    # the margin's constants in the rays' dtype, as the kernel rounds them,
+    # and the exit's spatial pad (see NEAR_REL)
+    c_rel = torch.tensor(1.0 + NEAR_REL, dtype=d.dtype, device=dev)
+    c_abs = torch.tensor(NEAR_ABS, dtype=d.dtype, device=dev)
+    root = tables.node_box[0, [0, 1, 2, 4, 5, 6]]
+    pad = (o.abs().amax() + root.abs().amax().to(d.dtype)) \
+        * torch.tensor(NEAR_PAD, dtype=d.dtype, device=dev)
     if counts is not None:
-        for k in ("slab_tests", "mt_pairs"):
+        for k in ("slab_tests", "mt_pairs", "skipped"):
             counts.setdefault(k, torch.zeros((), dtype=torch.int64,
                                              device=dev))
 
@@ -199,9 +297,22 @@ def kd_traverse_reference(o: torch.Tensor, d: torch.Tensor, tables,
                    & (t_entry > -SLAB_EPSILON))
 
         leaf = tables.is_leaf[node]
+        live = active
+        if near_first:
+            # the box grown by the pad: its entry beyond the best, or (a
+            # leaf) the ray missing it or it lying behind the ray, each by
+            # more than the margin; NaN keeps
+            q0 = ((tables.bounds_min[node].to(d.dtype) - pad) - o) * inv_d
+            q1 = ((tables.bounds_max[node].to(d.dtype) + pad) - o) * inv_d
+            q_entry = torch.minimum(q0, q1).amax(dim=-1)
+            t_far = torch.maximum(q0, q1).amin(dim=-1) * c_rel + c_abs
+            skip = active & ((q_entry > best_t * c_rel + c_abs)
+                             | (leaf & ((t_far < 0)
+                                        | (q_entry > t_far * c_rel + c_abs))))
+            live = active & ~skip
         # leaf: MT over the leaf's (padded) triangle range, for the rays
         # that popped a leaf only
-        lr = torch.nonzero(active & leaf).squeeze(1)
+        lr = torch.nonzero(live & leaf).squeeze(1)
         ln = node[lr]
         in_leaf = lanes < tables.leaf_count[ln][:, None]
         slot = torch.where(in_leaf, tables.leaf_start[ln][:, None] + lanes,
@@ -229,10 +340,12 @@ def kd_traverse_reference(o: torch.Tensor, d: torch.Tensor, tables,
         also_right = c_exit > s2 - SLAB_EPSILON               # Trixel.cu:156
         also_left = (c_exit < s1) | (c_entry < s1)            # Trixel.cu:163
 
-        expand = active & box_hit & ~leaf
+        expand = live & box_hit & ~leaf
         if counts is not None:
-            counts["slab_tests"] += (active & ~leaf).sum()
+            counts["slab_tests"] += (active if near_first
+                                     else active & ~leaf).sum()
             counts["mt_pairs"] += tables.leaf_count[ln].sum()
+            counts["skipped"] += (active & ~live).sum()
         # the far child first, the near child last (popped first)
         lchild, rchild = tables.left[node], tables.right[node]
         far = torch.where(go_left_first, rchild, lchild)

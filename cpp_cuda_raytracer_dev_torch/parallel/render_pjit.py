@@ -429,10 +429,11 @@ def make_train_step_jit(optimizer: torch.optim.Optimizer,
     through a static copy; a step with other parameters, or a target of
     another shape, captures anew (one pair of graphs is kept).
 
-    The optimizer must capture (`_check_capturable`: SGD without momentum,
-    or ``capturable=True``). A method that `render_jit` does not capture
-    (`jit_captures`: "raster", whose dense list is sized by a host read) is
-    not captured here either: its step is `make_train_step`'s, uncaptured.
+    A method that `render_jit` does not capture (`jit_captures`:
+    "raster", whose dense list is sized by a host read) is not captured
+    here either: its step is `make_train_step`'s, uncaptured, for any
+    optimizer. For a captured method the optimizer must capture
+    (`_check_capturable`: SGD without momentum, or ``capturable=True``).
     On the CPU there are no graphs: the step runs as `make_train_step`'s,
     with the bin tables at the bucket and the same growth check. A mesh
     raises ``NotImplementedError`` (ROADMAP queue 1, capture of the sharded
@@ -444,9 +445,9 @@ def make_train_step_jit(optimizer: torch.optim.Optimizer,
             "torch.distributed collectives of a mesh is ROADMAP queue 1 "
             "(the sharded paths); use make_train_step(optimizer, config, "
             "mesh)")
-    _check_capturable(optimizer)
     if not jit_captures(config):
         return make_train_step(optimizer, config, None, accel)
+    _check_capturable(optimizer)
     loss_fn = make_loss_fn(config, None, accel)
     state = {"key": None, "cache": None, "g1": None, "g2": None}
 

@@ -349,6 +349,31 @@ def test_compiled_step_refuses_a_mesh_and_uncapturable_optimizers():
     make_train_step_jit(torch.optim.SGD(w, lr=0.1, weight_decay=0.1), cfg)
 
 
+def test_uncaptured_method_takes_any_optimizer():
+    """A method that is not captured ("raster") gets `make_train_step`'s
+    step from `make_train_step_jit` whatever the optimizer, as
+    ``jax.jit(make_train_step(optax.adam(...), ...))`` takes raster: Adam
+    steps, bitwise the eager step's."""
+    cfg = P.RenderConfig(method="raster")
+    target = P.render(_port_scene("cpu"), _camera("cpu"),
+                      cfg).radiance.clone()
+    runs = []
+    for make in (make_train_step_jit, make_train_step):
+        scene = _port_scene("cpu", 0.65)
+        cam = _camera("cpu").requires_grad_()
+        leaves = [*scene.parameters(), *cam.parameters()]
+        step = make(torch.optim.Adam(leaves, lr=1e-3), cfg)
+        loss = step({"scene": scene, "camera": cam}, target)
+        runs.append((step.__qualname__, loss,
+                     [p.detach().clone() for p in leaves]))
+    (jname, jloss, jp), (ename, eloss, ep) = runs
+    assert jname == ename and float(eloss) > 0
+    assert torch.equal(jloss, eloss)
+    assert len(jp) == len(ep)
+    for a, b in zip(jp, ep):
+        assert torch.equal(a, b)
+
+
 # ---- on the card ----
 
 def _cuda():

@@ -3,14 +3,22 @@
 through `render_jit` and `make_train_step_jit`.
 
 On the CPU:
-- `kd_intersect_plain` against the JAX package's `kd_intersect` on the same
-  numpy KD tree at leaf sizes 1, 8 and 128: ids equal, t within rtol 4e-6
-  and the port's t within rtol 2e-6 of the hit triangle's float64 t (XLA
-  on the CPU contracts multiply-adds into FMAs, PyTorch rounds each
-  operation: on a grazing hit at leaf 1 JAX's t is 1.3e-6 off the float64
-  t and the port's 0.7e-6 the other way); in float64 under
-  ``jax.enable_x64`` at rtol 1e-12, as tests/test_torch_f64.py; on CPU tensors `kd_intersect` is the plain
+- `kd_intersect_plain` (with the near-first exit) against the JAX
+  package's `kd_intersect` on the same numpy KD tree at leaf sizes 1, 8
+  and 128: ids equal, t within rtol 4e-6 and the port's t within rtol 2e-6
+  of the hit triangle's float64 t (XLA on the CPU contracts multiply-adds
+  into FMAs, PyTorch rounds each operation: on a grazing hit at leaf 1
+  JAX's t is 1.3e-6 off the float64 t and the port's 0.7e-6 the other
+  way); in float64 under ``jax.enable_x64`` at rtol 1e-12, as
+  tests/test_torch_f64.py; on CPU tensors `kd_intersect` is the plain
   version, bit for bit;
+- the near-first walk bitwise the walk without the exit
+  (``near_first=False``, JAX's loop) in t and ids, in float32 and float64
+  at leaf sizes 1, 8 and 128, on a sphere, the tie scene, axis-aligned rays
+  through split planes, rays grazing a flat grid at 1e-4 and 1e-2 radians
+  and a 64x36 frame of a 20,000-triangle dense mesh, where it also counts
+  fewer (ray, slot) pairs; K7's packed slot table
+  equal to p1, e1 and e2 in leaf order;
 - `render_jit(method="kd")` bitwise `render`'s;
 - `make_train_step_jit` with ``"kd"`` and with ``"raster"`` (which it runs
   uncaptured, as `render_jit` does) bitwise `make_train_step` after 3
@@ -20,12 +28,13 @@ On the card (marked ``gpu``; they skip here): K7 bitwise its plain version
 in t and ids on a sphere at leaf sizes 1, 8 and 128, on a scene whose every
 triangle is there twice (every hit an exact tie), and on axis-aligned rays
 through split planes (a zero direction component on a box plane makes the
-slab test NaN), in float32 and float64; the kd frame captured by
-`render_jit` with K7 inside the replay; the compiled kd and raster steps
-bitwise the eager ones; the wrapper refusing a tree deeper than its stack
-and rays of a dtype it does not take. The JAX package is imported inside
-the CPU tests, so that on the card's machine, which has no JAX, they run
-with
+slab test NaN), in float32 and float64; with each design lever switched
+off, bitwise the same (with the exit switched off, bitwise the walk
+without it); the kd frame captured by `render_jit` with K7 inside the
+replay; the compiled kd and raster steps bitwise the eager ones; the
+wrapper refusing a tree deeper than its stack and rays of a dtype it does
+not take. The JAX package is imported inside the CPU tests, so that on the
+card's machine, which has no JAX, they run with
     python -m pytest --noconftest -p no:cacheprovider -m gpu \\
         tests/test_torch_kd.py
 """
@@ -47,7 +56,10 @@ from cpp_cuda_raytracer_dev_torch.ops.intersect import mt_test
 from cpp_cuda_raytracer_dev_torch.ops.quaternion import from_axis_angle
 from cpp_cuda_raytracer_dev_torch.parallel.render_pjit import (
     make_train_step, make_train_step_jit)
-from cpp_cuda_raytracer_dev_torch.utils.procgen import uv_sphere
+from cpp_cuda_raytracer_dev_torch.utils.dtypes import (DEFAULT_DRAW_DISTANCE,
+                                                       MT_EPSILON)
+from cpp_cuda_raytracer_dev_torch.utils.procgen import (dragon_class_mesh,
+                                                         uv_sphere)
 
 RES_W, RES_H = 48, 32
 FIELDS = ("image", "radiance", "hit_t", "hit_tri", "hit_obj", "normal",
@@ -175,6 +187,105 @@ def test_kd_plain_f64_matches_jax(leaf):
     np.testing.assert_allclose(h.t.numpy(), jt, rtol=1e-12)
 
 
+def _flat_grid(n: int = 30) -> np.ndarray:
+    """n x n quads in the plane y = 0 over [-1, 1]^2 (x, z): every box of
+    the tree is flat in y."""
+    xs = np.linspace(-1.0, 1.0, n + 1)
+    tv = []
+    for i in range(n):
+        for j in range(n):
+            a, b = (xs[i], 0.0, xs[j]), (xs[i + 1], 0.0, xs[j])
+            c, d = (xs[i], 0.0, xs[j + 1]), (xs[i + 1], 0.0, xs[j + 1])
+            tv += [[a, b, c], [b, d, c]]
+    return np.asarray(tv, np.float32)
+
+
+def _grazing_rays(dtype, n=1500):
+    """[(o, d)]: rays from z = -3 to seeded points of the flat grid, about
+    1e-4 and 1e-2 radians off its plane, where MT's t loses the most
+    digits (the exit's margin, ``NEAR_REL``)."""
+    rng = np.random.default_rng(7)
+    cases = []
+    for height in (3e-4, 3e-2):
+        o = np.array([0.013, height, -3.0])
+        x, z = rng.uniform(-0.9, 0.9, (2, n))
+        d = np.stack([x, np.zeros(n), z], axis=1) - o
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        cases.append((torch.tensor(o, dtype=dtype),
+                      torch.tensor(d, dtype=dtype)))
+    return cases
+
+
+def _near_first_case(scene, dtype):
+    """(tv, [(o, d)]) of a near-first scene: rays from numpy-made cameras,
+    the axis-aligned directions or grazing rays."""
+    if scene == "axis":
+        return _grid_mesh(), [(torch.tensor(o, dtype=dtype),
+                               _axis_rays(dtype))
+                              for o in ((0.0, 0.0, -3.0),
+                                        (0.25, -0.5, -2.0))]
+    if scene == "grazing":
+        return _flat_grid(), _grazing_rays(dtype)
+    if scene == "dense":
+        cam = _camera("cpu", (0.6, 0.25, -2.6), dtype, (64, 36))
+        tv = dragon_class_mesh(20_000)
+    else:
+        cam = _camera("cpu", dtype=dtype)
+        tv = {"sphere": _sphere(),
+              "ties": np.concatenate([uv_sphere(50, 50)] * 2)}[scene]
+    with torch.no_grad():
+        return tv, [(cam.pos.detach().clone(), cam.ray_directions())]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("leaf", [1, 8, 128])
+@pytest.mark.parametrize("scene",
+                         ["sphere", "ties", "axis", "dense", "grazing"])
+def test_kd_near_first_is_bitwise_the_walk_without_it(scene, leaf, dtype):
+    tv, cases = _near_first_case(scene, dtype)
+    tab = _tables(tv, leaf, "cpu", dtype)
+    for o, d in cases:
+        counts = {}
+        got = kd_intersect_plain(o, d, tab, ray_chunk=0)
+        want = kd_intersect_plain(o, d, tab, ray_chunk=0, near_first=False)
+        assert got.t.dtype == dtype
+        assert torch.equal(got.tri, want.tri)
+        assert torch.equal(got.t, want.t)
+        assert bool((want.tri >= 0).any())
+        # runs of rays and the counts change nothing
+        t, tri = k7.kd_traverse_reference(o, d, tab, ray_chunk=100,
+                                          counts=counts)
+        assert torch.equal(t, got.t) and torch.equal(tri, got.tri)
+
+
+def test_kd_near_first_counts_fewer_pairs_on_a_dense_mesh():
+    tv, [(o, d)] = _near_first_case("dense", torch.float32)
+    tab = _tables(tv, 128, "cpu")
+    counts = {nf: {} for nf in (True, False)}
+    for nf, c in counts.items():
+        k7.kd_traverse_reference(o, d, tab, ray_chunk=0, counts=c,
+                                 near_first=nf)
+    new, old = counts[True], counts[False]
+    assert int(new["mt_pairs"]) < int(old["mt_pairs"]) // 2
+    assert int(new["skipped"]) > 0 and int(old["skipped"]) == 0
+    # without the exit a leaf runs no slab test; with it every pop does
+    assert int(old["slab_tests"]) > 0 and int(new["slab_tests"]) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kd_packed_slots_are_p1_e1_e2_in_leaf_order(dtype):
+    tv = _sphere()
+    tab = _tables(tv, 8, "cpu", dtype)
+    tris = P.Triangles.from_vertices(tv, device="cpu", dtype=dtype)
+    g = tab.slot_geom.reshape(-1, 3, 4)
+    assert tab.slot_geom.dtype == dtype and tab.slot_geom.is_contiguous()
+    perm = tab.perm.long()
+    for k, name in enumerate(("p1", "e1", "e2")):
+        assert torch.equal(g[:, k, :3], getattr(tab, name))
+        assert torch.equal(g[:, k, :3], getattr(tris, name)[perm])
+        assert not bool(g[:, k, 3].any())
+
+
 def _kd_scene(device, angle=0.6):
     tv = np.roll(_sphere(), -_sphere().shape[0] // 2, axis=0)
     color = np.random.default_rng(0).uniform(0.1, 1.0, (tv.shape[0], 3))
@@ -279,6 +390,33 @@ def test_k7_is_bitwise_plain_on_gpu(scene, leaf, dtype):
     if scene == "ties":    # every hit is a tie between ids i and i + T / 2
         hit = got.tri >= 0
         assert bool((got.tri[hit] < tv.shape[0] // 2).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("lever", ["none", *k7.LEVERS])
+def test_k7_each_lever_off_is_bitwise_plain_on_gpu(lever, dtype):
+    """K7 with every lever on ("none" off) and with each one off, bitwise
+    the plain version; with the exit off, bitwise the walk without it."""
+    dev = _cuda()
+    every = sum(k7.LEVERS.values())
+    mask = every & ~k7.LEVERS.get(lever, 0)
+    near_first = bool(mask & k7.LEVERS["near_first"])
+    for scene, leaf, width in (("sphere", 8, RES_W), ("ties", 128, RES_W),
+                               ("axis", 1, 0), ("dense", 128, 64),
+                               ("grazing", 8, 0)):
+        tv, cases = _near_first_case(scene, dtype)
+        tab = _tables(tv, leaf, dev, dtype)
+        for o, d in cases:
+            o, d = o.to(dev), d.to(dev)
+            launches = k7.kd_traverse.launches
+            t, tri = k7._launch(o, d, tab, DEFAULT_DRAW_DISTANCE,
+                                MT_EPSILON, width, mask)
+            torch.cuda.synchronize()
+            assert k7.kd_traverse.launches == launches   # not the main path
+            want = kd_intersect_plain(o, d, tab, near_first=near_first)
+            assert torch.equal(tri, want.tri), (scene, leaf)
+            assert torch.equal(t, want.t), (scene, leaf)
 
 
 @pytest.mark.gpu
