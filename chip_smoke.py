@@ -158,21 +158,26 @@ Phases (any failure raises and the process exits non-zero):
      seen in the replayed step, step ms in turns. A capture that fails
      fails the run: nothing falls back to the eager frame;
  16. the KD path: the KD traversal kernel K7 against its plain version
-     (``kd_intersect_plain``, with the near-first exit), t and ids
+     (``kd_traverse_reference``, with the near-first exit), t and ids
      bitwise, and K7 with the exit switched off against the walk without
      it (``near_first=False``), and the two walks against each other, on a
      96x64 sphere and a sphere whose every triangle is there twice (every
      hit an exact tie) at leaf sizes 1, 8 and 128, and on axis-aligned rays
      through the split planes of a height field on exact binary fractions
      (a zero direction component on a box plane: NaN in the slab test) at
-     leaf sizes 1, 4 and 128, each in float32 and float64; then on headline
+     leaf sizes 1, 4 and 128, and on rays grazing two tilted planes (1e-4
+     and 1e-3 radians in float32, 1e-12 and 1e-10 in float64, where MT's t
+     loses its digits) at leaf sizes 1 and 8, each in float32 and float64
+     (and at 1e-5 radians, below the exit's proven bound, where the rays
+     on which the two walks differ are counted, not held);
+     then on headline
      frame 0 at 960x540, leaf 128, every ray, in float32 and (the same rays
      widened) float64 (the plain version in runs of ``KD_PLAIN_CHUNK``,
-     timed once); K7 timed with CUDA events in both; the slab tests, MT
-     pairs and skipped pops that the plain walks count, with and without
-     the exit, give its bounds (float64 at the FP64 rate); each design
-     lever switched against the design (off where the design has it, on
-     where it does not), in turns, in both dtypes; 8 kd frames through
+     timed once, with its counts); K7 timed with CUDA events in both; the
+     slab tests, MT pairs and skipped pops that those plain walks count,
+     with and without the exit, give its bounds (float64 at the FP64
+     rate); each design lever switched off against the design, in turns,
+     in both dtypes; 8 kd frames through
      ``render`` after resetting K7's counter, which must show them, frame
      0's ids those of the bitwise run and agreement with phase 4's oracle
      rays >= 0.999; ``render_jit`` kd frames 0, 1, 0 bitwise ``render``'s,
@@ -2258,6 +2263,36 @@ def axis_rays(dtype, dev):
                         dtype=dtype, device=dev)
 
 
+def tilted_plane(normal, n: int = 30):
+    """(tv, u, v, unit normal): n x n quads over [-1, 1]^2 of the plane
+    through 0 with that normal, spanned by the unit vectors u and v."""
+    nrm = np.asarray(normal, np.float64)
+    nrm /= np.linalg.norm(nrm)
+    u = np.cross(nrm, [0.0, 0.0, 1.0])
+    u /= np.linalg.norm(u)
+    v = np.cross(nrm, u)
+    xs = np.linspace(-1.0, 1.0, n + 1)
+    tv = []
+    for i in range(n):
+        for j in range(n):
+            a, b = xs[i] * u + xs[j] * v, xs[i + 1] * u + xs[j] * v
+            c, d = xs[i] * u + xs[j + 1] * v, xs[i + 1] * u + xs[j + 1] * v
+            tv += [[a, b, c], [b, d, c]]
+    return np.asarray(tv, np.float32), u, v, nrm
+
+
+def tilted_rays(u, v, nrm, angle, dtype, dev, n=1500):
+    """(o, d): rays from 3 units off the plane's edge, ``angle`` radians
+    above it, to seeded points of the plane."""
+    rng = np.random.default_rng(1)
+    o = -3.0 * v + 0.013 * u + 3.0 * np.tan(angle) * nrm
+    a, b = rng.uniform(-0.9, 0.9, (2, n))
+    d = a[:, None] * u + b[:, None] * v - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.tensor(o, dtype=dtype, device=dev),
+            torch.tensor(d, dtype=dtype, device=dev))
+
+
 def run_kd(dev, headline_tv, frames, idx_t, ref, target, smi, clock_mhz):
     """Phase 16 (see the module docstring): K7 against its plain version,
     timed with its bound; kd frames served through `render`, through
@@ -2268,7 +2303,7 @@ def run_kd(dev, headline_tv, frames, idx_t, ref, target, smi, clock_mhz):
                                               Triangles, render)
     from cpp_cuda_raytracer_dev_torch.accel.native import build_kd_fast
     from cpp_cuda_raytracer_dev_torch.accel.traverse import (
-        KDTables, kd_intersect, kd_intersect_plain)
+        KDTables, kd_intersect)
     from cpp_cuda_raytracer_dev_torch.ops.cuda import kd_traverse as k7
     from cpp_cuda_raytracer_dev_torch.ops.cuda.kd_traverse import \
         kd_traverse_reference
@@ -2288,12 +2323,18 @@ def run_kd(dev, headline_tv, frames, idx_t, ref, target, smi, clock_mhz):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
 
-    def hold(name, o, d, tab, width=0, chunk=32768):
+    def hold(name, o, d, tab, width=0, chunk=32768, counts=None,
+             graze=False):
         """K7 against the plain version on the same rays, t, ids and object
         ids bitwise: the design (`kd_intersect`) against the near-first
         walk, K7 with the exit switched off against the walk without it,
-        and the two walks against each other (the exit's exactness).
-        Returns (K7's hit, the near-first plain version's ms)."""
+        and the two walks against each other (the exit's exactness; with
+        ``graze``, rays more grazing than the exit's proven bound, the
+        rays where the walks differ are counted, not held). With
+        ``counts`` the walks add their counts to ``counts["near_first"]``
+        and ``counts["no_exit"]``. Returns (K7's hit, the near-first plain
+        version's ms)."""
+        counts = counts or {}
         nonlocal max_err
         launches = k7.kd_traverse.launches
         got = kd_intersect(o, d, tab, width=width)
@@ -2302,45 +2343,47 @@ def run_kd(dev, headline_tv, frames, idx_t, ref, target, smi, clock_mhz):
             raise RuntimeError("kd_intersect did not launch K7 once")
         t_off, tri_off = k7._launch(o, d, tab, draw, eps, width, no_exit)
         start.record()
-        want = kd_intersect_plain(o, d, tab, ray_chunk=chunk)
+        want_t, want_tri = kd_traverse_reference(
+            o, d, tab, draw, eps, chunk, counts.get("near_first"))
         end.record()
         torch.cuda.synchronize()
-        old = kd_intersect_plain(o, d, tab, ray_chunk=chunk, near_first=False)
-        same = {"K7": torch.equal(got.t, want.t)
-                and torch.equal(got.tri, want.tri)
-                and torch.equal(got.obj, want.obj),
-                "K7 without the exit": torch.equal(t_off, old.t)
-                and torch.equal(tri_off, old.tri),
-                "the walks": torch.equal(want.t, old.t)
-                and torch.equal(want.tri, old.tri)}
-        err = max(float((got.t - want.t).abs().max()),
-                  float((t_off - old.t).abs().max()))
+        want_obj = torch.where(want_tri >= 0, 0, -1).to(torch.int32)
+        old_t, old_tri = kd_traverse_reference(
+            o, d, tab, draw, eps, chunk, counts.get("no_exit"),
+            near_first=False)
+        same = {"K7": torch.equal(got.t, want_t)
+                and torch.equal(got.tri, want_tri)
+                and torch.equal(got.obj, want_obj),
+                "K7 without the exit": torch.equal(t_off, old_t)
+                and torch.equal(tri_off, old_tri),
+                "the walks": torch.equal(want_t, old_t)
+                and torch.equal(want_tri, old_tri)}
+        err = max(float((got.t - want_t).abs().max()),
+                  float((t_off - old_t).abs().max()))
         max_err = max(max_err, err)
+        apart = (want_t != old_t) | (want_tri != old_tri)
         log(f"K7 vs plain [{name}]: rays {d.shape[0]} depth "
             f"{tab.max_depth} widest leaf {tab.max_leaf}; bitwise: K7 and "
             f"the near-first walk {same['K7']}, K7 without the exit and the "
             f"walk without it {same['K7 without the exit']}, the two walks "
-            f"{same['the walks']}; max_abs_err {err} hit_rate "
+            f"{same['the walks']} (rays apart {int(apart.sum())}, ids apart "
+            f"{int((want_tri != old_tri).sum())}, largest t apart "
+            f"{float((want_t - old_t).abs().where(apart, 0).amax())}); "
+            f"max_abs_err {err} hit_rate "
             f"{float((got.tri >= 0).float().mean()):.6f}")
+        if graze:
+            same.pop("the walks")
         if not all(same.values()):
             raise RuntimeError(f"K7 and its plain version disagree on {name}: "
                                f"{same}")
         return got, start.elapsed_time(end)
 
-    def walk_counts(o, d, tab, near_first):
-        counts = {}
-        kd_traverse_reference(o, d, tab, draw, eps, KD_PLAIN_CHUNK, counts,
-                              near_first=near_first)
-        return {k: int(v) for k, v in counts.items()}
-
     def time_levers(o, d, tab, width):
-        """{"design" or a lever switched against the design, "no x" (off)
-        or "with x" (on): [ms]}: the mean of `K7_LEVER_REPS` launches a
-        sample, the variants in turns (ABBA), `K7_LEVER_ROUNDS` samples
-        each."""
+        """{"design" or "no x", the design with lever x off: [ms]}: the
+        mean of `K7_LEVER_REPS` launches a sample, the variants in turns
+        (ABBA), `K7_LEVER_ROUNDS` samples each."""
         masks = {"design": k7.DESIGN,
-                 **{(f"no {k}" if k7.DESIGN & v else f"with {k}"):
-                    k7.DESIGN ^ v for k, v in k7.LEVERS.items()}}
+                 **{f"no {k}": k7.DESIGN & ~v for k, v in k7.LEVERS.items()}}
         ms = {k: [] for k in masks}
         for i in range(K7_LEVER_ROUNDS):
             for k in (list(masks) if i % 2 == 0 else list(masks)[::-1]):
@@ -2374,6 +2417,23 @@ def run_kd(dev, headline_tv, frames, idx_t, ref, target, smi, clock_mhz):
                 hold(f"axis-aligned rays from {pos} leaf {leaf} {dtype}",
                      torch.tensor(pos, dtype=dtype, device=dev),
                      axis_rays(dtype, dev), tab)
+        angles = (1e-4, 1e-3) if dtype == torch.float32 else (1e-12, 1e-10)
+        for normal in ((0.57, 0.61, -0.55), (0.3, 0.9, 0.2)):
+            tv, u, v, nrm = tilted_plane(normal)
+            for leaf in (1, 8):
+                tab = tables(tv, leaf, dtype)
+                for angle in angles:
+                    hold(f"rays grazing the plane of normal {normal} at "
+                         f"{angle} rad, leaf {leaf} {dtype}",
+                         *tilted_rays(u, v, nrm, angle, dtype, dev), tab)
+        if dtype == torch.float32:
+            # below the exit's proven bound (ops/cuda/kd_traverse.py
+            # NEAR_REL): the walks may differ there; counted, not held
+            tv, u, v, nrm = tilted_plane((0.57, 0.61, -0.55))
+            hold(f"rays grazing the plane of normal (0.57, 0.61, -0.55) at "
+                 f"1e-05 rad, below the exit's bound, leaf 1 {dtype}",
+                 *tilted_rays(u, v, nrm, 1e-5, dtype, dev, 3000),
+                 tables(tv, 1, dtype), graze=True)
 
     # headline frame 0 at 960x540, leaf 128: every ray, in float32 and (the
     # same rays widened) in float64
@@ -2395,12 +2455,14 @@ def run_kd(dev, headline_tv, frames, idx_t, ref, target, smi, clock_mhz):
     what = (f"headline frame 0 {RES_W}x{RES_H} leaf {KD_LEAF}, all "
             f"{d.shape[0]} rays, the plain version in runs of "
             f"{KD_PLAIN_CHUNK}")
-    hit, plain_ms = hold(what, o, d, kd_tab, RES_W, KD_PLAIN_CHUNK)
+    c32 = {"near_first": {}, "no_exit": {}}
+    c64 = {"near_first": {}, "no_exit": {}}
+    hit, plain_ms = hold(what, o, d, kd_tab, RES_W, KD_PLAIN_CHUNK, c32)
     _, plain_ms64 = hold(f"{what}, float64", o64, d64, kd_tab64, RES_W,
-                         KD_PLAIN_CHUNK)
-    walks = {"near_first": walk_counts(o, d, kd_tab, True),
-             "no_exit": walk_counts(o, d, kd_tab, False),
-             "near_first_f64": walk_counts(o64, d64, kd_tab64, True)}
+                         KD_PLAIN_CHUNK, c64)
+    walks = {k: {c: int(v) for c, v in w.items()} for k, w in (
+        ("near_first", c32["near_first"]), ("no_exit", c32["no_exit"]),
+        ("near_first_f64", c64["near_first"]))}
     k7_ms = cuda_ms(lambda: kd_intersect(o, d, kd_tab, width=RES_W),
                     KERNEL_REPS)
     k7_ms64 = cuda_ms(lambda: kd_intersect(o64, d64, kd_tab64, width=RES_W),
@@ -2423,7 +2485,8 @@ def run_kd(dev, headline_tv, frames, idx_t, ref, target, smi, clock_mhz):
     log(f"K7 at the headline shapes ({d.shape[0]} rays, {n_tris} triangles, "
         f"leaf {KD_LEAF}): float32 {k7_ms:.4f} ms, float64 {k7_ms64:.4f} ms; "
         f"plain (the near-first walk, once, the bitwise runs) float32 "
-        f"{plain_ms:.4f} ms, float64 {plain_ms64:.4f} ms; the walks' counts "
+        f"{plain_ms:.4f} ms, float64 {plain_ms64:.4f} ms, counting; the "
+        f"walks' counts "
         f"(slab tests at {K7_OPS_PER_NODE} operations, MT pairs at "
         f"{K7_OPS_PER_PAIR}, skipped pops) {walks}, a ray {per_ray}; "
         + "; ".join(f"{k}: {b['text']}" for k, b in bounds.items())

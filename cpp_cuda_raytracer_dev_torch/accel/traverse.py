@@ -613,8 +613,8 @@ class KDTables:
     is_leaf: torch.Tensor      # (N,) bool
     leaf_start: torch.Tensor   # (N,) int64
     leaf_count: torch.Tensor   # (N,) int64
-    p1: torch.Tensor           # (T, 3) permuted geometry
-    e1: torch.Tensor           # (T, 3)
+    p1: torch.Tensor           # (T, 3) permuted geometry, views of
+    e1: torch.Tensor           # (T, 3)   slot_geom
     e2: torch.Tensor           # (T, 3)
     perm: torch.Tensor         # (T,) int32 original triangle ids
     node_box: torch.Tensor     # (N, 8) float32 (bmin, s1, bmax, s2): K7's
@@ -643,9 +643,10 @@ class KDTables:
                         axis=1)
         box = np.concatenate([tree.bounds_min, tree.s1[:, None],
                               tree.bounds_max, tree.s2[:, None]], axis=1)
-        p1, e1, e2 = tris.p1[perm], tris.e1[perm], tris.e2[perm]
-        pad = p1.new_zeros((p1.shape[0], 1))
-        slot_geom = torch.cat([p1, pad, e1, pad, e2, pad], dim=1)
+        pad = tris.p1.new_zeros((perm.shape[0], 1))
+        slot_geom = torch.cat([tris.p1[perm], pad, tris.e1[perm], pad,
+                               tris.e2[perm], pad], dim=1)
+        p1, e1, e2 = (slot_geom[:, k:k + 3] for k in (0, 4, 8))
         return cls(bounds_min=t(tree.bounds_min),
                    bounds_max=t(tree.bounds_max),
                    axis=t(tree.cut_code % 3, torch.int64), s1=t(tree.s1),
@@ -666,7 +667,9 @@ def kd_intersect(o: torch.Tensor, d: torch.Tensor, tables: KDTables,
                  width: int = 0) -> Hit:
     """The nearest hit of each ray over the KD tree, the reference's stack
     traversal (Trixel.cu:41-172) with the near-first exit, which changes no
-    t and no id: on CUDA tensors kernel K7 (``ops/cuda/kd_traverse.py``,
+    t and no id except possibly on a hit within about 6e-3 radians of its
+    triangle's plane in float32 (1e-11 in float64; `NEAR_REL` in
+    ``ops/cuda/kd_traverse.py``): on CUDA tensors kernel K7 (that module,
     one thread a ray, its own stack; no host read, so `render_jit` and
     `make_train_step_jit` capture it), on CPU tensors `kd_intersect_plain`.
     The two agree bit for bit in t and ids. ``ray_chunk`` is the plain

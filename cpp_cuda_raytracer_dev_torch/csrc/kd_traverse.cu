@@ -15,9 +15,9 @@
 //          c_pad * (max |o| + max |root box|) on every side; skip the node
 //          when that entry t exceeds bound = best_t * c_rel + c_abs, and a
 //          popped leaf also when t_far = (that exit t) * c_rel + c_abs is
-//          below 0 or the entry t exceeds t_far * c_rel + c_abs (the margin
-//          and why it is exact: kd_traverse.py `NEAR_REL`). A NaN slab t
-//          keeps the node.
+//          below 0 or the entry t exceeds t_far * c_rel + c_abs (the margin,
+//          and the grazing hits for which it is exact: kd_traverse.py
+//          `NEAR_REL`). A NaN slab t keeps the node.
 //   leaf:  Moller-Trumbore over its slots [start, start + count); reject
 //          when |det| < eps, u < eps, v < eps, u + v > 1 + eps or t < eps.
 //          The lowest slot at the leaf's minimum t wins, and it replaces
@@ -47,8 +47,8 @@
 // Tables (made once per KDTables, accel/traverse.py): node_box (N, 8) f32
 // = (bmin xyz, s1, bmax xyz, s2), two 16-byte loads a node; node_link (N, 4)
 // i32 = (-1, leaf_start, leaf_count, 0) at a leaf, (axis, left, right, 0)
-// at an internal node; slot_geom (T, 12) = (p1, 0, e1, 0, e2, 0) in T, and
-// p1, e1, e2 (T, 3), perm (T,) i32, all in leaf order.
+// at an internal node; slot_geom (T, 12) = (p1, 0, e1, 0, e2, 0) in T and
+// perm (T,) i32, both in leaf order.
 //
 // Bound: operations. Per slab test about 36 (6 subtractions and 6
 // products, 10 minima and maxima, 3 for the hit test, 11 for the children's
@@ -69,36 +69,22 @@
 //
 // Design levers (`levers`, a bitmask; each bit switches one on, so that
 // chip_smoke.py can time each against its absence; ops/cuda/kd_traverse.py
-// `DESIGN` launches (a), (b) and the 8x4 blocks of (d)):
+// `DESIGN` launches all three):
 //   (a) kNearFirst: the exit above, at internal and leaf pops. It cuts the
 //       pairs, the work that bounds K7, fourfold at the headline (off: 2.9x
 //       slower).
-//   (b) kPacked: a slot's geometry from slot_geom in 16-byte loads (three
-//       in float32, six in float64) in place of nine 4- or 8-byte loads at
-//       a 12- or 24-byte stride (off: about 4% slower).
-//   (c) kSignReject: u, v and t are each inv * numerator with inv = 1 / det
-//       and must be >= eps > 0, so a pair whose numerator is 0 or has the
-//       sign opposite to det's is rejected without the division, as is
-//       |det| < eps before qvec; an accepted pair divides as before. Off:
-//       its branches split a warp's lanes inside the slot loop, which costs
-//       more than the division they save (on: 10% slower in float32, 21% in
-//       float64).
+//   (b) kPacked: a slot's geometry in 16-byte loads (three in float32, six
+//       in float64) in place of nine scalar loads from the same table.
 //   (d) kWarpBlocks: with the image width, a warp takes an 8x4 pixel block
 //       (a CTA 16x8), not 32 pixels of one row, so its rays walk more of
-//       the same nodes; outputs are still written in pixel order (off: 18-24%
-//       slower).
-//       kSharedLeaf: when every active lane of a warp pops the same leaf
-//       (`__match_any_sync`), the warp stages its slots in shared memory,
-//       32 at a time, one slot a lane, with the per-slot terms that do not
-//       depend on the direction (tvec = o - p1, qvec = tvec x e1, e2 .
-//       qvec: every ray shares the origin) computed once, and the lanes
-//       run MT from there, reading each record as a broadcast; otherwise
-//       each lane reads its own slots. Off: lanes that read one slot are
-//       already served by one cache request, and the staging's votes and
-//       barriers cost what the shared terms save (on: 1-4% slower).
-//   (e) kSharedStack: the stack in shared memory (max_depth + 2 entries a
-//       thread, one bank a thread), in place of a local-memory array, which
-//       the L1 cache holds. Off (on: up to 4% slower).
+//       the same nodes; outputs are still written in pixel order (off:
+//       18-24% slower).
+// Three more measured slower than their absence on an H100 and were taken
+// out (PERF.md): (c) sign rejects before MT's division (their branches
+// split the warp inside the slot loop), (d)'s staging of a leaf that every
+// lane of a warp pops in shared memory (lanes reading one slot are already
+// served by one cache request) and (e) the stack in shared memory (the L1
+// cache holds the local-memory stack as well).
 // The traversal is while-while: each lane walks internal nodes until it
 // holds a leaf to intersect (or its stack is empty), then the warp
 // intersects its lanes' leaves together, so that MT runs with the lanes
@@ -113,19 +99,14 @@ namespace {
 // a warp an 8x4 block of it
 constexpr int kTileW = 16, kTileH = 8;
 constexpr int kThreads = kTileW * kTileH;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxStack = 64;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kRec = 16;   // a staged slot: e1 tnum | e2 0 | tvec 0 | qvec 0
 
 enum : int {
   kNearFirst = 1,
   kPacked = 2,
-  kSignReject = 4,
-  kWarpBlocks = 8,
-  kSharedLeaf = 16,
-  kSharedStack = 32,
-  kAllLevers = 63,
+  kWarpBlocks = 4,
+  kAllLevers = 7,
 };
 
 // torch.minimum / torch.maximum: NaN when either operand is NaN
@@ -139,49 +120,38 @@ __device__ __forceinline__ T nan_max(T a, T b) {
   return a != a ? a : (b != b ? b : (b > a ? b : a));
 }
 
-// true when inv * x (inv = 1 / det) cannot be >= eps > 0: x is 0 or its
-// sign is not det's (a NaN x is left to the full test, which rejects it)
-template <typename T>
-__device__ __forceinline__ bool sign_rejects(T x, bool det_neg) {
-  return x == T(0) || ((x < T(0)) != det_neg);
-}
-
-// a slot's (p1, e1, e2): packed, 16-byte loads, or from the (T, 3) tables
+// a slot's (p1, e1, e2) from slot_geom: 16-byte loads, or nine scalar ones
 template <typename T>
 struct Slot {
   T p1x, p1y, p1z, e1x, e1y, e1z, e2x, e2y, e2z;
 };
 
+template <typename T>
+__device__ __forceinline__ Slot<T> scalar_slot(const T* geom, int s) {
+  const T* g = geom + 12 * s;
+  return {g[0], g[1], g[2], g[4], g[5], g[6], g[8], g[9], g[10]};
+}
+
 template <bool kPackedT>
-__device__ __forceinline__ Slot<float> load_slot(const float* geom,
-                                                 const float* p1,
-                                                 const float* e1,
-                                                 const float* e2, int s) {
+__device__ __forceinline__ Slot<float> load_slot(const float* geom, int s) {
   if constexpr (kPackedT) {
     const float4* g = reinterpret_cast<const float4*>(geom) + 3 * s;
     const float4 a = g[0], b = g[1], c = g[2];
     return {a.x, a.y, a.z, b.x, b.y, b.z, c.x, c.y, c.z};
   } else {
-    return {p1[3 * s], p1[3 * s + 1], p1[3 * s + 2],
-            e1[3 * s], e1[3 * s + 1], e1[3 * s + 2],
-            e2[3 * s], e2[3 * s + 1], e2[3 * s + 2]};
+    return scalar_slot(geom, s);
   }
 }
 
 template <bool kPackedT>
-__device__ __forceinline__ Slot<double> load_slot(const double* geom,
-                                                  const double* p1,
-                                                  const double* e1,
-                                                  const double* e2, int s) {
+__device__ __forceinline__ Slot<double> load_slot(const double* geom, int s) {
   if constexpr (kPackedT) {
     const double2* g = reinterpret_cast<const double2*>(geom) + 6 * s;
     const double2 a = g[0], b = g[1], c = g[2], e = g[3], f = g[4],
                   h = g[5];
     return {a.x, a.y, b.x, c.x, c.y, e.x, f.x, f.y, h.x};
   } else {
-    return {p1[3 * s], p1[3 * s + 1], p1[3 * s + 2],
-            e1[3 * s], e1[3 * s + 1], e1[3 * s + 2],
-            e2[3 * s], e2[3 * s + 1], e2[3 * s + 2]};
+    return scalar_slot(geom, s);
   }
 }
 
@@ -191,39 +161,26 @@ struct Consts {
   float seps_f;
 };
 
-// a pair's early reject (c): taken only with the lever on
-template <bool kRejectT>
-__device__ __forceinline__ bool skip_pair(bool reject) {
-  return kRejectT && reject;
-}
-
-// MT over one leaf's slots read by this lane from the tables; (lmin, lslot)
-// the lowest slot at the leaf's minimum t
-template <typename T, bool kPackedT, bool kRejectT>
-__device__ __forceinline__ void leaf_own(
+// MT over one leaf's slots; (lmin, lslot) the lowest slot at the leaf's
+// minimum t
+template <typename T, bool kPackedT>
+__device__ __forceinline__ void intersect_leaf(
     const Consts<T>& c, T dx, T dy, T dz, int start, int count,
-    const T* __restrict__ geom, const T* __restrict__ p1,
-    const T* __restrict__ e1, const T* __restrict__ e2, T& lmin,
-    int& lslot) {
+    const T* __restrict__ geom, T& lmin, int& lslot) {
   for (int s = start; s < start + count; ++s) {
-    const Slot<T> g = load_slot<kPackedT>(geom, p1, e1, e2, s);
+    const Slot<T> g = load_slot<kPackedT>(geom, s);
     const T px = dy * g.e2z - dz * g.e2y;            // pvec = d x e2
     const T py = dz * g.e2x - dx * g.e2z;
     const T pz = dx * g.e2y - dy * g.e2x;
     const T det = (g.e1x * px + g.e1y * py) + g.e1z * pz;
     const T adet = det < T(0) ? -det : det;
-    const bool neg = det < T(0);
-    if (skip_pair<kRejectT>(!(adet >= c.eps))) continue;
     const T tx = c.ox - g.p1x, ty = c.oy - g.p1y, tz = c.oz - g.p1z;
     const T unum = (tx * px + ty * py) + tz * pz;
-    if (skip_pair<kRejectT>(sign_rejects(unum, neg))) continue;
     const T qx = ty * g.e1z - tz * g.e1y;            // qvec = tvec x e1
     const T qy = tz * g.e1x - tx * g.e1z;
     const T qz = tx * g.e1y - ty * g.e1x;
     const T vnum = (dx * qx + dy * qy) + dz * qz;
-    if (skip_pair<kRejectT>(sign_rejects(vnum, neg))) continue;
     const T tnum = (g.e2x * qx + g.e2y * qy) + g.e2z * qz;
-    if (skip_pair<kRejectT>(sign_rejects(tnum, neg))) continue;
     const T inv = T(1) / (det == T(0) ? T(1) : det);
     const T u = inv * unum, v = inv * vnum, t = inv * tnum;
     const bool ok = adet >= c.eps && u >= c.eps && v >= c.eps
@@ -235,95 +192,7 @@ __device__ __forceinline__ void leaf_own(
   }
 }
 
-// MT over n staged records (kRec values each) of one leaf, slot base s0
-template <typename T, bool kRejectT>
-__device__ __forceinline__ void leaf_staged(const Consts<T>& c, T dx, T dy,
-                                            T dz, const T* rec, int n,
-                                            int s0, T& lmin, int& lslot) {
-  for (int j = 0; j < n; ++j) {
-    const T* q = rec + kRec * j;
-    const T e1x = q[0], e1y = q[1], e1z = q[2], tnum = q[3];
-    const T e2x = q[4], e2y = q[5], e2z = q[6];
-    const T px = dy * e2z - dz * e2y;
-    const T py = dz * e2x - dx * e2z;
-    const T pz = dx * e2y - dy * e2x;
-    const T det = (e1x * px + e1y * py) + e1z * pz;
-    const T adet = det < T(0) ? -det : det;
-    const bool neg = det < T(0);
-    if (skip_pair<kRejectT>(!(adet >= c.eps) || sign_rejects(tnum, neg)))
-      continue;
-    const T tx = q[8], ty = q[9], tz = q[10];
-    const T unum = (tx * px + ty * py) + tz * pz;
-    if (skip_pair<kRejectT>(sign_rejects(unum, neg))) continue;
-    const T qx = q[12], qy = q[13], qz = q[14];
-    const T vnum = (dx * qx + dy * qy) + dz * qz;
-    if (skip_pair<kRejectT>(sign_rejects(vnum, neg))) continue;
-    const T inv = T(1) / (det == T(0) ? T(1) : det);
-    const T u = inv * unum, v = inv * vnum, t = inv * tnum;
-    const bool ok = adet >= c.eps && u >= c.eps && v >= c.eps
-                    && u + v <= c.one_eps && t >= c.eps;
-    if (ok && t < lmin) {
-      lmin = t;
-      lslot = s0 + j;
-    }
-  }
-}
-
-// one slot's staged record: its edges and the direction-free MT terms
-template <typename T, bool kPackedT>
-__device__ __forceinline__ void stage_slot(const Consts<T>& c,
-                                           const T* __restrict__ geom,
-                                           const T* __restrict__ p1,
-                                           const T* __restrict__ e1,
-                                           const T* __restrict__ e2, int s,
-                                           T* rec) {
-  const Slot<T> g = load_slot<kPackedT>(geom, p1, e1, e2, s);
-  const T tx = c.ox - g.p1x, ty = c.oy - g.p1y, tz = c.oz - g.p1z;
-  const T qx = ty * g.e1z - tz * g.e1y;
-  const T qy = tz * g.e1x - tx * g.e1z;
-  const T qz = tx * g.e1y - ty * g.e1x;
-  const T tnum = (g.e2x * qx + g.e2y * qy) + g.e2z * qz;
-  const T r[kRec] = {g.e1x, g.e1y, g.e1z, tnum, g.e2x, g.e2y, g.e2z, T(0),
-                     tx,    ty,    tz,    T(0), qx,    qy,    qz,    T(0)};
-  if constexpr (sizeof(T) == 4) {
-    float4* o = reinterpret_cast<float4*>(rec);
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      o[k] = make_float4(r[4 * k], r[4 * k + 1], r[4 * k + 2], r[4 * k + 3]);
-  } else {
-    double2* o = reinterpret_cast<double2*>(rec);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) o[k] = make_double2(r[2 * k], r[2 * k + 1]);
-  }
-}
-
-template <typename T, bool kPackedT, bool kRejectT>
-__device__ __forceinline__ void intersect_leaf(
-    const Consts<T>& c, T dx, T dy, T dz, bool done, int start, int count,
-    bool staged, T* stage, const T* __restrict__ geom,
-    const T* __restrict__ p1, const T* __restrict__ e1,
-    const T* __restrict__ e2, T& lmin, int& lslot) {
-  if (!staged) {
-    if (!done)
-      leaf_own<T, kPackedT, kRejectT>(c, dx, dy, dz, start, count, geom, p1,
-                                       e1, e2, lmin, lslot);
-    return;
-  }
-  const int lane = threadIdx.x & 31;
-  for (int base = 0; base < count; base += 32) {
-    const int n = min(32, count - base);
-    if (lane < n)
-      stage_slot<T, kPackedT>(c, geom, p1, e1, e2, start + base + lane,
-                              stage + kRec * lane);
-    __syncwarp();
-    if (!done)
-      leaf_staged<T, kRejectT>(c, dx, dy, dz, stage, n, start + base, lmin,
-                               lslot);
-    __syncwarp();
-  }
-}
-
-template <typename T, bool kSmemStack>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 kd_traverse_kernel(const T* __restrict__ origin,        // (3,)
                    const T* __restrict__ dirs,          // (R, 3)
@@ -331,13 +200,9 @@ kd_traverse_kernel(const T* __restrict__ origin,        // (3,)
                    const float4* __restrict__ node_box,  // (N, 2) float4
                    const int4* __restrict__ node_link,   // (N,)
                    const T* __restrict__ geom,           // (T, 12)
-                   const T* __restrict__ p1,             // (T, 3)
-                   const T* __restrict__ e1,
-                   const T* __restrict__ e2,
                    const int* __restrict__ perm,         // (T,)
                    int depth, int levers, T draw, Consts<T> c,
                    T* __restrict__ out_t, int* __restrict__ out_tri) {
-  extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   c.ox = origin[0];
   c.oy = origin[1];
@@ -372,19 +237,11 @@ kd_traverse_kernel(const T* __restrict__ origin,        // (3,)
   const T dx = dirs[3 * rr], dy = dirs[3 * rr + 1], dz = dirs[3 * rr + 2];
   const T ix = T(1) / dx, iy = T(1) / dy, iz = T(1) / dz;
   const bool near_first = levers & kNearFirst;
+  const bool packed = levers & kPacked;
 
-  int lstack[kSmemStack ? 1 : kMaxStack];
-  int* sstack = reinterpret_cast<int*>(smem) + threadIdx.x;
-  auto slot = [&](int i) -> int& {
-    if constexpr (kSmemStack) return sstack[i * kThreads];
-    else return lstack[i];
-  };
-  T* stage = reinterpret_cast<T*>(
-                 smem + (kSmemStack ? depth * kThreads * sizeof(int) : 0))
-             + warp * 32 * kRec;
-
+  int stack[kMaxStack];
   int sp = 0;
-  slot(0) = 0;
+  stack[0] = 0;
   T best_t = draw;
   T bound = best_t * c.c_rel + c.c_abs;
   int best = -1;
@@ -396,7 +253,7 @@ kd_traverse_kernel(const T* __restrict__ origin,        // (3,)
         done = true;
         break;
       }
-      const int node = slot(min(sp, depth - 1));
+      const int node = stack[min(sp, depth - 1)];
       --sp;
       const int4 link = node_link[node];
       if (link.x < 0 && !near_first) {
@@ -447,43 +304,28 @@ kd_traverse_kernel(const T* __restrict__ origin,        // (3,)
       const bool also_left = c_exit < T(s1e) || c_entry < T(s1e);  // :163
       if (go_left_first ? also_right : also_left) {
         ++sp;
-        slot(min(max(sp, 0), depth - 1)) = go_left_first ? link.z : link.y;
+        stack[min(max(sp, 0), depth - 1)] = go_left_first ? link.z : link.y;
       }
       ++sp;
-      slot(min(max(sp, 0), depth - 1)) = go_left_first ? link.y : link.z;
+      stack[min(max(sp, 0), depth - 1)] = go_left_first ? link.y : link.z;
     }
     if (__all_sync(kFull, done)) break;
 
-    // the warp's leaves together; staged when every active lane holds the
-    // same one
-    bool staged = false;
-    int start = leaf.y, count = leaf.z;
-    if (levers & kSharedLeaf) {
-      const unsigned act = __ballot_sync(kFull, !done);
-      const unsigned same = __match_any_sync(kFull, done ? -1 : leaf.y);
-      staged = __any_sync(kFull, !done && same == act);
-      if (staged) {
-        const int src = __ffs(act) - 1;
-        start = __shfl_sync(kFull, start, src);
-        count = __shfl_sync(kFull, count, src);
-      }
-    }
+    // the warp's leaves together
     T lmin = T(1) / T(0);
     int lslot = 0;
-    const bool packed = levers & kPacked, reject = levers & kSignReject;
-#define KD_LEAF(P, R)                                                      \
-  intersect_leaf<T, P, R>(c, dx, dy, dz, done, start, count, staged, stage, \
-                          geom, p1, e1, e2, lmin, lslot)
-    if (reject) {
-      if (packed) KD_LEAF(true, true); else KD_LEAF(false, true);
-    } else {
-      if (packed) KD_LEAF(true, false); else KD_LEAF(false, false);
-    }
-#undef KD_LEAF
-    if (!done && lmin < best_t) {
-      best_t = lmin;
-      best = perm[lslot];
-      bound = best_t * c.c_rel + c.c_abs;
+    if (!done) {
+      if (packed)
+        intersect_leaf<T, true>(c, dx, dy, dz, leaf.y, leaf.z, geom, lmin,
+                                lslot);
+      else
+        intersect_leaf<T, false>(c, dx, dy, dz, leaf.y, leaf.z, geom, lmin,
+                                 lslot);
+      if (lmin < best_t) {
+        best_t = lmin;
+        best = perm[lslot];
+        bound = best_t * c.c_rel + c.c_abs;
+      }
     }
   }
   if (r < n_rays) {
@@ -492,11 +334,10 @@ kd_traverse_kernel(const T* __restrict__ origin,        // (3,)
   }
 }
 
-template <typename T, bool kSmemStack>
+template <typename T>
 cudaError_t launch(const void* origin, const void* dirs, int n_rays,
                    int width, const void* node_box, const void* node_link,
-                   const void* geom, const void* p1, const void* e1,
-                   const void* e2, const void* perm, int depth, int levers,
+                   const void* geom, const void* perm, int depth, int levers,
                    double draw, double eps, double slab_eps, double c_rel,
                    double c_abs, double c_pad, void* out_t, void* out_tri,
                    cudaStream_t stream) {
@@ -507,9 +348,6 @@ cudaError_t launch(const void* origin, const void* dirs, int n_rays,
   } else {
     blocks = (n_rays + kThreads - 1) / kThreads;
   }
-  const size_t smem =
-      (kSmemStack ? size_t(depth) * kThreads * sizeof(int) : 0)
-      + ((levers & kSharedLeaf) ? size_t(kWarps) * 32 * kRec * sizeof(T) : 0);
   Consts<T> c;   // the origin is read by the kernel (no host read)
   c.eps = T(eps);
   c.one_eps = T(1.0 + eps);
@@ -519,14 +357,12 @@ cudaError_t launch(const void* origin, const void* dirs, int n_rays,
   c.c_abs = T(c_abs);
   c.c_pad = T(c_pad);
   c.ox = c.oy = c.oz = c.pad = T(0);
-  kd_traverse_kernel<T, kSmemStack><<<blocks, kThreads, smem, stream>>>(
+  kd_traverse_kernel<T><<<blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(origin), static_cast<const T*>(dirs), n_rays,
       width, static_cast<const float4*>(node_box),
       static_cast<const int4*>(node_link), static_cast<const T*>(geom),
-      static_cast<const T*>(p1), static_cast<const T*>(e1),
-      static_cast<const T*>(e2), static_cast<const int*>(perm), depth,
-      levers, T(draw), c, static_cast<T*>(out_t),
-      static_cast<int*>(out_tri));
+      static_cast<const int*>(perm), depth, levers, T(draw), c,
+      static_cast<T*>(out_t), static_cast<int*>(out_tri));
   return cudaGetLastError();
 }
 
@@ -542,26 +378,20 @@ extern "C" int kd_traverse_launch(const void* origin, const void* dirs,
                                   int n_rays, int width,
                                   const void* node_box,
                                   const void* node_link, const void* geom,
-                                  const void* p1, const void* e1,
-                                  const void* e2, const void* perm,
-                                  int depth, int is_f64, int levers,
-                                  double draw, double eps, double slab_eps,
-                                  double c_rel, double c_abs, double c_pad,
-                                  void* out_t, void* out_tri, void* stream) {
+                                  const void* perm, int depth, int is_f64,
+                                  int levers, double draw, double eps,
+                                  double slab_eps, double c_rel,
+                                  double c_abs, double c_pad, void* out_t,
+                                  void* out_tri, void* stream) {
   if (n_rays < 1 || width < 0 || depth < 1 || depth > kMaxStack
       || (levers & ~kAllLevers))
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  const bool smem_stack = levers & kSharedStack;
-#define KD_LAUNCH(T, S)                                                    \
-  launch<T, S>(origin, dirs, n_rays, width, node_box, node_link, geom, p1, \
-               e1, e2, perm, depth, levers, draw, eps, slab_eps, c_rel,    \
-               c_abs, c_pad, out_t, out_tri, s)
-  cudaError_t err;
-  if (is_f64)
-    err = smem_stack ? KD_LAUNCH(double, true) : KD_LAUNCH(double, false);
-  else
-    err = smem_stack ? KD_LAUNCH(float, true) : KD_LAUNCH(float, false);
-#undef KD_LAUNCH
-  return (int)err;
+  return (int)(is_f64
+      ? launch<double>(origin, dirs, n_rays, width, node_box, node_link,
+                       geom, perm, depth, levers, draw, eps, slab_eps, c_rel,
+                       c_abs, c_pad, out_t, out_tri, s)
+      : launch<float>(origin, dirs, n_rays, width, node_box, node_link, geom,
+                      perm, depth, levers, draw, eps, slab_eps, c_rel, c_abs,
+                      c_pad, out_t, out_tri, s));
 }

@@ -13,7 +13,9 @@
   rays a loop iteration, until every stack is empty (a host read a step),
   with the near-first exit (``near_first=False``: without it, JAX's loop,
   the exit's exactness oracle). The kernel and it agree bit for bit in t
-  and ids.
+  and ids. The exit changes no t and no id, except possibly on a hit
+  within about 6e-3 radians of its triangle's plane in float32 (1e-11 in
+  float64), where MT's own t has lost its digits (`NEAR_REL`).
 - `kd_traverse.launches` counts kernel launches; inside a captured CUDA
   graph (`render_jit`, `make_train_step_jit`) that is the capture's launch,
   not the replays' (chip_smoke.py counts a replay's kernels in the
@@ -23,13 +25,13 @@
   can switch each off. No caller of `kd_traverse` sets them.
 
 Operands: ``o`` (3,) the object-frame origin, ``d`` (R, 3) directions, of
-one dtype, float32 or float64, which the tables' geometry (``p1``, ``e1``,
-``e2``, ``slot_geom``) shares; the kernel takes a tree of at most
-`max_stack` - 2 levels (its stack has ``max_depth + 2`` entries). ``width``
-> 0 says the rays are rows of an image that wide, row-major (the kernel
-then gives a warp an 8x4 pixel block); it changes no result. Returns (t
-(R,) in the rays' dtype, ``draw_distance`` on a miss; tri (R,) int32
-original triangle ids, -1 on a miss).
+one dtype, float32 or float64, which the tables' geometry (``slot_geom``,
+of which ``p1``, ``e1`` and ``e2`` are views) shares; the kernel takes a
+tree of at most `max_stack` - 2 levels (its stack has ``max_depth + 2``
+entries). ``width`` > 0 says the rays are rows of an image that wide,
+row-major (the kernel then gives a warp an 8x4 pixel block); it changes no
+result. Returns (t (R,) in the rays' dtype, ``draw_distance`` on a miss;
+tri (R,) int32 original triangle ids, -1 on a miss).
 """
 
 from __future__ import annotations
@@ -72,28 +74,37 @@ _fn = []
 #   relative (u = 2^-24 in float32, 2^-53 in float64), min and max add
 #   none, and MT's t is off by a few ulps, more on grazing hits: NEAR_REL
 #   (1e-4 relative) covers that, and NEAR_ABS t near 0.
-# A wider margin only skips less and can never change t or an id; the exit
-# is exact because the best changes only on a strictly smaller t. The
-# argument holds for hits at least about a third of a degree off their
-# triangle's plane in float32 (about 1e-11 radians in float64): a more
-# grazing hit's t has lost most of its digits, may lie outside the grown
-# box, and could then be skipped where the walk without the exit takes it.
-# Held bitwise against the walk without the exit in tests/test_torch_kd.py
-# and chip_smoke.py phase 16 (every headline ray, float32 and float64).
+# A wider margin only skips less: it can never change t or an id, because
+# the best changes only on a strictly smaller t.
+# The argument does not hold for every hit. With every rounding at its
+# worst, it covers hits at least about a third of a degree (6e-3 radians)
+# off their triangle's plane in float32, and about 1e-11 radians in
+# float64. MT's t and the point it names are off by about u / sin of that
+# angle times |o - p1|, so a more grazing hit can lie outside the grown
+# box; if another hit lies between its t and the box, the exit skips the
+# node where the walk without it takes the grazing hit. No fixed pad
+# removes that: MT's error grows without bound as the angle falls, and at
+# such a hit MT's t is itself off the plane's by that much.
+# The worst case is loose: rounding errors seldom align, and a difference
+# needs a second hit in that gap. Tilted planes of 1,800 triangles stay
+# bitwise the walk without the exit at 1e-4 and 1e-3 radians in float32
+# (1e-12 and 1e-10 in float64) at leaf 1, 8 and 128; the first difference
+# seen is at 1e-5 radians in float32, one ray in 3,000 at leaf 1 (MT's t
+# 3.4e-3 short of the plane, the point 3.5e-3 outside its triangle's box,
+# ten times the pad; chip_smoke.py phase 16 counts such rays). Held
+# bitwise against the walk without the exit in tests/test_torch_kd.py and
+# chip_smoke.py phase 16 (those planes, and every headline ray, in float32
+# and float64).
 NEAR_REL = 1e-4
 NEAR_ABS = 1e-4
 NEAR_PAD = 1e-4
 
 # K7's design levers, one bit each (csrc/kd_traverse.cu): (a) the near-first
-# exit, (b) packed slot geometry, (c) sign rejects before the division, (d)
-# 8x4 pixel blocks a warp and a common leaf staged in shared memory, (e)
-# the stack in shared memory. `DESIGN` is the mask the wrapper launches:
-# the levers that measured faster than their absence on the H100
-# (chip_smoke.py phase 16); (c), the staged leaf and (e) measured slower
-# and stay off.
-LEVERS = {"near_first": 1, "packed": 2, "sign_reject": 4, "warp_blocks": 8,
-          "shared_leaf": 16, "shared_stack": 32}
-DESIGN = LEVERS["near_first"] | LEVERS["packed"] | LEVERS["warp_blocks"]
+# exit, (b) 16-byte slot loads, (d) 8x4 pixel blocks a warp. `DESIGN`, the
+# mask the wrapper launches, holds all three; chip_smoke.py phase 16 times
+# each against its absence.
+LEVERS = {"near_first": 1, "packed": 2, "warp_blocks": 4}
+DESIGN = sum(LEVERS.values())
 
 
 def _lib():
@@ -104,7 +115,7 @@ def _lib():
             getattr(lib, name).restype = ctypes.c_int
         lib.kd_traverse_launch.argtypes = (
             [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-            + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+            + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
             + [ctypes.c_double] * 6 + [ctypes.c_void_p] * 3)
         lib.kd_traverse_launch.restype = ctypes.c_int
         if lib.kd_traverse_all_levers() != sum(LEVERS.values()):
@@ -133,8 +144,7 @@ def _check(o, d, tables):
     for name, shape, dtype in (
             ("node_box", (n_nodes, 8), torch.float32),
             ("node_link", (n_nodes, 4), torch.int32),
-            ("p1", (n_tris, 3), d.dtype), ("e1", (n_tris, 3), d.dtype),
-            ("e2", (n_tris, 3), d.dtype), ("perm", (n_tris,), torch.int32),
+            ("perm", (n_tris,), torch.int32),
             ("slot_geom", (n_tris, 12), d.dtype)):
         x = getattr(tables, name)
         if x.shape != shape or x.dtype != dtype:
@@ -175,7 +185,7 @@ def _launch(o, d, tables, draw_distance, eps, width, levers):
     if depth > max_stack():
         raise ValueError(f"a KD tree of depth {tables.max_depth} needs a "
                          f"stack of {depth}; the kernel holds {max_stack()}")
-    if width < 0 or levers & ~sum(LEVERS.values()):
+    if width < 0 or levers & ~DESIGN:
         raise ValueError(f"width {width} or levers {levers} out of range")
     if tables.slot_geom.data_ptr() % 16:
         raise ValueError("slot_geom must be 16-byte aligned")
@@ -188,7 +198,6 @@ def _launch(o, d, tables, draw_distance, eps, width, levers):
     err = _lib().kd_traverse_launch(
         o.data_ptr(), d.data_ptr(), num_r, width, tables.node_box.data_ptr(),
         tables.node_link.data_ptr(), tables.slot_geom.data_ptr(),
-        tables.p1.data_ptr(), tables.e1.data_ptr(), tables.e2.data_ptr(),
         tables.perm.data_ptr(), depth, int(d.dtype == torch.float64), levers,
         float(draw_distance), float(eps), float(SLAB_EPSILON),
         1.0 + NEAR_REL, NEAR_ABS, NEAR_PAD, t.data_ptr(), tri.data_ptr(),
@@ -240,8 +249,11 @@ def kd_traverse_reference(o: torch.Tensor, d: torch.Tensor, tables,
     internal, is skipped when its box's slab entry t lies beyond the ray's
     best t by more than a margin, and a popped leaf also when the ray
     misses its box by more than the margin; the exit tests the box grown by
-    a spatial pad (`NEAR_REL`, `NEAR_ABS` and `NEAR_PAD`, and why neither
-    skip changes t or an id). A NaN slab t keeps the node.
+    a spatial pad (`NEAR_REL`, `NEAR_ABS` and `NEAR_PAD`). Neither skip
+    changes t or an id, except possibly on a hit within about 6e-3 radians
+    of its triangle's plane in float32 (1e-11 in float64), where MT's own
+    t has lost its digits (`NEAR_REL` says why, and what was measured). A
+    NaN slab t keeps the node.
     ``near_first=False`` is the walk without the exit, JAX's loop: it
     serves only as the oracle of the exit's exactness.
 

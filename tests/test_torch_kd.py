@@ -15,10 +15,12 @@ On the CPU:
 - the near-first walk bitwise the walk without the exit
   (``near_first=False``, JAX's loop) in t and ids, in float32 and float64
   at leaf sizes 1, 8 and 128, on a sphere, the tie scene, axis-aligned rays
-  through split planes, rays grazing a flat grid at 1e-4 and 1e-2 radians
-  and a 64x36 frame of a 20,000-triangle dense mesh, where it also counts
-  fewer (ray, slot) pairs; K7's packed slot table
-  equal to p1, e1 and e2 in leaf order;
+  through split planes, rays grazing a flat grid at 1e-4 and 1e-2 radians,
+  rays grazing two tilted planes (no box of the tree flat) at 1e-4 and
+  1e-3 radians in float32 and 1e-12 and 1e-10 in float64, where MT's t
+  loses its digits, and a 64x36 frame of a 20,000-triangle dense mesh,
+  where it also counts fewer (ray, slot) pairs; K7's packed slot table
+  equal to p1, e1 and e2 in leaf order, which are views of it;
 - `render_jit(method="kd")` bitwise `render`'s;
 - `make_train_step_jit` with ``"kd"`` and with ``"raster"`` (which it runs
   uncaptured, as `render_jit` does) bitwise `make_train_step` after 3
@@ -216,9 +218,56 @@ def _grazing_rays(dtype, n=1500):
     return cases
 
 
+# the normals of `_tilted_planes`, and their rays' angles to the plane
+TILTS = ((0.57, 0.61, -0.55), (0.3, 0.9, 0.2))
+TILT_ANGLES = {torch.float32: (1e-4, 1e-3), torch.float64: (1e-12, 1e-10)}
+
+
+def _tilted_plane(normal, n: int = 30):
+    """(tv, u, v, unit normal): n x n quads over [-1, 1]^2 of the plane
+    through 0 with that normal, spanned by the unit vectors u and v; no
+    box of a tree over it is flat."""
+    nrm = np.asarray(normal, np.float64)
+    nrm /= np.linalg.norm(nrm)
+    u = np.cross(nrm, [0.0, 0.0, 1.0])
+    u /= np.linalg.norm(u)
+    v = np.cross(nrm, u)
+    xs = np.linspace(-1.0, 1.0, n + 1)
+    tv = []
+    for i in range(n):
+        for j in range(n):
+            a, b = xs[i] * u + xs[j] * v, xs[i + 1] * u + xs[j] * v
+            c, d = xs[i] * u + xs[j + 1] * v, xs[i + 1] * u + xs[j + 1] * v
+            tv += [[a, b, c], [b, d, c]]
+    return np.asarray(tv, np.float32), u, v, nrm
+
+
+def _tilted_rays(u, v, nrm, angle, dtype, n=1500):
+    """(o, d): rays from 3 units off the plane's edge, ``angle`` radians
+    above it, to seeded points of the plane."""
+    rng = np.random.default_rng(1)
+    o = -3.0 * v + 0.013 * u + 3.0 * np.tan(angle) * nrm
+    a, b = rng.uniform(-0.9, 0.9, (2, n))
+    d = a[:, None] * u + b[:, None] * v - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return torch.tensor(o, dtype=dtype), torch.tensor(d, dtype=dtype)
+
+
 def _near_first_case(scene, dtype):
-    """(tv, [(o, d)]) of a near-first scene: rays from numpy-made cameras,
-    the axis-aligned directions or grazing rays."""
+    """[(tv, [(o, d)])] of a near-first scene: rays from numpy-made
+    cameras, the axis-aligned directions or grazing rays."""
+    if scene == "tilted":
+        out = []
+        for normal in TILTS:
+            tv, u, v, nrm = _tilted_plane(normal)
+            out.append((tv, [_tilted_rays(u, v, nrm, a, dtype)
+                             for a in TILT_ANGLES[dtype]]))
+        return out
+    return [_one_case(scene, dtype)]
+
+
+def _one_case(scene, dtype):
+    """(tv, [(o, d)]) of a scene with one mesh."""
     if scene == "axis":
         return _grid_mesh(), [(torch.tensor(o, dtype=dtype),
                                _axis_rays(dtype))
@@ -239,27 +288,28 @@ def _near_first_case(scene, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("leaf", [1, 8, 128])
-@pytest.mark.parametrize("scene",
-                         ["sphere", "ties", "axis", "dense", "grazing"])
+@pytest.mark.parametrize("scene", ["sphere", "ties", "axis", "dense",
+                                   "grazing", "tilted"])
 def test_kd_near_first_is_bitwise_the_walk_without_it(scene, leaf, dtype):
-    tv, cases = _near_first_case(scene, dtype)
-    tab = _tables(tv, leaf, "cpu", dtype)
-    for o, d in cases:
-        counts = {}
-        got = kd_intersect_plain(o, d, tab, ray_chunk=0)
-        want = kd_intersect_plain(o, d, tab, ray_chunk=0, near_first=False)
-        assert got.t.dtype == dtype
-        assert torch.equal(got.tri, want.tri)
-        assert torch.equal(got.t, want.t)
-        assert bool((want.tri >= 0).any())
-        # runs of rays and the counts change nothing
-        t, tri = k7.kd_traverse_reference(o, d, tab, ray_chunk=100,
-                                          counts=counts)
-        assert torch.equal(t, got.t) and torch.equal(tri, got.tri)
+    for tv, cases in _near_first_case(scene, dtype):
+        tab = _tables(tv, leaf, "cpu", dtype)
+        for o, d in cases:
+            counts = {}
+            got = kd_intersect_plain(o, d, tab, ray_chunk=0)
+            want = kd_intersect_plain(o, d, tab, ray_chunk=0,
+                                      near_first=False)
+            assert got.t.dtype == dtype
+            assert torch.equal(got.tri, want.tri)
+            assert torch.equal(got.t, want.t)
+            assert bool((want.tri >= 0).any())
+            # runs of rays and the counts change nothing
+            t, tri = k7.kd_traverse_reference(o, d, tab, ray_chunk=100,
+                                              counts=counts)
+            assert torch.equal(t, got.t) and torch.equal(tri, got.tri)
 
 
 def test_kd_near_first_counts_fewer_pairs_on_a_dense_mesh():
-    tv, [(o, d)] = _near_first_case("dense", torch.float32)
+    tv, [(o, d)] = _one_case("dense", torch.float32)
     tab = _tables(tv, 128, "cpu")
     counts = {nf: {} for nf in (True, False)}
     for nf, c in counts.items():
@@ -281,7 +331,9 @@ def test_kd_packed_slots_are_p1_e1_e2_in_leaf_order(dtype):
     assert tab.slot_geom.dtype == dtype and tab.slot_geom.is_contiguous()
     perm = tab.perm.long()
     for k, name in enumerate(("p1", "e1", "e2")):
-        assert torch.equal(g[:, k, :3], getattr(tab, name))
+        x = getattr(tab, name)
+        assert torch.equal(g[:, k, :3], x)
+        assert x.data_ptr() == tab.slot_geom[:, 4 * k].data_ptr()
         assert torch.equal(g[:, k, :3], getattr(tris, name)[perm])
         assert not bool(g[:, k, 3].any())
 
@@ -404,19 +456,20 @@ def test_k7_each_lever_off_is_bitwise_plain_on_gpu(lever, dtype):
     near_first = bool(mask & k7.LEVERS["near_first"])
     for scene, leaf, width in (("sphere", 8, RES_W), ("ties", 128, RES_W),
                                ("axis", 1, 0), ("dense", 128, 64),
-                               ("grazing", 8, 0)):
-        tv, cases = _near_first_case(scene, dtype)
-        tab = _tables(tv, leaf, dev, dtype)
-        for o, d in cases:
-            o, d = o.to(dev), d.to(dev)
-            launches = k7.kd_traverse.launches
-            t, tri = k7._launch(o, d, tab, DEFAULT_DRAW_DISTANCE,
-                                MT_EPSILON, width, mask)
-            torch.cuda.synchronize()
-            assert k7.kd_traverse.launches == launches   # not the main path
-            want = kd_intersect_plain(o, d, tab, near_first=near_first)
-            assert torch.equal(tri, want.tri), (scene, leaf)
-            assert torch.equal(t, want.t), (scene, leaf)
+                               ("grazing", 8, 0), ("tilted", 1, 0)):
+        for tv, cases in _near_first_case(scene, dtype):
+            tab = _tables(tv, leaf, dev, dtype)
+            for o, d in cases:
+                o, d = o.to(dev), d.to(dev)
+                launches = k7.kd_traverse.launches
+                t, tri = k7._launch(o, d, tab, DEFAULT_DRAW_DISTANCE,
+                                    MT_EPSILON, width, mask)
+                torch.cuda.synchronize()
+                # not the main path
+                assert k7.kd_traverse.launches == launches
+                want = kd_intersect_plain(o, d, tab, near_first=near_first)
+                assert torch.equal(tri, want.tri), (scene, leaf)
+                assert torch.equal(t, want.t), (scene, leaf)
 
 
 @pytest.mark.gpu
