@@ -131,7 +131,19 @@ Phases (any failure raises and the process exits non-zero):
      ``fixed``; one sharded all-leaves ``make_train_step`` step against the
      single-device step from the same parameters: K1's and K2's counters
      move, every gradient finite, gradients and parameters bitwise equal;
-     multi-GPU scaling is not measured (one card);
+     then the compiled sharded paths: an NCCL all-reduce and all-gather
+     captured by the capture cache's own ``capture`` and replayed on new
+     inputs, bitwise (the compiled frame and step skip their collectives at
+     world size 1); ``render_sharded_jit`` on frames 0, 1, 0 for ``bin``,
+     ``pallas2``, ``pallas`` and ``kd`` (leaf 128), each bitwise
+     ``render_sharded``'s, one graph a method, eager and replayed frames in
+     turns, profiled, each kernel seen inside the replay; the compiled
+     all-leaves and pose/light/camera-only sharded bin steps
+     (``make_train_step_jit`` with the mesh) against eager sharded steps
+     from twin parameter sets: parameters bitwise after 3 steps and after
+     8 of each in turns and a profiled one (medians, device busy ms, host
+     operations), K1 (and K2, all leaves only) seen in the replayed step;
+     ranks on several cards are chip_sharded.py's;
  13. the raster path (plain PyTorch, no kernel) on headline frame 0:
      ``RASTER_FRAMES`` frames timed with CUDA events, the peak memory above
      the scene, the overflow stats (nothing dropped), ids against K1's frame
@@ -191,9 +203,10 @@ constants, lie within 1e-5 of the oracle's t. Each phase prints its seconds.
 Operation bounds are given at the FMA peak (``bound_ms``: 2 operations a
 lane a clock) and at one instruction an operation (``bound_issue_ms``: the
 kernels are built with -fmad=false). Prints a JSON line of per-kernel
-results (``launches_by_path`` with phase 12's sharded paths and phase 15's
-``serve_jit`` and ``train_jit``: kernel instances the profiler saw in one
-replayed frame or step, as a replay moves no launch counter), then, as the
+results (``launches_by_path`` with phase 12's sharded paths, its
+``sharded_jit`` and ``sharded_train_jit``, and phase 15's ``serve_jit`` and
+``train_jit``: kernel instances the profiler saw in one replayed frame or
+step, as a replay moves no launch counter), then, as the
 last line,
 ``{"ok": true, "device": {...}}``. Needs a CUDA device and never falls back
 to the CPU.
@@ -247,6 +260,7 @@ SHARDED_2D_TRIS = 20_000       # render_sharded_2d (brute) at a cut size
 RASTER_FRAMES = 3
 RASTER_SPANS = (8, 16)         # timed once each against the default 4
 N_JIT_STEPS = 3                # compiled against eager steps, bitwise
+PROFILE_PAD_S = 0.005          # idle host time either side of a replay_profile
 # each kernel's name in a profiler trace (a replay has no launch counter)
 KERNEL_NAMES = {"bin_intersect": "own_walk_kernel",
                 "segment_sum": "segment_sum_level",
@@ -312,13 +326,24 @@ def replay_profile(fn):
     (kernel and graph launches, copies, fills, syncs: the host's events
     named ``cuda*``), the instances count each `KERNEL_NAMES` kernel among
     the device events, a captured graph's included, and the graph launches
-    are the host's ``cudaGraphLaunch`` calls."""
+    are the host's ``cudaGraphLaunch`` calls; a sixth value counts the host
+    operations by name (with a process group they include the polls of
+    NCCL's watchdog thread). The window has `PROFILE_PAD_S` of idle host
+    time either side of the call (one profiled replay once lost the first
+    175 of its device records)."""
+    import collections
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+    calls = collections.Counter(
+        e.name for e in prof.events()
+        if e.device_type == DeviceType.CPU and e.name.startswith("cuda"))
     events = prof.key_averages()
     on_dev = [a for a in events if a.device_type == DeviceType.CUDA]
     host = sum(a.count for a in events if a.device_type == DeviceType.CPU
@@ -328,7 +353,7 @@ def replay_profile(fn):
     graphs = sum(a.count for a in events if a.device_type == DeviceType.CPU
                  and a.key.startswith("cudaGraphLaunch"))
     return (sum(a.self_device_time_total for a in on_dev) / 1e3,
-            sum(a.count for a in on_dev), host, seen, graphs)
+            sum(a.count for a in on_dev), host, seen, graphs, dict(calls))
 
 
 def op_bounds(n_ops: int, n_bytes: int, clock_mhz: float,
@@ -474,8 +499,7 @@ def main() -> None:
                     or "spill" in line:
                 log(f"  ptxas [{name}]: {line.strip()}")
 
-    cfg = RenderConfig(method="bin", tile_h=16, tile_w=32, bin_chunk=512,
-                       backface_cull=True)
+    cfg = headline_configs()["bin"]
     chunk = cfg.bin_chunk
     phase_done(1)
 
@@ -565,15 +589,7 @@ def main() -> None:
     phase_done(2)
 
     # ---- 3. serve frames through the port's entry point ----
-    tris = Triangles.from_vertices(headline_tv, device=dev)
-    frames = []
-    for i in range(N_FRAMES):
-        pose = Pose(from_axis_angle([0.0, 1.0, 0.0], math.radians(2.0 * i),
-                                    device=dev), torch.zeros(3, device=dev))
-        cam = Camera.create(RES_W, RES_H, pos=[0.002 * i, 0.0, -3.0],
-                            look_at=[0.0, 0.0, 0.0], up=[0.0, 1.0, 0.0],
-                            film_h=0.024, focal=0.055, device=dev)
-        frames.append((Scene([SceneObject(tris, pose)]), cam))
+    frames = headline_frames(dev, headline_tv)
     k1.bin_intersect.launches = 0
     outs, frame_ms = [], []
     start = torch.cuda.Event(enable_timing=True)
@@ -588,9 +604,10 @@ def main() -> None:
     launches = k1.bin_intersect.launches
     for i, ((scene, cam), out) in enumerate(zip(frames, outs)):
         with torch.inference_mode():
-            _, b = bin_object(scene.objects[0].pose.inv_apply(cam.pos), tris,
-                              cam.projection().transformed(
-                                  scene.objects[0].pose), cfg, RES_H, RES_W)
+            obj = scene.objects[0]
+            _, b = bin_object(obj.pose.inv_apply(cam.pos), obj.tris,
+                              cam.projection().transformed(obj.pose), cfg,
+                              RES_H, RES_W)
         hit = out.hit_tri >= 0
         log(f"frame {i}: {frame_ms[i]:.3f} ms entries {b.num_entries} "
             f"hit_rate {float(hit.float().mean()):.6f}")
@@ -1046,7 +1063,8 @@ def main() -> None:
     phase_done(11)
 
     # ---- 12. sharding at world size 1 over NCCL ----
-    sharded = run_sharded(dev, frames, cfg, accel, ccfgs, target, smi)
+    sharded = run_sharded(dev, headline_tv, frames, cfg, accel, ccfgs,
+                          target, smi)
     phase_done(12)
 
     # ---- 13. the raster path on headline frame 0 ----
@@ -1118,8 +1136,8 @@ def run_cluster_paths(dev, headline_tv, frames, idx_t, ref, smi, clock_mhz):
     headline size. Returns the ClusterAccel, the two configurations and the
     kernels line's entries for K4 and K5."""
     from cpp_cuda_raytracer_dev_torch import (Camera, ClusterAccel, Pose,
-                                              RenderConfig, Scene,
-                                              SceneObject, Triangles, render)
+                                              Scene, SceneObject, Triangles,
+                                              render)
     from cpp_cuda_raytracer_dev_torch.accel import native
     from cpp_cuda_raytracer_dev_torch.accel import traverse as tr
     from cpp_cuda_raytracer_dev_torch.accel.kd_build import build_kd
@@ -1130,11 +1148,7 @@ def run_cluster_paths(dev, headline_tv, frames, idx_t, ref, smi, clock_mhz):
         make_train_step
     from cpp_cuda_raytracer_dev_torch.utils.procgen import uv_sphere
 
-    cfgs = {"pallas2": RenderConfig(
-        method="pallas2", leaf_size=128, tile_h=16, tile_w=32,
-        max_candidates=64, group_size=32, max_groups=24, escalate_tiles=64,
-        escalate_factor=4)}
-    cfgs["pallas"] = dataclasses.replace(cfgs["pallas2"], method="pallas")
+    cfgs = {k: c for k, c in headline_configs().items() if k != "bin"}
     c2 = cfgs["pallas2"]
     kernels = {"K4": (k45.tile_intersect_v2, k45.tile_intersect_v2_reference),
                "K5": (k45.tile_intersect, k45.tile_intersect_reference)}
@@ -1741,10 +1755,49 @@ def run_bin_tile(dev, frames, idx_t, ref, cfg, smi, clock_mhz):
         "launches_by_path": {"bin_tile_frames": launches}}
 
 
-def run_sharded(dev, frames, cfg, accel, ccfgs, target, smi):
+def nccl_capture_check(dev, mesh) -> None:
+    """An NCCL all-reduce and all-gather over the mesh's "rays" group,
+    captured by the capture cache's own `capture` (a warm-up on a side
+    stream, then the capture, with torch.cuda.graph's default
+    ``capture_error_mode``) between two elementwise kernels, replayed on two
+    new inputs: the outputs must be the collectives' bitwise. At world size
+    1 the compiled sharded frame and step skip their collectives, so this is
+    the check that a collective captures and replays on this card."""
+    import torch.distributed as dist
+
+    from cpp_cuda_raytracer_dev_torch.utils import graphs
+
+    group = mesh.get_group("rays")
+    n = dist.get_world_size(group)
+    x = torch.zeros(4096, device=dev)
+
+    def body(args, _bucket):
+        y = args * 2.0 + 1.0
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+        parts = [torch.empty_like(y) for _ in range(n)]
+        dist.all_gather(parts, y, group=group)
+        return torch.cat(parts) - 1.0, None
+    prog = graphs.capture(body, x, None, torch.cuda.graph_pool_handle())
+    ok = []
+    for v in (3.0, -5.5):
+        x.fill_(v)
+        prog.graph.replay()
+        torch.cuda.synchronize()
+        ok.append(torch.equal(prog.out, torch.full((n * 4096,),
+                                                   (2 * v + 1) * n - 1,
+                                                   device=dev)))
+    log(f"NCCL all_reduce and all_gather over {n} rank(s), captured in a "
+        f"CUDA graph and replayed on two new inputs: bitwise the "
+        f"collectives' results {ok}")
+    if not all(ok):
+        raise RuntimeError("a captured NCCL collective replayed wrongly")
+
+
+def run_sharded(dev, headline_tv, frames, cfg, accel, ccfgs, target, smi):
     """Phase 12 (see the module docstring): the sharded entry points at
-    world size 1 over NCCL, in this process. Returns {kernel name: {path:
-    launches}} for the kernels line."""
+    world size 1 over NCCL, in this process, eager and compiled. Returns
+    {kernel name: {path: launches}} for the kernels line (the compiled
+    paths: the instances the profiler saw in one replay)."""
     import socket
 
     import torch.distributed as dist
@@ -1873,7 +1926,23 @@ def run_sharded(dev, frames, cfg, accel, ccfgs, target, smi):
         if not (finite and same_p and same_g and all(counts)):
             raise RuntimeError("the sharded step differs from the "
                                "single-device step or missed a kernel")
+
+        # the compiled sharded paths against the eager ones
+        nccl_capture_check(dev, mesh1)
+        kd_tab = kd_tables(dev, headline_tv)
+        for method, c, a, kname in (
+                ("bin", cfg, None, "bin_intersect"),
+                ("pallas2", c2, acc, "tile_intersect_v2"),
+                ("pallas", c5, acc, "tile_intersect"),
+                ("kd", RenderConfig(method="kd"), (kd_tab,), "kd_traverse")):
+            out.setdefault(kname, {})["sharded_jit"] = jit_frames(
+                method, c, a, kname, frames, smi, mesh=mesh1)
+        seen = jit_steps(dev, headline_tv, cfg, None, "bin_intersect",
+                         target, smi, mesh=mesh1, turns=N_PAIRED)
+        for kname, n in seen.items():
+            out[kname]["sharded_train_jit"] = n
     finally:
+        pj.SHARDED_GRAPHS.clear()
         dist.destroy_process_group()
     return out
 
@@ -2052,46 +2121,110 @@ def spread(v):
             f"{max(v):.3f} {[round(x, 3) for x in v]}")
 
 
-def jit_frames(method, c, acc, kname, frames, smi, note=""):
-    """`render_jit` against `render` for one method: frames 0, 1 and 0
-    bitwise, one graph captured, eager and replayed frames timed in turns
-    and one of each profiled; ``kname`` must be seen inside the replay.
-    Returns its instances in the replayed frame."""
+def jit_frames(method, c, acc, kname, frames, smi, note="", mesh=None):
+    """`render_jit` against `render` for one method (with a mesh,
+    `render_sharded_jit` against `render_sharded` under inference mode):
+    frames 0, 1 and 0 bitwise, one graph captured, eager and replayed
+    frames timed in turns and one of each profiled; ``kname`` must be seen
+    inside the replay. Returns its instances in the replayed frame."""
     from cpp_cuda_raytracer_dev_torch import render, render_jit
     from cpp_cuda_raytracer_dev_torch.models import renderer
+    from cpp_cuda_raytracer_dev_torch.parallel import render_pjit as pj
 
-    cache = renderer.FRAME_GRAPHS
-    captures = cache.captures
+    name = "render_jit"
+    cache, fns = renderer.FRAME_GRAPHS, {"eager": render,
+                                         "replayed": render_jit}
+    if mesh is not None:
+        name = "render_sharded_jit"
+        cache = pj.sharded_graphs(mesh)
+
+        def eager(scene, cam, config, accel):
+            with torch.inference_mode():
+                return pj.render_sharded(scene, cam, config, mesh, accel)
+        fns = {"eager": eager, "replayed": lambda scene, cam, config, accel:
+               pj.render_sharded_jit(scene, cam, config, mesh, accel)}
+    captures, regrown = cache.captures, cache.regrown
     bad = []
     for i in (0, 1, 0):          # frame 0, another camera and pose, frame 0
-        got = render_jit(*frames[i], c, acc)
+        got = fns["replayed"](*frames[i], c, acc)
         bad += [f"frame {i} {f}" for f in
-                differ(got, render(*frames[i], c, acc))]
+                differ(got, fns["eager"](*frames[i], c, acc))]
     torch.cuda.synchronize()
-    ms = in_turns(lambda kind, i: (render if kind == "eager"
-                                   else render_jit)(*frames[i % N_FRAMES],
-                                                    c, acc),
+    ms = in_turns(lambda kind, i: fns[kind](*frames[i % N_FRAMES], c, acc),
                   ("eager", "replayed"), N_PAIRED)
     prof = {k: replay_profile(lambda: f(*frames[0], c, acc))
-            for k, f in (("eager", render), ("replayed", render_jit))}
-    log(f"render_jit {method}: bitwise render's on frames 0, 1, 0 "
-        f"{not bad}; graphs captured {cache.captures - captures}{note}; "
+            for k, f in fns.items()}
+    log(f"{name} {method}: bitwise the eager frames 0, 1, 0 "
+        f"{not bad}; graphs captured {cache.captures - captures}, "
+        f"regrowths {cache.regrown - regrown}{note}; "
         + "; ".join(f"{k} frames {spread(v)}, profiled frame: device "
                     f"busy {prof[k][0]:.3f} ms in {prof[k][1]} device "
                     f"operations, {prof[k][2]} host operations "
                     f"({prof[k][4]} graph launches), kernels seen "
                     f"{prof[k][3]}" for k, v in ms.items())
         + f" ({smi})")
+    if mesh is not None:
+        log(f"{name} {method}, the replayed frame's host operations: "
+            f"{prof['replayed'][5]}")
     if bad:
-        raise RuntimeError(f"render_jit {method} differs from render: {bad}")
-    if cache.captures - captures != 1:
-        raise RuntimeError(f"render_jit {method} captured "
-                           f"{cache.captures - captures} graphs, not 1")
+        raise RuntimeError(f"{name} {method} differs from the eager frame: "
+                           f"{bad}")
+    # one graph; with a mesh, one more for each regrowth (a band's agreed
+    # bucket may be outgrown by frame 1)
+    grown = cache.regrown - regrown
+    if cache.captures - captures != 1 + grown or (mesh is None and grown):
+        raise RuntimeError(f"{name} {method} captured "
+                           f"{cache.captures - captures} graphs in "
+                           f"{grown} regrowths")
     seen = prof["replayed"][3][kname]
     if seen < 1 or prof["replayed"][4] < 1:
         raise RuntimeError(f"{kname} not seen inside the replayed {method} "
                            "frame")
     return seen
+
+
+def headline_configs() -> dict:
+    """The headline's configurations by method: "bin" (every phase), and
+    "pallas2" and "pallas" with their ClusterAccel's leaf size (phase 9
+    on)."""
+    from cpp_cuda_raytracer_dev_torch import RenderConfig
+    c2 = RenderConfig(method="pallas2", leaf_size=128, tile_h=16, tile_w=32,
+                      max_candidates=64, group_size=32, max_groups=24,
+                      escalate_tiles=64, escalate_factor=4)
+    return {"bin": RenderConfig(method="bin", tile_h=16, tile_w=32,
+                                bin_chunk=512, backface_cull=True),
+            "pallas2": c2,
+            "pallas": dataclasses.replace(c2, method="pallas")}
+
+
+def headline_frames(dev, headline_tv) -> list:
+    """The headline's `N_FRAMES` (scene, camera) pairs, one Triangles for
+    all: frame i turns the mesh by 2·i degrees and moves the camera by
+    0.002·i."""
+    from cpp_cuda_raytracer_dev_torch import (Camera, Pose, Scene,
+                                              SceneObject, Triangles)
+    from cpp_cuda_raytracer_dev_torch.ops.quaternion import from_axis_angle
+    tris = Triangles.from_vertices(headline_tv, device=dev)
+    frames = []
+    for i in range(N_FRAMES):
+        pose = Pose(from_axis_angle([0.0, 1.0, 0.0], math.radians(2.0 * i),
+                                    device=dev), torch.zeros(3, device=dev))
+        cam = Camera.create(RES_W, RES_H, pos=[0.002 * i, 0.0, -3.0],
+                            look_at=[0.0, 0.0, 0.0], up=[0.0, 1.0, 0.0],
+                            film_h=0.024, focal=0.055, device=dev)
+        frames.append((Scene([SceneObject(tris, pose)]), cam))
+    return frames
+
+
+def kd_tables(dev, tv, leaf=KD_LEAF, dtype=torch.float32, tree=None):
+    """KD tables of the vertices ``tv`` (a native tree at ``leaf``, or
+    ``tree``), the geometry in ``dtype``."""
+    from cpp_cuda_raytracer_dev_torch import KDTables, Triangles
+    from cpp_cuda_raytracer_dev_torch.accel.native import build_kd_fast
+    if tree is None:
+        tree = build_kd_fast(tv.min(axis=1), tv.max(axis=1), leaf)
+    return KDTables.from_tree(tree, Triangles.from_vertices(
+        tv, device=dev, dtype=dtype))
 
 
 def train_set(dev, headline_tv):
@@ -2110,13 +2243,15 @@ def train_set(dev, headline_tv):
     return {"scene": Scene([SceneObject(tris, pose)]), "camera": cam}
 
 
-def jit_steps(dev, headline_tv, c, acc, kname, target, smi):
+def jit_steps(dev, headline_tv, c, acc, kname, target, smi, mesh=None,
+              turns=N_PAIRED // 2):
     """The compiled all-leaves and pose/light/camera-only steps
     (`make_train_step_jit`) against the eager ones from twin parameter
-    sets: parameters and losses bitwise after `N_JIT_STEPS` steps and after
-    the timed and profiled ones; ``kname`` seen in every replayed step, K2
-    in the all-leaves one only. Returns {kernel name: instances in the
-    replayed all-leaves step}."""
+    sets, both with ``mesh``: parameters and losses bitwise after
+    `N_JIT_STEPS` steps and after ``turns`` of each in turns and the
+    profiled ones; ``kname`` seen in every replayed step, K2 in the
+    all-leaves one only. Returns {kernel name: instances in the replayed
+    all-leaves step}."""
     from cpp_cuda_raytracer_dev_torch.parallel.render_pjit import (
         make_train_step, make_train_step_jit)
 
@@ -2138,7 +2273,7 @@ def jit_steps(dev, headline_tv, c, acc, kname, target, smi):
             [*p["scene"].objects[0].pose.parameters(),
              *p["scene"].phong.parameters(), p["camera"].pos], lr=LR)
             for k, p in sets.items()}
-        steps = {k: makers[k](opts[k], c, accel=acc) for k in sets}
+        steps = {k: makers[k](opts[k], c, mesh, acc) for k in sets}
 
         def run(k, _i=0):
             return steps[k](sets[k], target)
@@ -2146,11 +2281,12 @@ def jit_steps(dev, headline_tv, c, acc, kname, target, smi):
                   for k in sets}
         same = all(torch.equal(a, b) for a, b in
                    zip(leaves(sets["compiled"]), leaves(sets["eager"])))
-        ms = in_turns(run, ("eager", "compiled"), N_PAIRED // 2)
+        ms = in_turns(run, ("eager", "compiled"), turns)
         prof = {k: replay_profile(lambda: run(k)) for k in sets}
         same_after = all(torch.equal(a, b) for a, b in
                          zip(leaves(sets["compiled"]), leaves(sets["eager"])))
-        log(f"{c.method} {kind} steps, compiled against eager: losses "
+        log(f"{c.method} {kind} steps{'' if mesh is None else ' sharded'}, "
+            f"compiled against eager: losses "
             f"{losses['compiled']} / {losses['eager']}, parameters bitwise "
             f"equal after {N_JIT_STEPS} steps {same}, after the timed and "
             f"profiled ones {same_after}; "
@@ -2160,6 +2296,9 @@ def jit_steps(dev, headline_tv, c, acc, kname, target, smi):
                         f"({prof[k][4]} graph launches), kernels seen "
                         f"{prof[k][3]}" for k, v in ms.items())
             + f" ({smi})")
+        if mesh is not None:
+            log(f"the compiled sharded {kind} step's host operations: "
+                f"{prof['compiled'][5]}")
         if not (same and same_after) or losses["compiled"] != losses["eager"]:
             raise RuntimeError(f"the compiled {c.method} {kind} step differs "
                                "from the eager step")
@@ -2299,11 +2438,9 @@ def run_kd(dev, headline_tv, frames, idx_t, ref, target, smi, clock_mhz):
     `render_jit`; the compiled kd steps; the compiled raster step, which
     runs uncaptured. Returns K7's entry of the kernels line (with
     ``k2_train_jit``, K2's instances in the replayed kd step, to move)."""
-    from cpp_cuda_raytracer_dev_torch import (Camera, RenderConfig,
-                                              Triangles, render)
+    from cpp_cuda_raytracer_dev_torch import Camera, RenderConfig, render
     from cpp_cuda_raytracer_dev_torch.accel.native import build_kd_fast
-    from cpp_cuda_raytracer_dev_torch.accel.traverse import (
-        KDTables, kd_intersect)
+    from cpp_cuda_raytracer_dev_torch.accel.traverse import kd_intersect
     from cpp_cuda_raytracer_dev_torch.ops.cuda import kd_traverse as k7
     from cpp_cuda_raytracer_dev_torch.ops.cuda.kd_traverse import \
         kd_traverse_reference
@@ -2312,10 +2449,7 @@ def run_kd(dev, headline_tv, frames, idx_t, ref, target, smi, clock_mhz):
     from cpp_cuda_raytracer_dev_torch.utils.procgen import uv_sphere
 
     def tables(tv, leaf, dtype=torch.float32, tree=None):
-        if tree is None:
-            tree = build_kd_fast(tv.min(axis=1), tv.max(axis=1), leaf)
-        return KDTables.from_tree(tree, Triangles.from_vertices(
-            tv, device=dev, dtype=dtype))
+        return kd_tables(dev, tv, leaf, dtype, tree)
 
     draw, eps = RenderConfig().draw_distance, RenderConfig().eps
     no_exit = k7.DESIGN & ~k7.LEVERS["near_first"]

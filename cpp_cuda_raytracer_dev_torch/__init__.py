@@ -17,7 +17,9 @@ written for Hopper: the bin intersect with its telemetry switch
 (``csrc/bin_tile_intersect.cu``) and the KD traversal K7
 (``csrc/kd_traverse.cu``). `render_jit` and
 ``parallel/render_pjit.py`` `make_train_step_jit` replay the frame and the
-step as captured CUDA graphs (``utils/graphs.py``). The package imports
+step as captured CUDA graphs (``utils/graphs.py``), and with a mesh
+`render_sharded_jit` and `make_train_step_jit` replay each rank's sharded
+frame and step, collectives included. The package imports
 ``torch`` and never JAX.
 """
 

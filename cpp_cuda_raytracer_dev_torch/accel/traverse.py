@@ -688,7 +688,13 @@ def kd_intersect_plain(o: torch.Tensor, d: torch.Tensor, tables: KDTables,
     (``ops/cuda/kd_traverse.py`` `kd_traverse_reference`), in runs of
     ``ray_chunk`` rays (0: all at once), which change no result. K7's
     oracle; ``near_first=False`` walks without the exit (JAX's loop), the
-    oracle of the exit's exactness."""
+    oracle of the exit's exactness.
+
+    Against JAX's ``kd_intersect`` (ROADMAP F15): both walks give JAX's ids
+    on hits at least 3e-3 rad off their triangle's plane in float32
+    (tests/test_torch_kd.py, tilted planes); closer to the plane MT's t
+    loses its digits and another operation order picks other ids (1-2
+    rays of 1,500 at 1e-3 rad, 27-54 at 1e-4, 213-453 at 1e-5)."""
     t, tri = kd_traverse_reference(o, d, tables, draw_distance, eps,
                                    ray_chunk, near_first=near_first)
     return Hit(t=t, tri=tri, obj=torch.where(tri >= 0, 0, -1).to(torch.int32))

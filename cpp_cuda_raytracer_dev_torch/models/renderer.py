@@ -267,15 +267,19 @@ def jit_captures(config: RenderConfig) -> bool:
     return config.method not in _UNCAPTURED
 
 
-def bin_entry_count(scene: Scene, camera: Camera, config: RenderConfig) -> int:
+def bin_entry_count(scene: Scene, camera: Camera, config: RenderConfig,
+                    proj=None, res_h: int | None = None) -> int:
     """The largest live entry count of the frame's bin tables: the probe
-    that picks a key's first bucket (one uncaptured prepass an object)."""
+    that picks a key's first bucket (one uncaptured prepass an object).
+    ``proj`` and ``res_h``: a band's Projection and height (the sharded
+    paths), else the camera's."""
     from ..accel.traverse import bin_object
     with torch.no_grad():
-        proj = camera.projection()
+        proj = camera.projection() if proj is None else proj
         return max(bin_object(obj.pose.inv_apply(camera.pos), obj.tris,
                               proj.transformed(obj.pose), config,
-                              camera.res_h, camera.res_w)[1].num_entries
+                              res_h or camera.res_h,
+                              camera.res_w)[1].num_entries
                    for obj in scene.objects)
 
 

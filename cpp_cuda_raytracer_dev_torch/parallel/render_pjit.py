@@ -31,9 +31,14 @@ computes the loss of its band, scaled as the whole image's mean (band sum
 / (H·W·3)), reports the loss summed over "rays", and sums the gradients
 before the optimizer steps.
 
-`make_train_step_jit` is `make_train_step` compiled (single device): on
-CUDA two captured graphs a step, the forward and backward, then the
-optimizer's step (utils/graphs.py).
+`make_train_step_jit` is `make_train_step` compiled, with or without a
+mesh: on CUDA two captured graphs a step, the forward and backward (with a
+mesh, the collectives too), then the optimizer's step (utils/graphs.py).
+`render_sharded_jit` is `render_sharded` compiled: each rank replays its
+band's frame and the all-gather of the bands. Every rank captures its own
+graphs and the ranks stay in lockstep: the bin table's bucket is agreed
+over the mesh (`agreed_max`), so that every rank regrows, warms up and
+captures at the same call and the captured collectives pair up.
 
 One deliberate difference: the port traces hits without gradients and
 shades differentiably on every path, so `render_sharded_2d` is
@@ -121,6 +126,90 @@ def render_sharded(scene: Scene, camera: Camera, config: RenderConfig,
     flat = render_rays(scene, camera.pos, rmd, config, accel, band_h,
                        camera.res_w, proj=proj)
     return _whole_frame(flat, mesh, band_h, camera.res_w)
+
+
+def agreed_max(mesh):
+    """`utils/graphs.py` ``agree`` for a mesh: ``agree(count)``, the
+    maximum of a count (an int, or a scalar tensor on this rank's device)
+    over every rank of the mesh, as an int (one MAX all-reduce of 8 bytes
+    a mesh dimension, then one host read). Every rank must call it at the
+    same point of the program."""
+    groups = [mesh.get_group(name) for name in mesh.mesh_dim_names]
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if mesh.device_type == "cuda" else torch.device("cpu"))
+
+    def agree(count) -> int:
+        n = torch.as_tensor(count).to(dev, torch.int64, copy=True).reshape(1)
+        for group in groups:
+            dist.all_reduce(n, op=dist.ReduceOp.MAX, group=group)
+        return int(n)
+    return agree
+
+
+def _band_entry_count(scene: Scene, camera: Camera, config: RenderConfig,
+                      mesh) -> int:
+    """`bin_entry_count` of this rank's band (of the frame without a
+    mesh): the probe of a compiled bin frame or step."""
+    if mesh is None:
+        return bin_entry_count(scene, camera, config)
+    row0, band_h = _check_band(camera, mesh)
+    return bin_entry_count(scene, camera, config,
+                           _band_projection(camera, row0), band_h)
+
+
+# render_sharded_jit's graphs: one `GraphCache` a mesh, as (mesh, cache)
+SHARDED_GRAPHS: list = []
+
+
+def sharded_graphs(mesh) -> graphs.GraphCache:
+    """The `GraphCache` of `render_sharded_jit` on ``mesh`` (made at the
+    mesh's first use, with `agreed_max`; it keeps the mesh)."""
+    for m, cache in SHARDED_GRAPHS:
+        if m is mesh:
+            return cache
+    cache = graphs.GraphCache(agree=agreed_max(check_mesh(mesh)))
+    SHARDED_GRAPHS.append((mesh, cache))
+    return cache
+
+
+def render_sharded_jit(scene: Scene, camera: Camera, config: RenderConfig,
+                       mesh, accel=None) -> RenderOutput:
+    """`render_sharded` compiled, the counterpart of
+    ``jax.jit(render_sharded)``: on CUDA each rank replays one captured
+    graph a frame, its band's frame (``render_differentiable``'s body
+    without gradients) and the all-gather of the bands over "rays", and
+    returns clones of the whole frame. The outputs are bitwise
+    `render_sharded`'s.
+
+    The key rules of `render_jit` (the config, the leaves' shapes, dtypes
+    and device, the resolution, the ``accel`` objects): every rank of an
+    SPMD program hits or misses its cache at the same call. Method "bin" sizes its band's tables at a bucket
+    agreed over the mesh: the first call takes the largest band's probe,
+    and after each replay the ranks all-reduce their live counts (MAX), so
+    that every rank regrows, captures again and replays at the same call.
+    "raster" is not captured (`jit_captures`): it runs as `render_sharded`
+    does, without gradients. A capture that fails raises; nothing falls
+    back to the uncaptured frame. On the CPU (gloo) there are no graphs:
+    the same bucketed body runs, with the same agreed growth check.
+
+    `sharded_graphs(mesh)` is the mesh's `GraphCache`."""
+    if not jit_captures(config):
+        with torch.no_grad():
+            return render_sharded(scene, camera, config, mesh, accel)
+    key = (config, graphs.signature((scene, camera)),
+           camera.res_h, camera.res_w,
+           None if accel is None else tuple(id(a) for a in accel))
+
+    def body(args, bucket):
+        scene_, camera_ = args
+        with torch.no_grad(), bin_budget(bucket) as budget:
+            out = render_sharded(scene_, camera_, config, mesh, accel)
+        return out, None if budget is None else budget.live
+
+    probe = ((lambda args: _band_entry_count(*args, config, mesh))
+             if config.method == "bin" else None)
+    return sharded_graphs(mesh).run(key, (scene, camera), body, probe,
+                                    config.bin_chunk, pin=accel)
 
 
 @dataclasses.dataclass
@@ -416,18 +505,22 @@ def make_train_step_jit(optimizer: torch.optim.Optimizer,
     - G1: the gradients set to None before its capture, so that they come
       from the graph's memory pool and every replay writes them anew; the
       forward, the loss and the backward (the method's kernel, K1 for "bin"
-      or K7 for "kd", and K2 inside it). Method "bin" sizes its tables at
-      a bucket of the live entry count.
-    - Between the graphs the host reads the live count; a step whose count
-      outgrew its bucket is captured again at a larger one and replayed
-      before any parameter changes, so a truncated table never reaches the
-      optimizer.
+      or K7 for "kd", and K2 inside it); with a mesh, this rank's band, the
+      loss's all-reduce and `allreduce_gradients`. Method "bin" sizes its
+      tables at a bucket of the live entry count (with a mesh, the band's,
+      agreed over the mesh: `agreed_max`).
+    - Between the graphs the host reads the live count (with a mesh, after
+      its MAX all-reduce); a step whose count outgrew its bucket is
+      captured again at a larger one and replayed before any parameter
+      changes, so a truncated table never reaches the optimizer. With a
+      mesh every rank does so at the same step.
     - G2: ``optimizer.step()``. It is captured at the second step: the
       first steps eagerly, a real step that builds the optimizer's state,
       so that no warm-up ever steps the optimizer.
     G1 reads the parameters of ``params`` in place and the caller's target
     through a static copy; a step with other parameters, or a target of
-    another shape, captures anew (one pair of graphs is kept).
+    another shape, captures anew (one pair of graphs is kept). With a mesh
+    every rank runs its own graphs and captures anew at the same step.
 
     A method that `render_jit` does not capture (`jit_captures`:
     "raster", whose dense list is sized by a host read) is not captured
@@ -435,28 +528,28 @@ def make_train_step_jit(optimizer: torch.optim.Optimizer,
     optimizer. For a captured method the optimizer must capture
     (`_check_capturable`: SGD without momentum, or ``capturable=True``).
     On the CPU there are no graphs: the step runs as `make_train_step`'s,
-    with the bin tables at the bucket and the same growth check. A mesh
-    raises ``NotImplementedError`` (ROADMAP queue 1, capture of the sharded
-    paths).
+    with the bin tables at the bucket and the same growth check (with a
+    mesh, agreed over gloo). ``step.graphs()`` is the current pair's
+    `GraphCache` (its buckets and regrowths).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_train_step_jit has no sharded form: capturing the "
-            "torch.distributed collectives of a mesh is ROADMAP queue 1 "
-            "(the sharded paths); use make_train_step(optimizer, config, "
-            "mesh)")
     if not jit_captures(config):
-        return make_train_step(optimizer, config, None, accel)
+        return make_train_step(optimizer, config, mesh, accel)
     _check_capturable(optimizer)
-    loss_fn = make_loss_fn(config, None, accel)
+    loss_fn = make_loss_fn(config, mesh, accel)
+    agree = None if mesh is None else agreed_max(mesh)
     state = {"key": None, "cache": None, "g1": None, "g2": None}
 
     def forward_backward(params):
+        trained = [*params["scene"].parameters(),
+                   *params["camera"].parameters()]
+
         def body(target, bucket):
             optimizer.zero_grad(set_to_none=True)
             with bin_budget(bucket) as budget:
                 loss = loss_fn(params, target)
                 loss.backward()
+            if mesh is not None:
+                allreduce_gradients(trained, mesh)
             return loss.detach(), None if budget is None else budget.live
         return body
 
@@ -466,10 +559,10 @@ def make_train_step_jit(optimizer: torch.optim.Optimizer,
                graphs.signature((scene, camera, target)), camera.res_h,
                camera.res_w)
         if key != state["key"]:         # one pair of graphs is kept
-            state.update(key=key, cache=graphs.GraphCache(), g1=None,
+            state.update(key=key, cache=graphs.GraphCache(agree), g1=None,
                          g2=None)
         cache = state["cache"]
-        probe = ((lambda _: bin_entry_count(scene, camera, config))
+        probe = ((lambda _: _band_entry_count(scene, camera, config, mesh))
                  if config.method == "bin" else None)
         loss = cache.run(key, target, forward_backward(params), probe,
                          config.bin_chunk, pin=(params, accel))
@@ -487,4 +580,5 @@ def make_train_step_jit(optimizer: torch.optim.Optimizer,
             state["g2"].replay()
         state["g1"] = g1
         return loss
+    step.graphs = lambda: state["cache"]
     return step

@@ -24,6 +24,16 @@ once per key and bucket into a ``torch.cuda.CUDAGraph`` and replayed:
   the program is captured again at the bucket that holds it and replayed.
   The bucket never shrinks. A capture that fails raises: nothing falls back
   to the uncaptured program.
+- Agreement (the sharded paths, `parallel/render_pjit.py`): every rank of
+  a mesh replays its own graph, whose collectives pair up only if every
+  rank replays, regrows, warms up and captures at the same calls. A cache
+  built with ``agree`` (a count's maximum over the mesh) takes a key's
+  first bucket from the largest probe of any rank and, after each replay,
+  regrows when any rank's live count outgrew the bucket: one collective
+  beside the host read. Keys are rank-local and are never exchanged: what
+  keeps the ranks together is that every rank hits or misses its cache at
+  the same call, which an SPMD program gives with the same keys as a single
+  device (objects named by ``id`` are pinned, so no id is reused).
 
 On the CPU there is no graph: the body runs on the caller's arguments at
 the same bucket, with the same growth check.
@@ -83,7 +93,14 @@ class Captured:
 
 def capture(body, args, bucket, pool) -> Captured:
     """Warm ``body(args, bucket)`` up on a side stream, then capture one
-    call of it into a new graph in ``pool``."""
+    call of it into a new graph in ``pool``. The warm-up also runs a
+    body's collectives eagerly on every rank, which creates the NCCL
+    communicator before the capture. torch.cuda.graph's default
+    ``capture_error_mode`` ("global") is enough while ProcessGroupNCCL
+    runs: on the H100 (torch 2.11, NCCL 2.28.9) an NCCL all-reduce and
+    all-gather capture and replay bitwise in it, also with an eager
+    collective of the same group still in flight when the capture
+    begins."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -98,9 +115,14 @@ def capture(body, args, bucket, pool) -> Captured:
 class GraphCache:
     """Captured programs by key and bucket, in one memory pool. ``captures``
     counts the graphs captured and ``regrown`` the calls whose live count
-    outgrew their bucket; ``buckets`` holds each key's bucket."""
+    outgrew their bucket; ``buckets`` holds each key's bucket.
 
-    def __init__(self):
+    ``agree``: None, or a function that returns the maximum over a mesh of
+    a count (an int, or a scalar tensor on the program's device) as an int;
+    every count that picks or grows a bucket then goes through it."""
+
+    def __init__(self, agree=None):
+        self.agree = agree
         self.pool = None
         self.static: dict = {}      # key -> (static args, their leaves)
         self.graphs: dict = {}      # (key, bucket) -> Captured
@@ -109,13 +131,18 @@ class GraphCache:
         self.captures = 0
         self.regrown = 0
 
+    def count(self, n) -> int:
+        """A live or probed count as an int: read from the device, or with
+        ``agree`` its maximum over the mesh."""
+        return int(n) if self.agree is None else self.agree(n)
+
     def bucket(self, key, args, probe, chunk: int | None) -> int | None:
         """The key's bucket; the first call of a key takes it from
         ``probe(args)``. None for a program without bin tables."""
         if probe is None:
             return None
         if key not in self.buckets:
-            self.buckets[key] = next_bucket(probe(args), chunk)
+            self.buckets[key] = next_bucket(self.count(probe(args)), chunk)
         return self.buckets[key]
 
     def grow(self, key, live, bucket, chunk) -> int | None:
@@ -123,7 +150,7 @@ class GraphCache:
         else the larger bucket to redo it at (one host read of 8 bytes)."""
         if live is None:
             return None
-        n = int(live)
+        n = self.count(live)
         if n <= bucket:
             return None
         self.regrown += 1

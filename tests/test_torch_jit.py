@@ -21,7 +21,9 @@ On the CPU (no graphs; the same bucketed path and growth check):
   two steps, the loss at rtol 1e-5, each step's change within 1e-4 of
   JAX's plus one float32 spacing, the parameters at rtol 1e-5 (atol 1e-7),
   as tests/test_torch_train.py; and bitwise the port's eager step;
-- refusals: a mesh, and optimizers that cannot be captured.
+- the compiled step with a one-rank gloo mesh bitwise the eager one;
+  refusals of optimizers that cannot be captured; `GraphCache` with an
+  ``agree`` stub taking another rank's larger counts.
 
 On the card (marked ``gpu``; they skip here): K1, K2, K4 and K5 each
 captured alone and replayed bitwise; replays bitwise `render`'s
@@ -334,19 +336,84 @@ def test_compiled_step_matches_jax(kw):
 
 
 def test_compiled_step_refuses_a_mesh_and_uncapturable_optimizers():
-    from cpp_cuda_raytracer_dev_torch.parallel.mesh import DeviceMesh
+    """Named before the compiled step took a mesh: a mesh is taken now (a
+    one-rank gloo mesh in this process: two steps bitwise
+    `make_train_step`'s on it); the optimizers that cannot be captured are
+    refused, with a mesh or without."""
+    import socket
 
-    w = [torch.zeros(3, requires_grad=True)]
-    cfg = P.RenderConfig()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step_jit(torch.optim.SGD(w, lr=0.1), cfg,
-                            mesh=object.__new__(DeviceMesh))
-    for opt in (torch.optim.SGD(w, lr=0.1, momentum=0.9),
-                torch.optim.Adam(w, lr=0.1),
-                torch.optim.RMSprop(w, lr=0.1)):
-        with pytest.raises(ValueError, match="capturable"):
-            make_train_step_jit(opt, cfg)
-    make_train_step_jit(torch.optim.SGD(w, lr=0.1, weight_decay=0.1), cfg)
+    import torch.distributed as dist
+
+    from cpp_cuda_raytracer_dev_torch.parallel import mesh as pm
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    pm.initialize_distributed(f"127.0.0.1:{port}", 1, 0, device_type="cpu")
+    try:
+        mesh = pm.make_mesh(1)
+        w = [torch.zeros(3, requires_grad=True)]
+        cfg = P.RenderConfig()
+        for m in (None, mesh):
+            for opt in (torch.optim.SGD(w, lr=0.1, momentum=0.9),
+                        torch.optim.Adam(w, lr=0.1),
+                        torch.optim.RMSprop(w, lr=0.1)):
+                with pytest.raises(ValueError, match="capturable"):
+                    make_train_step_jit(opt, cfg, m)
+            make_train_step_jit(torch.optim.SGD(w, lr=0.1, weight_decay=0.1),
+                                cfg, m)
+        cfg = P.RenderConfig(**BIN)
+        cam0 = P.Camera.create(*STEP_RES, pos=[0.1, 0.3, -3.0],
+                               look_at=[0, 0, 0], up=[0, 1, 0], film_h=0.024,
+                               focal=0.055, device="cpu")
+        target = P.render(_port_scene("cpu"), cam0, cfg).radiance.clone()
+        runs = []
+        for make in (make_train_step_jit, make_train_step):
+            scene = _port_scene("cpu", 0.65)
+            cam = P.Camera.create(*STEP_RES, pos=[0.1, 0.3, -3.0],
+                                  look_at=[0, 0, 0], up=[0, 1, 0],
+                                  film_h=0.024, focal=0.055,
+                                  device="cpu").requires_grad_()
+            leaves = [*scene.parameters(), *cam.parameters()]
+            step = make(torch.optim.SGD(leaves, lr=1e-3), cfg, mesh)
+            losses = [step({"scene": scene, "camera": cam}, target)
+                      for _ in range(2)]
+            runs.append((losses, [p.detach().clone() for p in leaves]))
+            if make is make_train_step_jit:
+                buckets = list(step.graphs().buckets.values())
+    finally:
+        dist.destroy_process_group()
+    (jl, jp), (el, ep) = runs
+    assert float(el[1]) > 0 and len(buckets) == 1 and buckets[0] >= 128
+    for a, b in zip(jl + jp, el + ep):
+        assert torch.equal(a, b)
+
+
+def test_graph_cache_takes_the_agreed_counts():
+    """``agree`` (a count's maximum over a mesh; here a stub standing for
+    another rank) picks the first bucket from the largest probe and regrows
+    when another rank's live count outgrew the bucket, though this rank's
+    fits."""
+    other = iter([600, 100, 1500, 0])   # its probe, then its live counts
+    seen, runs = [], []
+
+    def agree(n):
+        seen.append(int(n))
+        return max(int(n), next(other))
+
+    def body(x, bucket):
+        runs.append(bucket)
+        return x * 2, torch.tensor(100)
+
+    cache = GraphCache(agree=agree)
+    x = torch.ones(3)
+    for _ in range(2):
+        assert torch.equal(cache.run("k", x, body, lambda _: 90, 128), x * 2)
+    assert seen == [90, 100, 100, 100]
+    assert runs == [1024, 1024, 2048]
+    assert cache.buckets == {"k": 2048} and cache.regrown == 1
+    with pytest.raises(StopIteration):
+        next(other)
 
 
 def test_uncaptured_method_takes_any_optimizer():

@@ -12,6 +12,9 @@ On the CPU:
   way); in float64 under ``jax.enable_x64`` at rtol 1e-12, as
   tests/test_torch_f64.py; on CPU tensors `kd_intersect` is the plain
   version, bit for bit;
+- both plain walks against JAX's on two tilted planes grazed at 3e-3 and
+  1e-2 rad (ROADMAP F15): ids equal, t at a tolerance scaled by the
+  grazing angle;
 - the near-first walk bitwise the walk without the exit
   (``near_first=False``, JAX's loop) in t and ids, in float32 and float64
   at leaf sizes 1, 8 and 128, on a sphere, the tie scene, axis-aligned rays
@@ -251,6 +254,58 @@ def _tilted_rays(u, v, nrm, angle, dtype, n=1500):
     d = a[:, None] * u + b[:, None] * v - o
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     return torch.tensor(o, dtype=dtype), torch.tensor(d, dtype=dtype)
+
+
+# F15: the grazing angles down to which the port's kd ids equal JAX's
+F15_ANGLES = (3e-3, 1e-2)
+
+
+@pytest.mark.parametrize("leaf", [1, 8, 128])
+def test_kd_plain_matches_jax_on_tilted_planes(leaf):
+    """ROADMAP F15: on the two tilted planes grazed at 3e-3 and 1e-2 rad
+    (float32), both plain walks (with the near-first exit and without it,
+    JAX's loop) give every ray JAX's `kd_intersect` id. Below, MT's t loses
+    its digits and another operation order gives other ids (1-2 rays of
+    1,500 at 1e-3 rad, 27-54 at 1e-4). t: MT's t on a plane grazed at
+    angle a is conditioned as 1 / a (either package's within 2.6 * 2**-24
+    / a of the hit triangle's float64 t here, 5.3e-5 apart at 3e-3 rad),
+    so the port's is held to JAX's at rtol 8 * 2**-24 / a and to the
+    float64 t at 4 * 2**-24 / a (at 1e-2 rad: 4.8e-5 and 2.4e-5)."""
+    import jax.numpy as jnp
+
+    import cpp_cuda_raytracer_dev_tpu as J
+    from cpp_cuda_raytracer_dev_tpu.accel import traverse as jtr
+    ulp = 2.0 ** -24
+    for normal in TILTS:
+        tv, u, v, nrm = _tilted_plane(normal)
+        tree = build_kd(tv.min(axis=1), tv.max(axis=1), leaf)
+        jtab = jtr.KDTables.from_tree(tree, J.Triangles.from_vertices(tv))
+        tab = KDTables.from_tree(tree, P.Triangles.from_vertices(
+            tv, device="cpu"))
+        tris = P.Triangles.from_vertices(tv, device="cpu",
+                                         dtype=torch.float64)
+        for angle in F15_ANGLES:
+            o, d = _tilted_rays(u, v, nrm, angle, torch.float32)
+            jh = jtr.kd_intersect(jnp.asarray(o.numpy()),
+                                  jnp.asarray(d.numpy()), jtab, ray_chunk=0)
+            jtri, jt = np.asarray(jh.tri), np.asarray(jh.t)
+            assert (jtri >= 0).all()
+            for near_first in (True, False):
+                h = kd_intersect_plain(o, d, tab, ray_chunk=0,
+                                       near_first=near_first)
+                what = str((normal, angle, near_first))
+                np.testing.assert_array_equal(h.tri.numpy(), jtri,
+                                              err_msg=what)
+                np.testing.assert_allclose(h.t.numpy(), jt,
+                                           rtol=8 * ulp / angle, err_msg=what)
+                ids = h.tri.long()
+                with torch.no_grad():
+                    t64, _, _, _ = mt_test(o.double(), d.double(),
+                                           tris.p1[ids], tris.e1[ids],
+                                           tris.e2[ids])
+                np.testing.assert_allclose(h.t.double().numpy(),
+                                           t64.numpy(), rtol=4 * ulp / angle,
+                                           err_msg=what)
 
 
 def _near_first_case(scene, dtype):

@@ -31,7 +31,15 @@ Tolerances, those of the single-device parity tests of each method
   difference, so single small entries differ by up to 0.5% of themselves
   at 2e-6 of their leaf's largest; tests/test_torch_grad.py); JAX's
   ``render_sharded_2d`` has no gradient (its ``pmin`` has no rule), so the
-  port's is held against its single-device gradient (ROADMAP F11).
+  port's is held against its single-device gradient (ROADMAP F11);
+- the compiled sharded paths against the eager ones on the same mesh, on
+  every rank, bit for bit: `make_train_step_jit` with a mesh against
+  `make_train_step` from twin parameter sets (loss at each of 3 steps,
+  gradients, parameters) for the all-leaves and pose/light/camera-only bin
+  steps, and for the all-leaves step whose look_at moves before step 2 so
+  that band 0 alone outgrows the bucket (every rank regrows once, to the
+  same bucket); `render_sharded_jit` against `render_sharded` for "bin"
+  and "pallas2"; the raster step with Adam, which runs uncaptured.
 """
 
 import os
@@ -144,6 +152,65 @@ _WORKER = textwrap.dedent("""
         grads(prefix + ".grad", scene, cam)
         params(prefix + ".param", scene, cam)
 
+    # make_train_step_jit against make_train_step from twin parameter sets,
+    # 3 steps each: the all-leaves and the pose/light/camera-only bin steps,
+    # and the all-leaves step with look_at moved before step 2 so that band
+    # 0 alone outgrows the bucket; render_sharded_jit against
+    # render_sharded; raster with Adam, which the compiled step runs
+    # uncaptured
+    def compiled(mesh):
+        cfg = RenderConfig(**kw["bin"])
+        tgt = torch.tensor(data["target"])
+        for kind in ("all", "pose", "regrow"):
+            for name, make in (("jit", pj.make_train_step_jit),
+                               ("eager", pj.make_train_step)):
+                scene, cam = world_(trainable=True)
+                ps = [*scene.parameters(), *cam.parameters()]
+                if kind == "pose":
+                    scene.objects[0].tris.requires_grad_(False)
+                    cam.requires_grad_(False)
+                    cam.pos.requires_grad_(True)
+                    ps = [*scene.objects[0].pose.parameters(),
+                          *scene.phong.parameters(), cam.pos]
+                step = make(torch.optim.SGD(ps, lr=1e-3), cfg, mesh)
+                p = f"jit.{kind}.{name}"
+                for i in range(3):
+                    if kind == "regrow" and i == 1:
+                        with torch.no_grad():
+                            cam.look_at.copy_(torch.tensor([0.0, -0.4, 0.0]))
+                        res[f"{p}.band1"] = np.array(pj._band_entry_count(
+                            scene, cam, cfg, mesh))
+                    res[f"{p}.loss{i}"] = step({"scene": scene,
+                                                "camera": cam}, tgt).numpy()
+                    if name == "jit":
+                        res[f"{p}.bucket{i}"] = np.array(
+                            list(step.graphs().buckets.values()))
+                grads(p + ".grad", scene, cam)
+                params(p + ".param", scene, cam)
+                if name == "jit":
+                    res[p + ".regrown"] = np.array(step.graphs().regrown)
+        for name in ("bin", "pallas2"):
+            c = RenderConfig(**kw[name])
+            a = accel if name == "pallas2" else None
+            scene, cam = world_()
+            keep(f"jit.frame.{name}", pj.render_sharded_jit(scene, cam, c,
+                                                            mesh, a))
+            with torch.no_grad():
+                keep(f"eager.frame.{name}", pj.render_sharded(scene, cam, c,
+                                                              mesh, a))
+        res["jit.frame.buckets"] = np.array(
+            list(pj.sharded_graphs(mesh).buckets.values()))
+        for name, make in (("jit", pj.make_train_step_jit),
+                           ("eager", pj.make_train_step)):
+            scene, cam = world_(trainable=True)
+            step = make(torch.optim.Adam([*scene.parameters(),
+                                          *cam.parameters()], lr=1e-3),
+                        RenderConfig(method="raster"), mesh)
+            res[f"raster.{name}.loss"] = step({"scene": scene,
+                                               "camera": cam}, tgt).numpy()
+            res[f"raster.{name}.step"] = np.array(step.__qualname__)
+            params(f"raster.{name}.param", scene, cam)
+
     def sharded_grad(prefix, fn, *args):
         scene, cam = world_(trainable=True)
         (fn(scene, cam, *args).radiance * weight).mean().backward()
@@ -168,6 +235,7 @@ _WORKER = textwrap.dedent("""
                      RenderConfig(**kw["fixed"]), mesh)
         step("step.sharded", mesh)
         step("step.single", None)
+        compiled(mesh)
         for bad in (dict(n_devices=4), dict(prims=2, prims_axis=False)):
             try:
                 pm.make_mesh(**bad)
@@ -209,6 +277,7 @@ _WORKER = textwrap.dedent("""
         grads("grad.single.fixed", scene, cam)
         step("step.sharded", mesh)
         step("step.single", None)
+        compiled(mesh)
     np.savez(f"{out}/rank{rank}.npz", **res)
     dist.destroy_process_group()
     print(f"rank {rank}: OK")
@@ -518,6 +587,76 @@ def test_render_sharded_2d_gradient_matches_single_device(runs):
     r = runs["w4"][0]
     _assert_leaves_close(_sub(r, "grad.sharded.2d."),
                          _sub(r, "grad.single.fixed."), 1e-5, "2d")
+
+
+def _compiled_against_eager(r, prefix):
+    """Every value the worker kept of the compiled run under ``prefix`` (a
+    loss a step, the gradients, the parameters) bitwise the eager twin's."""
+    got = _sub(r, prefix + ".jit.")
+    got = {k: v for k, v in got.items()
+           if not k.startswith(("bucket", "regrown", "band1", "step"))}
+    want = _sub(r, prefix + ".eager.")
+    assert got and set(got) <= set(want), prefix
+    for k, v in got.items():
+        np.testing.assert_array_equal(v, want[k], err_msg=f"{prefix} {k}")
+
+
+@pytest.mark.parametrize("kind", ["all", "pose", "regrow"])
+@pytest.mark.parametrize("world", ["w2", "w4"])
+def test_compiled_sharded_step_is_bitwise_the_eager_step(runs, world, kind):
+    """make_train_step_jit with a mesh: 3 steps bitwise make_train_step's
+    in loss, gradients and parameters, for the all-leaves and the
+    pose/light/camera-only bin steps and the all-leaves step that regrows
+    at step 2."""
+    for r in runs[world]:
+        _compiled_against_eager(r, f"jit.{kind}")
+        assert sum(f"jit.{kind}.jit.loss{i}" in r for i in range(3)) == 3
+    g = _sub(runs[world][0], f"jit.{kind}.jit.grad.")
+    trained = [k for k, v in g.items() if np.abs(v).max() > 0]
+    assert any(".tris." in k for k in trained) == (kind != "pose"), trained
+    assert trained
+
+
+@pytest.mark.parametrize("world", ["w2", "w4"])
+def test_compiled_sharded_step_regrows_in_lockstep(runs, world):
+    """look_at moved before step 2: band 0's live count outgrows the
+    agreed bucket, band 1's does not, and every rank regrows at step 2 to
+    the same bucket (each rank's growth is agreed over the mesh)."""
+    rs = runs[world]
+    first = int(rs[0]["jit.regrow.jit.bucket0"][0])
+    bands = {int(r["jit.regrow.jit.band1"]) for r in rs}
+    assert max(bands) > first >= min(bands), (bands, first)
+    for r in rs:
+        assert [r[f"jit.regrow.jit.bucket{i}"].tolist() for i in range(3)] \
+            == [[first], [2 * first], [2 * first]]
+        assert int(r["jit.regrow.jit.regrown"]) == 1
+        for kind in ("all", "pose"):
+            assert int(r[f"jit.{kind}.jit.regrown"]) == 0
+            assert r[f"jit.{kind}.jit.bucket2"].tolist() == [first]
+
+
+@pytest.mark.parametrize("name", ["bin", "pallas2"])
+@pytest.mark.parametrize("world", ["w2", "w4"])
+def test_render_sharded_jit_is_bitwise_render_sharded(runs, world, name):
+    for r in runs[world]:
+        got = _sub(r, f"jit.frame.{name}.")
+        want = _sub(r, f"eager.frame.{name}.")
+        assert sorted(got) == sorted(FIELDS)
+        for f in FIELDS:
+            np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+        assert (got["hit_tri"] >= 0).mean() > 0.5
+        assert r["jit.frame.buckets"].tolist() == \
+            runs[world][0]["jit.frame.buckets"].tolist()
+
+
+@pytest.mark.parametrize("world", ["w2", "w4"])
+def test_compiled_sharded_raster_step_is_the_eager_step(runs, world):
+    """Raster is not captured: make_train_step_jit with a mesh returns
+    make_train_step's step for any optimizer (Adam here), bitwise."""
+    for r in runs[world]:
+        assert str(r["raster.jit.step"]) == str(r["raster.eager.step"])
+        assert float(r["raster.jit.loss"]) > 0
+        _compiled_against_eager(r, "raster")
 
 
 def test_render_sharded_2d_bin_refuses_with_stats():
