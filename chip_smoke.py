@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Drives the port's ``method="bin"`` frame and its training step, the
+Drives the port's ``method="bin"`` frame (its prepass through kernels K8
+and K9, its shading through K10) and its training step, the
 cluster paths ``method="pallas2"`` and ``"pallas"``, the per-tile bin
 kernel K6, the apps ``render_cli`` and ``animate``, the sharded entry points
 (at world size 1 over NCCL), the raster path, float64, the compiled
@@ -197,7 +198,27 @@ Phases (any failure raises and the process exits non-zero):
      the compiled kd all-leaves and pose/light/camera-only steps bitwise the
      eager ones, as phase 15's; ``make_train_step_jit`` with raster, which
      runs uncaptured (``make_train_step``'s step), ``N_RASTER_STEPS`` steps
-     bitwise the eager ones.
+     bitwise the eager ones;
+ 17. the serving frame's kernels K8 (the bin prepass's per-triangle pass
+     and its ray table), K9 (the entry passes around the key sort) and K10
+     (shading and composition): K8 and K9 bitwise their plain versions
+     (every output of each launch) on a 96x64 sphere, headline frame 0 at
+     the live count and at bucket 524,288, the band of its rows 270-539 and
+     each object of a two-object scene sharing the headline Triangles;
+     K10 bitwise its plain version on the sphere, frame 0, the band, the
+     two-object scene and the kd frame 0 in float64; each launch timed
+     (its device time from the profiler) against its plain version and its
+     byte bound; the replayed bin frame's device time by stage (each stage
+     captured alone: ray table, prepass, sort, table, K1, shading and
+     composition) with the kernels and with the plain versions; replayed
+     bin, ``pallas2``, ``pallas`` and kd frames and the compiled
+     all-leaves and pose/light/camera-only steps with the kernels and with
+     the plain versions in their places, in turns, bitwise, one of each
+     profiled (device busy, device and host operations, kernels seen: K8
+     and K9 in every bin frame and step, K10 in every frame and in no
+     step); the counters from 0 over 8 bin frames through ``render``, a
+     ``pallas2`` and a ``pallas`` frame, and one bin training step (K10:
+     none). Phases 11 and 12 count K8-K10 on the apps and sharded paths.
 A differing id passes as a tie when both triangles' t, by the oracle's
 constants, lie within 1e-5 of the oracle's t. Each phase prints its seconds.
 Operation bounds are given at the FMA peak (``bound_ms``: 2 operations a
@@ -252,6 +273,11 @@ K7_OPS_PER_NODE = 36           # csrc/kd_traverse.cu, "Bound"
 K7_OPS_PER_PAIR = 54
 K7_LEVER_ROUNDS = 4            # rounds of K7's levers in turns (ABBA)
 K7_LEVER_REPS = 5              # launches a timed sample
+K8_OPS_PER_TRI = 150           # csrc/bin_prepass.cu, "Bound"
+RAY_TABLE_OPS_PER_RAY = 60
+K9_OPS_PER_TRI = 30
+K9_OPS_PER_ENTRY = 12
+K10_OPS_PER_HIT = 240          # csrc/shade.cu, "Bound"
 N_RASTER_STEPS = 2             # uncaptured compiled raster steps vs eager
 N_ANIMATE_TICKS = 30
 BACKGROUND = (240, 130, 0)
@@ -260,13 +286,21 @@ SHARDED_2D_TRIS = 20_000       # render_sharded_2d (brute) at a cut size
 RASTER_FRAMES = 3
 RASTER_SPANS = (8, 16)         # timed once each against the default 4
 N_JIT_STEPS = 3                # compiled against eager steps, bitwise
-PROFILE_PAD_S = 0.005          # idle host time either side of a replay_profile
+PROFILE_PAD_S = 0.005          # idle host time either side of a profiled call
+# the wrappers of kernels K8 (two launches), K9 (two) and K10
+SERVING_KERNELS = ("bin_tri_pass", "ray_table", "bin_entry_keys",
+                   "bin_entry_table", "shade_compose")
 # each kernel's name in a profiler trace (a replay has no launch counter)
 KERNEL_NAMES = {"bin_intersect": "own_walk_kernel",
                 "segment_sum": "segment_sum_level",
                 "tile_intersect_v2": "tile_intersect_kernel<true",
                 "tile_intersect": "tile_intersect_kernel<false",
-                "kd_traverse": "kd_traverse_kernel"}
+                "kd_traverse": "kd_traverse_kernel",
+                "bin_tri_pass": "tri_pass_kernel",
+                "ray_table": "ray_table_kernel",
+                "bin_entry_keys": "entry_keys_kernel",
+                "bin_entry_table": "entry_table_kernel",
+                "shade_compose": "shade_compose_kernel"}
 # K3's and K6's design levers, each switched off (one ray a thread, which at
 # P 512 is also one entry group of 512 threads; one entry group of P / 4
 # threads; two rays a thread in two groups; the next block or chunk copied
@@ -300,16 +334,18 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def device_profile(fn):
-    """Run ``fn()`` once under torch.profiler. Returns (device busy ms,
-    device operations, the 8 largest device kernels as (name, count, ms)).
-    Only device events count: an aten op's own device time repeats its
-    kernels'."""
+    """Run ``fn()`` once under torch.profiler, with `PROFILE_PAD_S` of idle
+    host time either side. Returns (device busy ms, device operations, the
+    8 largest device kernels as (name, count, ms)). Only device events
+    count: an aten op's own device time repeats its kernels'."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
     on_dev = [a for a in prof.key_averages()
               if a.device_type == DeviceType.CUDA]
     on_dev.sort(key=lambda a: -a.self_device_time_total)
@@ -490,7 +526,8 @@ def main() -> None:
     log(f"max SM clock {clock_mhz} MHz")
     t0 = time.perf_counter()
     built = _build.build("bin_intersect", "segment_sum", "tile_intersect",
-                         "bin_tile_intersect", "kd_traverse")
+                         "bin_tile_intersect", "kd_traverse", "bin_prepass",
+                         "shade")
     log(f"built {', '.join(lib.name for lib, _ in built.values())} in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, (_, build_log) in built.items():
@@ -1059,7 +1096,7 @@ def main() -> None:
     phase_done(10)
 
     # ---- 11. the entry points: render_cli and animate ----
-    cli_launches = run_entry_points(dev, headline_tv, smi)
+    cli_launches, animate_seen = run_entry_points(dev, headline_tv, smi)
     phase_done(11)
 
     # ---- 12. sharding at world size 1 over NCCL ----
@@ -1083,9 +1120,19 @@ def main() -> None:
     # ---- 16. the KD path: K7, its frame and its compiled step ----
     k7_kernel = run_kd(dev, headline_tv, frames, idx_t, ref, target, smi,
                        clock_mhz)
-    k7_kernel["launches_by_path"]["render_cli"] = cli_launches["kd"]
+    k7_kernel["launches_by_path"]["render_cli"] = cli_launches["kd"]["K7"]
     compiled["segment_sum"]["train_jit_kd"] = k7_kernel.pop("k2_train_jit")
     phase_done(16)
+
+    # ---- 17. the serving frame's kernels K8, K9 and K10 ----
+    serving = run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs,
+                                  target, smi, clock_mhz)
+    for entry in serving:
+        paths = entry["launches_by_path"]
+        for method, launched in cli_launches.items():
+            paths[f"render_cli_{method}"] = launched[entry["name"]]
+        paths["animate_replays"] = animate_seen[entry["name"]]
+    phase_done(17)
 
     kernels = [{
         "name": "bin_intersect", "route": "cuda",
@@ -1121,7 +1168,7 @@ def main() -> None:
         "backward_ms": k2_backward_ms,
         "launches_by_path": {"serve": 0, "train": train_k2,
                              "train_pose_light_camera": pose_k2}},
-        *cluster_kernels, k6_kernel, k7_kernel]
+        *cluster_kernels, k6_kernel, k7_kernel, *serving]
     for entry in kernels:     # phases 12 and 15, path by path
         entry["launches_by_path"].update(sharded.get(entry["name"], {}))
         entry["launches_by_path"].update(compiled.get(entry["name"], {}))
@@ -1806,7 +1853,9 @@ def run_sharded(dev, headline_tv, frames, cfg, accel, ccfgs, target, smi):
                                               Scene, SceneObject, Triangles,
                                               render)
     from cpp_cuda_raytracer_dev_torch.ops.cuda import bin_intersect as k1
+    from cpp_cuda_raytracer_dev_torch.ops.cuda import bin_prepass as bp
     from cpp_cuda_raytracer_dev_torch.ops.cuda import segment_sum as k2
+    from cpp_cuda_raytracer_dev_torch.ops.cuda import shade as k10
     from cpp_cuda_raytracer_dev_torch.ops.cuda import tile_intersect as k45
     from cpp_cuda_raytracer_dev_torch.ops.quaternion import from_axis_angle
     from cpp_cuda_raytracer_dev_torch.parallel import mesh as pm
@@ -1832,22 +1881,29 @@ def run_sharded(dev, headline_tv, frames, cfg, accel, ccfgs, target, smi):
         scene, cam = frames[0]
         c2, c5 = ccfgs["pallas2"], ccfgs["pallas"]
         acc = (accel,)
+        # K8 and K9 on every bin path, K10 on every serving path
+        prep = [bp.bin_tri_pass, bp.ray_table, bp.bin_entry_keys,
+                bp.bin_entry_table, k10.shade_compose]
+        shade = [k10.shade_compose]
         cases = [
             ("render_sharded bin", "sharded_bin",
              lambda: pj.render_sharded(scene, cam, cfg, mesh1),
-             lambda: render(scene, cam, cfg), [k1.bin_intersect]),
+             lambda: render(scene, cam, cfg), [k1.bin_intersect, *prep]),
             ("render_sharded pallas2", "sharded_pallas2",
              lambda: pj.render_sharded(scene, cam, c2, mesh1, acc),
-             lambda: render(scene, cam, c2, acc), [k45.tile_intersect_v2]),
+             lambda: render(scene, cam, c2, acc),
+             [k45.tile_intersect_v2, *shade]),
             ("render_sharded pallas", "sharded_pallas",
              lambda: pj.render_sharded(scene, cam, c5, mesh1, acc),
-             lambda: render(scene, cam, c5, acc), [k45.tile_intersect]),
+             lambda: render(scene, cam, c5, acc),
+             [k45.tile_intersect, *shade]),
             ("render_sharded_2d_bin", "sharded_2d_bin",
              lambda: pj.render_sharded_2d_bin(scene, cam, cfg, mesh11),
-             lambda: render(scene, cam, cfg), [k1.bin_intersect]),
+             lambda: render(scene, cam, cfg), [k1.bin_intersect, *prep]),
             ("render_sharded_2d_accel pallas2", "sharded_2d_accel",
              lambda: pj.render_sharded_2d_accel(scene, cam, c2, mesh11, acc),
-             lambda: render(scene, cam, c2, acc), [k45.tile_intersect_v2])]
+             lambda: render(scene, cam, c2, acc),
+             [k45.tile_intersect_v2, *shade])]
         # the brute 2-D path at a cut size: ~4e11 pairs at the headline
         cut_tris = Triangles.from_vertices(
             dragon_class_mesh(SHARDED_2D_TRIS), device=dev)
@@ -1857,7 +1913,7 @@ def run_sharded(dev, headline_tv, frames, cfg, accel, ccfgs, target, smi):
                       "triangles, cut)", "sharded_2d",
                       lambda: pj.render_sharded_2d(cut_scene, cam, fixed,
                                                    mesh11),
-                      lambda: render(cut_scene, cam, fixed), []))
+                      lambda: render(cut_scene, cam, fixed), shade))
         for name, path, fn, ref_fn, kernels in cases:
             with torch.inference_mode():
                 want = ref_fn()
@@ -1902,8 +1958,8 @@ def run_sharded(dev, headline_tv, frames, cfg, accel, ccfgs, target, smi):
         loss1 = pj.make_train_step(torch.optim.SGD(single_list, lr=LR),
                                    cfg)(single, target)
         shard, shard_list = params()
-        k1.bin_intersect.launches = 0
-        k2.segment_sum.launches = 0
+        for k in (k1.bin_intersect, k2.segment_sum, *prep):
+            k.launches = 0
         start.record()
         loss2 = pj.make_train_step(torch.optim.SGD(shard_list, lr=LR), cfg,
                                    mesh1)(shard, target)
@@ -1912,6 +1968,11 @@ def run_sharded(dev, headline_tv, frames, cfg, accel, ccfgs, target, smi):
         counts = (k1.bin_intersect.launches, k2.segment_sum.launches)
         out.setdefault("bin_intersect", {})["sharded_train"] = counts[0]
         out.setdefault("segment_sum", {})["sharded_train"] = counts[1]
+        for k in prep:
+            out.setdefault(k.__name__, {})["sharded_train"] = k.launches
+        if not bp.bin_tri_pass.launches or k10.shade_compose.launches:
+            raise RuntimeError("the sharded step skipped K8 or shaded "
+                               "through K10")
         finite = all(bool(torch.isfinite(p.grad).all()) for p in shard_list)
         same_p = all(torch.equal(a, b) for a, b in zip(shard_list,
                                                        single_list))
@@ -1935,12 +1996,14 @@ def run_sharded(dev, headline_tv, frames, cfg, accel, ccfgs, target, smi):
                 ("pallas2", c2, acc, "tile_intersect_v2"),
                 ("pallas", c5, acc, "tile_intersect"),
                 ("kd", RenderConfig(method="kd"), (kd_tab,), "kd_traverse")):
-            out.setdefault(kname, {})["sharded_jit"] = jit_frames(
-                method, c, a, kname, frames, smi, mesh=mesh1)
+            seen = jit_frames(method, c, a, kname, frames, smi, mesh=mesh1)
+            out.setdefault(kname, {})["sharded_jit"] = seen[kname]
+            for k in SERVING_KERNELS:
+                out.setdefault(k, {})[f"sharded_jit_{method}"] = seen[k]
         seen = jit_steps(dev, headline_tv, cfg, None, "bin_intersect",
                          target, smi, mesh=mesh1, turns=N_PAIRED)
         for kname, n in seen.items():
-            out[kname]["sharded_train_jit"] = n
+            out.setdefault(kname, {})["sharded_train_jit"] = n
     finally:
         pj.SHARDED_GRAPHS.clear()
         dist.destroy_process_group()
@@ -2126,7 +2189,8 @@ def jit_frames(method, c, acc, kname, frames, smi, note="", mesh=None):
     `render_sharded_jit` against `render_sharded` under inference mode):
     frames 0, 1 and 0 bitwise, one graph captured, eager and replayed
     frames timed in turns and one of each profiled; ``kname`` must be seen
-    inside the replay. Returns its instances in the replayed frame."""
+    inside the replay. Returns {kernel: instances in the replayed frame}
+    (`KERNEL_NAMES`)."""
     from cpp_cuda_raytracer_dev_torch import render, render_jit
     from cpp_cuda_raytracer_dev_torch.models import renderer
     from cpp_cuda_raytracer_dev_torch.parallel import render_pjit as pj
@@ -2176,8 +2240,8 @@ def jit_frames(method, c, acc, kname, frames, smi, note="", mesh=None):
         raise RuntimeError(f"{name} {method} captured "
                            f"{cache.captures - captures} graphs in "
                            f"{grown} regrowths")
-    seen = prof["replayed"][3][kname]
-    if seen < 1 or prof["replayed"][4] < 1:
+    seen = prof["replayed"][3]
+    if seen[kname] < 1 or prof["replayed"][4] < 1:
         raise RuntimeError(f"{kname} not seen inside the replayed {method} "
                            "frame")
     return seen
@@ -2250,8 +2314,9 @@ def jit_steps(dev, headline_tv, c, acc, kname, target, smi, mesh=None,
     sets, both with ``mesh``: parameters and losses bitwise after
     `N_JIT_STEPS` steps and after ``turns`` of each in turns and the
     profiled ones; ``kname`` seen in every replayed step, K2 in the
-    all-leaves one only. Returns {kernel name: instances in the replayed
-    all-leaves step}."""
+    all-leaves one only, K8 and K9 in every bin step and K10 in none.
+    Returns {kernel name: instances in the replayed all-leaves step} for
+    ``kname``, K2 and `SERVING_KERNELS`."""
     from cpp_cuda_raytracer_dev_torch.parallel.render_pjit import (
         make_train_step, make_train_step_jit)
 
@@ -2309,8 +2374,15 @@ def jit_steps(dev, headline_tv, c, acc, kname, target, smi, mesh=None,
                 or prof["compiled"][4] < 1:
             raise RuntimeError(f"the replayed {c.method} {kind} step ran "
                                f"{kname} {seen[kname]} and K2 {k2_seen} times")
+        # K8 and K9 in a bin step, K10 in none (the step shades with
+        # autograd)
+        if seen["shade_compose"] or (c.method == "bin") != (
+                seen["bin_tri_pass"] > 0 and seen["bin_entry_keys"] > 0):
+            raise RuntimeError(f"the replayed {c.method} {kind} step ran "
+                               f"the serving kernels {seen}")
         if all_leaves:
-            out = {kname: seen[kname], "segment_sum": k2_seen}
+            out = {kname: seen[kname], "segment_sum": k2_seen,
+                   **{k: seen[k] for k in SERVING_KERNELS}}
         del steps, opts
     return out
 
@@ -2338,7 +2410,7 @@ def run_jit(dev, headline_tv, frames, cfg, accel, ccfgs, target, smi):
         note = (f", frame 0's bucket {bucket} for {live0} live entries"
                 if method == "bin" else "")
         out[kname] = {"serve_jit": jit_frames(method, c, acc, kname, frames,
-                                              smi, note)}
+                                              smi, note)[kname]}
 
     # growth: a camera moved nearer until its live count outgrows frame 0's
     # bucket; the frame is captured again at a larger one and stays bitwise
@@ -2368,6 +2440,8 @@ def run_jit(dev, headline_tv, frames, cfg, accel, ccfgs, target, smi):
                      smi)
     out["bin_intersect"]["train_jit"] = seen["bin_intersect"]
     out["segment_sum"] = {"serve_jit": 0, "train_jit": seen["segment_sum"]}
+    for k in SERVING_KERNELS:
+        out[k] = {"train_jit": seen[k]}
     return out
 
 
@@ -2664,7 +2738,8 @@ def run_kd(dev, headline_tv, frames, idx_t, ref, target, smi, clock_mhz):
         raise RuntimeError("kd frames: K7 not launched a frame, or wrong hits")
     del outs
 
-    serve_jit = jit_frames("kd", kcfg, acc, "kd_traverse", frames, smi)
+    serve_jit = jit_frames("kd", kcfg, acc, "kd_traverse", frames,
+                           smi)["kd_traverse"]
     seen = jit_steps(dev, headline_tv, kcfg, acc, "kd_traverse", target, smi)
 
     # raster: make_train_step_jit runs it uncaptured, as make_train_step
@@ -2711,6 +2786,509 @@ def run_kd(dev, headline_tv, frames, idx_t, ref, target, smi, clock_mhz):
             "k2_train_jit": seen["segment_sum"]}
 
 
+def kernel_ms(fn, name, reps=KERNEL_REPS):
+    """Device ms of one instance of the kernel named ``name`` in ``fn()``:
+    the profiler's mean device time of its instances over ``reps`` calls,
+    after one warm-up call (the wrapper's own small operations and the
+    host's pace are left out; a record the profiler drops, as it sometimes
+    does, only leaves the mean over fewer)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+    ev = [a for a in prof.key_averages()
+          if a.device_type == DeviceType.CUDA and name in a.key]
+    n = sum(a.count for a in ev)
+    if n < 1:
+        raise RuntimeError(f"{name} not seen in {reps} calls")
+    return sum(a.self_device_time_total for a in ev) / 1e3 / n
+
+
+def graph_ms(fn, reps=KERNEL_REPS):
+    """Device ms of ``fn()`` captured alone into a CUDA graph and replayed
+    back to back (its device busy time, free of the host)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = cuda_ms(graph.replay, reps)
+    del graph
+    return ms
+
+
+def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
+                        smi, clock_mhz):
+    """Phase 17 (see the module docstring): kernels K8, K9 and K10. Returns
+    their rows of the kernels line (main() adds the sharded and app paths
+    to ``launches_by_path``)."""
+    import contextlib
+
+    from cpp_cuda_raytracer_dev_torch import (Camera, Pose, RenderConfig,
+                                              Scene, SceneObject, Triangles,
+                                              render, render_jit)
+    from cpp_cuda_raytracer_dev_torch.accel import binning, traverse
+    from cpp_cuda_raytracer_dev_torch.accel.traverse import (_bin_meta,
+                                                             _ray_table)
+    from cpp_cuda_raytracer_dev_torch.models import renderer
+    from cpp_cuda_raytracer_dev_torch.models.renderer import (
+        shade_compose_reference, shade_hits, trace_rays)
+    from cpp_cuda_raytracer_dev_torch.ops.cuda import bin_prepass as bp
+    from cpp_cuda_raytracer_dev_torch.ops.cuda import shade as k10
+    from cpp_cuda_raytracer_dev_torch.ops.cuda.bin_intersect import \
+        bin_intersect
+    from cpp_cuda_raytracer_dev_torch.ops.quaternion import from_axis_angle
+    from cpp_cuda_raytracer_dev_torch.ops.shade import compose_framebuffer
+    from cpp_cuda_raytracer_dev_torch.parallel.render_pjit import (
+        make_train_step, make_train_step_jit)
+    from cpp_cuda_raytracer_dev_torch.utils.graphs import GraphCache
+    from cpp_cuda_raytracer_dev_torch.utils.procgen import uv_sphere
+
+    wrappers = {k: getattr(bp, k) for k in SERVING_KERNELS[:4]}
+    wrappers["shade_compose"] = k10.shade_compose
+    th, tw, chunk = cfg.tile_h, cfg.tile_w, cfg.bin_chunk
+
+    def cam_at(pos, w=RES_W, h=RES_H, dtype=torch.float32):
+        return Camera.create(w, h, pos=list(pos), look_at=[0.0, 0.0, 0.0],
+                             up=[0.0, 1.0, 0.0], film_h=0.024, focal=0.055,
+                             device=dev, dtype=dtype)
+
+    # ---- each kernel bitwise its plain version ----
+    max_err = {"K8": 0.0, "K9": 0.0, "K10": 0.0}
+
+    def same(kname, name, a, b, bad):
+        if a.dtype.is_floating_point and a.shape == b.shape and a.numel():
+            err = float((a.double() - b.double()).abs().nan_to_num(
+                float("inf")).max())
+            max_err[kname] = max(max_err[kname], err)
+        if not torch.equal(a, b):
+            bad.append(f"{kname} {name}")
+
+    def hold_prepass(case, o, tris, proj, c, res_h, res_w, capacity=None):
+        """K8 (both launches) and K9 (both) against their plain versions
+        on one object's operands; returns the operands."""
+        h2, w2 = _bin_meta(c, res_h, res_w)[:2]
+        n_tx, n_tiles = w2 // tw, (h2 // th) * (w2 // tw)
+        dbits = 31 - n_tiles.bit_length()
+        bad = []
+        with torch.inference_mode():
+            args = (proj.band_local(), o, (tris.p1x, tris.p1y, tris.p1z),
+                    (tris.e1x, tris.e1y, tris.e1z),
+                    (tris.e2x, tris.e2y, tris.e2z), h2, w2, th, tw, c.eps,
+                    c.backface_cull)
+            tp = bp.bin_tri_pass(*args)
+            tr = bp.bin_tri_pass_reference(*args)
+            for f in ("ntiles", "tinfo", "ftab", "stats", "cross_tris"):
+                same("K8", f, getattr(tp, f), getattr(tr, f), bad)
+            rt = (proj, o, tp.stats, n_tiles, n_tx, th, tw, c.draw_distance)
+            rays = bp.ray_table(*rt)
+            same("K8", "ray table", rays, _ray_table(
+                proj, o, tp.stats[:3], tp.stats[3:6], *rt[3:]), bad)
+            cum = torch.cumsum(tp.ntiles, 0)
+            live = int(cum[-1])
+            size = live if capacity is None else capacity
+            kk = (cum, tp, n_tiles, n_tx, size, dbits)
+            keys = bp.bin_entry_keys(*kk)
+            for n, a, b in zip(("key", "tri", "qstep"), keys,
+                               bp.bin_entry_keys_reference(*kk)):
+                same("K9", n, a, b, bad)
+            key, order = torch.sort(keys[0], stable=True)
+            e_pad = -(-size // chunk) * chunk + chunk
+            tt = (key, order, keys[1], tp.ftab, n_tiles, dbits, e_pad)
+            table = bp.bin_entry_table(*tt)
+            for n, a, b in zip(("geom", "entry_tri", "starts"), table,
+                               bp.bin_entry_table_reference(*tt)):
+                same("K9", n, a, b, bad)
+            torch.cuda.synchronize()
+        log(f"K8, K9 against their plain versions [{case}]: "
+            f"{tris.p1x.shape[0]} triangles, {live} live entries in a table "
+            f"of {size}, "
+            f"{int(tp.cross_tris)} crossing the camera plane; bitwise "
+            f"{not bad}")
+        if bad:
+            raise RuntimeError(f"{case}: {bad} differ from the plain versions")
+        return dict(args=args, rt=rt, kk=kk, tt=tt, tp=tp, rays=rays,
+                    keys=keys[0], table=table, live=live, size=size,
+                    n_tiles=n_tiles)
+
+    def hold_shade(case, scene, cam, c, acc=None, band=None):
+        """K10 against its plain version on a frame's hits (``band``: the
+        rows from that frame row on, traced through the band's
+        Projection)."""
+        bad = []
+        with torch.inference_mode():
+            rmd = cam.ray_directions()
+            h, proj = cam.res_h, None
+            if c.method in ("bin", "raster"):
+                proj = cam.projection()
+            if band:
+                rmd, h = rmd[band * cam.res_w:], cam.res_h - band
+                proj = dataclasses.replace(proj, row0=band)
+            hit = trace_rays(scene, cam.pos, rmd, c, acc, h, cam.res_w, proj)
+            got = k10.shade_compose(scene, cam.pos, rmd, hit, c)
+            ref = shade_compose_reference(scene, cam.pos, rmd, hit, c)
+            for f in ("image", "radiance", "normal", "point"):
+                same("K10", f, got[f], ref[f], bad)
+            torch.cuda.synchronize()
+        hits = hit.tri >= 0
+        log(f"K10 against its plain version [{case}]: {rmd.shape[0]} rays "
+            f"({rmd.dtype}), {len(scene.objects)} objects, hit rate "
+            f"{float(hits.float().mean()):.6f}; bitwise {not bad}")
+        if bad:
+            raise RuntimeError(f"{case}: {bad} differ from the plain version")
+        return scene, cam, rmd, hit
+
+    sphere = Scene([SceneObject(Triangles.from_vertices(uv_sphere(50, 50),
+                                                        device=dev))])
+    scam = cam_at((0.0, 0.0, -3.0), 96, 64)
+    sc = dataclasses.replace(cfg, backface_cull=False)
+    hold_prepass("sphere 96x64", scam.pos, sphere.objects[0].tris,
+                 scam.projection(), sc, 64, 96)
+    hold_shade("sphere 96x64", sphere, scam, sc)
+    scene, cam = frames[0]
+    obj = scene.objects[0]
+    o0, proj0 = obj.pose.inv_apply(cam.pos), \
+        cam.projection().transformed(obj.pose)
+    head = hold_prepass("headline frame 0, live count", o0, obj.tris, proj0,
+                        cfg, RES_H, RES_W)
+    bucket = 524288
+    hold_prepass(f"headline frame 0, bucket {bucket}", o0, obj.tris, proj0,
+                 cfg, RES_H, RES_W, bucket)
+    band = RES_H // 2
+    hold_prepass(f"headline frame 0, the band of rows {band}-{RES_H - 1}",
+                 o0, obj.tris, dataclasses.replace(proj0, row0=band), cfg,
+                 RES_H - band, RES_W)
+    head_shade = hold_shade("headline frame 0", scene, cam, cfg)
+    hold_shade(f"headline frame 0, the band of rows {band}-{RES_H - 1}",
+               scene, cam, cfg, band=band)
+    # animate's scene: two posed objects sharing one Triangles
+    tris = obj.tris
+    poses = [Pose(from_axis_angle([0.0, 1.0, 0.0], a, device=dev),
+                  torch.tensor(t, device=dev))
+             for a, t in ((0.35, [-0.55, 0.0, 0.0]),
+                          (-0.5, [0.6, 0.1, 0.4]))]
+    two = Scene([SceneObject(tris, p) for p in poses])
+    tcam = cam_at((0.0, 0.2, -4.0))
+    for i, p in enumerate(poses):
+        hold_prepass(f"two-object scene, object {i}", p.inv_apply(tcam.pos),
+                     tris, tcam.projection().transformed(p), cfg, RES_H,
+                     RES_W)
+    two_hit = hold_shade("two-object scene", two, tcam, cfg)[3]
+    if len(torch.unique(two_hit.obj)) != 3:
+        raise RuntimeError("the two-object scene does not show both objects")
+    tab64 = kd_tables(dev, headline_tv, dtype=torch.float64)
+    scene64 = Scene([SceneObject(Triangles.from_vertices(
+        headline_tv, device=dev, dtype=torch.float64))])
+    hold_shade("kd frame 0, float64", scene64,
+               cam_at((0.0, 0.0, -3.0), dtype=torch.float64),
+               RenderConfig(method="kd"), (tab64,))
+    del tab64, scene64
+
+    # ---- each kernel timed against its plain version and its bound ----
+    with torch.inference_mode():
+        k8 = {"tri_pass": kernel_ms(lambda: bp.bin_tri_pass(*head["args"]),
+                                    "tri_pass_kernel"),
+              "ray_table": kernel_ms(lambda: bp.ray_table(*head["rt"]),
+                                     "ray_table_kernel")}
+        k9 = {"keys": kernel_ms(lambda: bp.bin_entry_keys(*head["kk"]),
+                                "entry_keys_kernel"),
+              "table": kernel_ms(lambda: bp.bin_entry_table(*head["tt"]),
+                                 "entry_table_kernel")}
+        hs, hcam, hrmd, hhit = head_shade
+        k10_ms = kernel_ms(
+            lambda: k10.shade_compose(hs, hcam.pos, hrmd, hhit, cfg),
+            "shade_compose_kernel")
+        rt_args = head["rt"]
+        # device time of each twin, captured alone and replayed (the host's
+        # pace left out, as from the kernels' profiler times)
+        plain = {
+            "tri_pass": graph_ms(
+                lambda: bp.bin_tri_pass_reference(*head["args"])),
+            "ray_table": graph_ms(lambda: _ray_table(
+                rt_args[0], rt_args[1], rt_args[2][:3], rt_args[2][3:6],
+                *rt_args[3:])),
+            "keys": graph_ms(
+                lambda: bp.bin_entry_keys_reference(*head["kk"])),
+            "table": graph_ms(
+                lambda: bp.bin_entry_table_reference(*head["tt"])),
+            "shade": graph_ms(lambda: shade_compose_reference(
+                hs, hcam.pos, hrmd, hhit, cfg))}
+        calls = {"tri_pass": graph_ms(lambda: bp.bin_tri_pass(*head["args"])),
+                 "shade": graph_ms(lambda: k10.shade_compose(
+                     hs, hcam.pos, hrmd, hhit, cfg))}
+    t_n, tp = head["args"][2][0].shape[0], head["tp"]
+    n_rays, size = head["rays"].shape[0] * head["rays"].shape[1], head["size"]
+    e_pad = head["table"][1].shape[0]
+    binned = int((tp.ntiles > 0).sum())
+    hit_tris = int(torch.unique(hhit.tri[hhit.tri >= 0]).numel())
+    n_hit = int((hhit.tri >= 0).sum())
+    work = {   # (operations, bytes): each input read once, outputs once
+        "tri_pass": (K8_OPS_PER_TRI * t_n, t_n * (36 + 8 + 12 + 44) + 40),
+        "ray_table": (RAY_TABLE_OPS_PER_RAY * n_rays, n_rays * 16 + 48),
+        "keys": (K9_OPS_PER_TRI * t_n + K9_OPS_PER_ENTRY * size,
+                 t_n * 32 + size * 8),
+        "table": (K9_OPS_PER_ENTRY * size,
+                  size * 16 + binned * 44 + e_pad * 48
+                  + (head["n_tiles"] + 1) * 4),
+        "shade": (K10_OPS_PER_HIT * n_hit,
+                  hrmd.shape[0] * (12 + 4 + 4 + 4 + 3 + 36) + hit_tris * 48)}
+    bounds = {k: op_bounds(*v, clock_mhz) for k, v in work.items()}
+    for k, b in bounds.items():
+        log(f"  {k}: {b['text']}")
+    k8_bound = op_bounds(work["tri_pass"][0] + work["ray_table"][0],
+                         work["tri_pass"][1] + work["ray_table"][1],
+                         clock_mhz)
+    k9_bound = op_bounds(work["keys"][0] + work["table"][0],
+                         work["keys"][1] + work["table"][1], clock_mhz)
+    log(f"K8 at headline frame 0 ({t_n} triangles, {n_rays} rays): "
+        f"per-triangle pass {k8['tri_pass']:.4f} ms (its wrapper replayed "
+        f"{calls['tri_pass']:.4f}), plain {plain['tri_pass']:.4f}; ray "
+        f"table {k8['ray_table']:.4f}, plain {plain['ray_table']:.4f}; "
+        f"{k8_bound['text']} ({smi})")
+    log(f"K9 at headline frame 0 ({head['live']} entries, {binned} binned "
+        f"triangles): keys {k9['keys']:.4f} ms, plain {plain['keys']:.4f}; "
+        f"table {k9['table']:.4f}, plain {plain['table']:.4f}; "
+        f"{k9_bound['text']} ({smi})")
+    log(f"K10 at headline frame 0 ({hrmd.shape[0]} rays, {n_hit} hits on "
+        f"{hit_tris} triangles): {k10_ms:.4f} ms (its wrapper replayed "
+        f"{calls['shade']:.4f}), plain {plain['shade']:.4f}; "
+        f"{bounds['shade']['text']} ({smi})")
+
+    # ---- the replayed bin frame's device time by stage, both routes ----
+    with torch.inference_mode():
+        bkt = hold_prepass("headline frame 0 for the stages", o0, obj.tris,
+                           proj0, cfg, RES_H, RES_W, bucket)
+        a, rt, kk, tt = bkt["args"], bkt["rt"], bkt["kk"], bkt["tt"]
+        geom, entry_tri, starts = bkt["table"]
+        rays = bkt["rays"]
+        _, _, rmd, hit = head_shade
+        radiance, _, _, mask = shade_hits(scene, cam.pos, rmd, hit, cfg)
+
+        def prepass(tri_pass, keys):
+            t = tri_pass(*a)
+            return keys(torch.cumsum(t.ntiles, 0), t, *kk[2:])
+        stages = {
+            "kernels": {
+                "ray table": lambda: bp.ray_table(*rt),
+                "prepass": lambda: prepass(bp.bin_tri_pass,
+                                           bp.bin_entry_keys),
+                "sort": lambda: torch.sort(bkt["keys"], stable=True),
+                "table": lambda: bp.bin_entry_table(*tt),
+                "K1": lambda: bin_intersect(rays, geom, entry_tri, starts,
+                                            chunk),
+                "shading + composition": lambda: k10.shade_compose(
+                    scene, cam.pos, rmd, hit, cfg)},
+            "plain": {
+                "ray table": lambda: _ray_table(rt[0], rt[1], rt[2][:3],
+                                                rt[2][3:6], *rt[3:]),
+                "prepass": lambda: prepass(bp.bin_tri_pass_reference,
+                                           bp.bin_entry_keys_reference),
+                "sort": lambda: torch.sort(bkt["keys"], stable=True),
+                "table": lambda: bp.bin_entry_table_reference(*tt),
+                "K1": lambda: bin_intersect(rays, geom, entry_tri, starts,
+                                            chunk),
+                "shading": lambda: shade_hits(scene, cam.pos, rmd, hit, cfg),
+                "composition": lambda: (
+                    compose_framebuffer(radiance, mask, cfg.background_rgb),
+                    torch.where(mask[..., None], radiance, 0.0))}}
+        split = {route: {k: graph_ms(f) for k, f in st.items()}
+                 for route, st in stages.items()}
+    for route, st in split.items():
+        log(f"replayed bin frame by stage, {route} (each stage captured "
+            f"alone, frame 0 at bucket {bucket}): "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in st.items())
+            + f"; sum {sum(st.values()):.4f} ms ({smi})")
+
+    # ---- the replayed frames and compiled steps, both routes in turns ----
+    @contextlib.contextmanager
+    def route(kind):
+        """The plain versions in the kernels' places (``kind`` "plain"), as
+        phase 3 puts the aligned walk in K1's place."""
+        names = ((binning, "bin_tri_pass", bp.bin_tri_pass_reference),
+                 (binning, "bin_entry_keys", bp.bin_entry_keys_reference),
+                 (binning, "bin_entry_table", bp.bin_entry_table_reference),
+                 (traverse, "ray_table",
+                  lambda proj, o, b, *rest: _ray_table(proj, o, b[:3],
+                                                       b[3:6], *rest)),
+                 (renderer, "shade_compose", shade_compose_reference))
+        saved = [getattr(m, n) for m, n, _ in names]
+        if kind == "plain":
+            for m, n, f in names:
+                setattr(m, n, f)
+        try:
+            yield
+        finally:
+            for (m, n, _), f in zip(names, saved):
+                setattr(m, n, f)
+
+    kinds = ("kernels", "plain")
+    frames_by = {}
+    kd_tab = kd_tables(dev, headline_tv)
+    for method, c, acc in (("bin", cfg, None),
+                           ("pallas2", ccfgs["pallas2"], (accel,)),
+                           ("pallas", ccfgs["pallas"], (accel,)),
+                           ("kd", RenderConfig(method="kd"), (kd_tab,))):
+        caches = {k: GraphCache() for k in kinds}
+        saved_cache = renderer.FRAME_GRAPHS
+
+        def run(kind, i):
+            renderer.FRAME_GRAPHS = caches[kind]
+            with route(kind):
+                return render_jit(*frames[i % N_FRAMES], c, acc)
+        try:
+            bad = [f"frame {i} {f}" for i in (0, 1)
+                   for f in differ(run("kernels", i), run("plain", i))]
+            ms = in_turns(run, kinds, N_PAIRED)
+            prof = {k: replay_profile(lambda: run(k, 0)) for k in kinds}
+            top = device_profile(lambda: run("kernels", 0))[2]
+        finally:
+            renderer.FRAME_GRAPHS = saved_cache
+        frames_by[method] = prof["kernels"][3]
+        log(f"replayed {method} frames, kernels and plain route in turns: "
+            f"bitwise {not bad}; "
+            + "; ".join(f"{k} {spread(v)}, profiled: device busy "
+                        f"{prof[k][0]:.3f} ms in {prof[k][1]} device "
+                        f"operations, {prof[k][2]} host operations"
+                        for k, v in ms.items())
+            + f"; kernels seen {prof['kernels'][3]}; the largest device "
+            f"kernels of a replay with the kernels (name, count, ms): {top} "
+            f"({smi})")
+        seen = prof["kernels"][3]
+        if bad or not seen["shade_compose"] or (method == "bin") != (
+                seen["bin_tri_pass"] > 0 and seen["bin_entry_table"] > 0):
+            raise RuntimeError(f"replayed {method} frames: {bad}, {seen}")
+    del kd_tab
+
+    steps_by = {}
+    for kind in ("all-leaves", "pose/light/camera-only"):
+        sets = {k: train_set(dev, headline_tv) for k in kinds}
+        if kind != "all-leaves":
+            for p in sets.values():
+                p["scene"].objects[0].tris.requires_grad_(False)
+                p["camera"].requires_grad_(False)
+                p["camera"].pos.requires_grad_(True)
+
+        def leaves(p):
+            return [*p["scene"].parameters(), *p["camera"].parameters()]
+        opts = {k: torch.optim.SGD(
+            [x for x in leaves(p) if x.requires_grad], lr=LR)
+            for k, p in sets.items()}
+        steps = {k: make_train_step_jit(opts[k], cfg) for k in kinds}
+
+        def run_step(k, _i=0):
+            with route(k):
+                return steps[k](sets[k], target)
+        losses = {k: [float(run_step(k)) for _ in range(N_JIT_STEPS)]
+                  for k in kinds}
+        ms = in_turns(run_step, kinds, N_PAIRED // 2)
+        prof = {k: replay_profile(lambda: run_step(k)) for k in kinds}
+        equal = all(torch.equal(a, b) for a, b in
+                    zip(leaves(sets["kernels"]), leaves(sets["plain"])))
+        steps_by[kind] = prof["kernels"][3]
+        log(f"compiled {kind} steps, kernels and plain route in turns: "
+            f"losses {losses['kernels']} / {losses['plain']}, parameters "
+            f"bitwise equal {equal}; "
+            + "; ".join(f"{k} {spread(v)}, profiled: device busy "
+                        f"{prof[k][0]:.3f} ms in {prof[k][1]} device "
+                        f"operations, {prof[k][2]} host operations"
+                        for k, v in ms.items())
+            + f"; kernels seen {prof['kernels'][3]} ({smi})")
+        seen = prof["kernels"][3]
+        if not equal or losses["kernels"] != losses["plain"] \
+                or seen["shade_compose"] or not seen["bin_tri_pass"]:
+            raise RuntimeError(f"compiled {kind} steps: {seen}")
+        del sets, opts, steps
+
+    # ---- launches on the eager main paths, the counters from 0 ----
+    for f in wrappers.values():
+        f.launches = 0
+    for f in frames:
+        render(*f, cfg)
+    serve = {k: f.launches for k, f in wrappers.items()}
+    for method, c, acc in (("pallas2", ccfgs["pallas2"], (accel,)),
+                           ("pallas", ccfgs["pallas"], (accel,))):
+        k10.shade_compose.launches = 0
+        render(*frames[0], c, acc)
+        serve[f"shade_compose_{method}"] = k10.shade_compose.launches
+    for f in wrappers.values():
+        f.launches = 0
+    p = train_set(dev, headline_tv)
+    make_train_step(torch.optim.SGD([*p["scene"].parameters(),
+                                     *p["camera"].parameters()], lr=LR),
+                    cfg)(p, target)
+    train = {k: f.launches for k, f in wrappers.items()}
+    log(f"launches: {N_FRAMES} bin frames through render {serve}; one "
+        f"bin training step {train}")
+    if min(serve.values()) < 1 or min(serve[k] for k in wrappers) < N_FRAMES \
+            or train["shade_compose"] or min(
+                train[k] for k in SERVING_KERNELS[:4]) < 1:
+        raise RuntimeError("the serving kernels missed their paths")
+
+    def by_path(keys):
+        out = {"serve": sum(serve[k] for k in keys),
+               "train": sum(train[k] for k in keys)}
+        for m, seen in frames_by.items():
+            out["serve_jit" if m == "bin" else f"serve_jit_{m}"] = sum(
+                seen[k] for k in keys)
+        out["train_jit"] = sum(steps_by["all-leaves"][k] for k in keys)
+        out["train_jit_pose_light_camera"] = sum(
+            steps_by["pose/light/camera-only"][k] for k in keys)
+        return out
+    k10_paths = by_path(["shade_compose"])
+    for m in ("pallas2", "pallas"):
+        k10_paths[f"serve_{m}"] = serve[f"shade_compose_{m}"]
+    base = "cpp_cuda_raytracer_dev_tpu/"
+    return [{
+        "name": "bin_tri_pass", "route": "cuda",
+        "source": "cpp_cuda_raytracer_dev_torch/csrc/bin_prepass.cu",
+        "replaces": base + "accel/binning.py:67",
+        "replaces_note": "with accel/traverse.py:532 (root box, _ray_table); "
+                         "XLA-fused plain ops, not a Pallas kernel",
+        "launches": serve["bin_tri_pass"], "max_abs_err": max_err["K8"],
+        "ms": k8["tri_pass"] + k8["ray_table"],
+        "plain_ms": plain["tri_pass"] + plain["ray_table"],
+        "bound_ms": k8_bound["bound_ms"], "bound_by": k8_bound["bound_by"],
+        "library_ms": None, "launch_ms": k8,
+        "launch_plain_ms": {k: plain[k] for k in k8},
+        "launch_bound_ms": {k: bounds[k]["bound_ms"] for k in k8},
+        "stages_ms": split, "ray_table_launches": serve["ray_table"],
+        "launches_by_path": by_path(["bin_tri_pass"])}, {
+        "name": "bin_entry_keys", "route": "cuda",
+        "source": "cpp_cuda_raytracer_dev_torch/csrc/bin_prepass.cu",
+        "replaces": base + "accel/binning.py:67",
+        "replaces_note": "the entry passes around lax.sort; XLA-fused plain "
+                         "ops, not a Pallas kernel",
+        "launches": serve["bin_entry_keys"], "max_abs_err": max_err["K9"],
+        "ms": k9["keys"] + k9["table"],
+        "plain_ms": plain["keys"] + plain["table"],
+        "bound_ms": k9_bound["bound_ms"], "bound_by": k9_bound["bound_by"],
+        "library_ms": None, "launch_ms": k9,
+        "launch_plain_ms": {k: plain[k] for k in k9},
+        "launch_bound_ms": {k: bounds[k]["bound_ms"] for k in k9},
+        "table_launches": serve["bin_entry_table"],
+        "launches_by_path": by_path(["bin_entry_keys"])}, {
+        "name": "shade_compose", "route": "cuda",
+        "source": "cpp_cuda_raytracer_dev_torch/csrc/shade.cu",
+        "replaces": base + "models/renderer.py:116",
+        "replaces_note": "with ops/shade.py:46,76,86; XLA-fused plain ops, "
+                         "not a Pallas kernel",
+        "launches": serve["shade_compose"], "max_abs_err": max_err["K10"],
+        "ms": k10_ms, "plain_ms": plain["shade"],
+        "bound_ms": bounds["shade"]["bound_ms"],
+        "bound_by": bounds["shade"]["bound_by"], "library_ms": None,
+        "call_ms": calls["shade"], "launches_by_path": k10_paths}]
+
+
 def write_ply(path, tv: np.ndarray) -> None:
     """``tv`` (T, 3, 3) as a binary little-endian PLY: 3T vertices and T
     faces (p2, p3, p1), which the reader's rewind to (p3, p1, p2) turns back
@@ -2753,8 +3331,9 @@ def read_png(path) -> np.ndarray:
 
 def run_entry_points(dev, headline_tv, smi):
     """Phase 11 (see the module docstring): the apps on the headline mesh,
-    written to a PLY file. Returns {method: its kernel's launches in
-    ``render_cli``}."""
+    written to a PLY file. Returns ({method: {kernel: launches in
+    ``render_cli``}}, {kernel: instances in the profiled ``animate`` run})
+    for K1, K2, K4-K7 and `SERVING_KERNELS`."""
     import contextlib
     from pathlib import Path
 
@@ -2763,9 +3342,11 @@ def run_entry_points(dev, headline_tv, smi):
     from cpp_cuda_raytracer_dev_torch.apps import animate, render_cli
     from cpp_cuda_raytracer_dev_torch.models.renderer import trace_rays
     from cpp_cuda_raytracer_dev_torch.ops.cuda import bin_intersect as k1
+    from cpp_cuda_raytracer_dev_torch.ops.cuda import bin_prepass as bp
     from cpp_cuda_raytracer_dev_torch.ops.cuda import bin_tile_intersect as bt
     from cpp_cuda_raytracer_dev_torch.ops.cuda import kd_traverse as k7
     from cpp_cuda_raytracer_dev_torch.ops.cuda import segment_sum as k2
+    from cpp_cuda_raytracer_dev_torch.ops.cuda import shade as k10
     from cpp_cuda_raytracer_dev_torch.ops.cuda import tile_intersect as k45
 
     out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
@@ -2777,7 +3358,9 @@ def run_entry_points(dev, headline_tv, smi):
         f"{time.perf_counter() - t0:.2f} s")
     counters = {"K1": k1.bin_intersect, "K2": k2.segment_sum,
                 "K4": k45.tile_intersect_v2, "K5": k45.tile_intersect,
-                "K6": bt.bin_tile_intersect, "K7": k7.kd_traverse}
+                "K6": bt.bin_tile_intersect, "K7": k7.kd_traverse,
+                **{k: getattr(bp, k) for k in SERVING_KERNELS[:4]},
+                "shade_compose": k10.shade_compose}
 
     # the apps' camera (render_cli.py): framed on the mesh's bounding box
     v = headline_tv.reshape(-1, 3)
@@ -2817,12 +3400,14 @@ def run_entry_points(dev, headline_tv, smi):
             f"PNG hit rate {float(png_hit.mean()):.6f} against the oracle's "
             f"{float(orc_hit.mean()):.6f} on {N_SAMPLE} rays, hit/miss "
             f"agreement {agree:.6f}; launches {launched} ({smi})")
-        want = kernel_of[method]
-        cli_launches[method] = launched[want]
+        want = [kernel_of[method], "shade_compose"]
+        if method == "bin":
+            want += ["bin_tri_pass", "bin_entry_keys"]
+        cli_launches[method] = launched
         if agree < MIN_AGREE:
             raise RuntimeError(f"render_cli {method}: PNG and oracle agree on "
                                f"{agree}")
-        if launched[want] < 1:
+        if min(launched[k] for k in want) < 1:
             raise RuntimeError(f"render_cli {method} did not launch {want}")
 
     # animate: the key script on two objects sharing one Triangles
@@ -2840,7 +3425,8 @@ def run_entry_points(dev, headline_tv, smi):
                           "--json-out", str(report)])
     # its frames are replays of one captured graph (render_jit): the
     # counter sees the capture, the profiler every K1 in the replays
-    seen = replay_profile(run_animate)[3]["bin_intersect"]
+    animate_seen = replay_profile(run_animate)[3]
+    seen = animate_seen["bin_intersect"]
     secs = time.perf_counter() - t0
     k1_launches = k1.bin_intersect.launches
     rep = json.loads(report.read_text())
@@ -2848,13 +3434,15 @@ def run_entry_points(dev, headline_tv, smi):
         f"{rep['frames']} ticks in {secs:.2f} s in all (profiled), objects "
         f"{rep['objects']}, device ms a frame {rep['device_ms_per_frame']!r} "
         f"(animate's device_time), bin_intersect launches {k1_launches} "
-        f"(warm-ups and captures), K1 instances on the device {seen}; "
-        f"HUD in {hud.name} ({smi})")
+        f"(warm-ups and captures), kernel instances on the device "
+        f"{animate_seen}; HUD in {hud.name} ({smi})")
     if (rep["frames"] != N_ANIMATE_TICKS or rep["objects"] != 2
-            or k1_launches < 2 or seen < 2 * N_ANIMATE_TICKS):
+            or k1_launches < 2 or seen < 2 * N_ANIMATE_TICKS
+            or animate_seen["bin_tri_pass"] < 2 * N_ANIMATE_TICKS
+            or animate_seen["shade_compose"] < N_ANIMATE_TICKS):
         raise RuntimeError("animate did not render its ticks through K1 "
-                           "twice a frame")
-    return cli_launches
+                           "and K8 twice a frame and K10 once")
+    return cli_launches, animate_seen
 
 
 if __name__ == "__main__":

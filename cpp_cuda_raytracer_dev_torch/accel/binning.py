@@ -35,10 +35,9 @@ import dataclasses
 
 import torch
 
-from ..ops.cuda.bin_intersect import GEOM_ROWS
+from ..ops.cuda.bin_prepass import (bin_entry_keys, bin_entry_table,
+                                    bin_tri_pass)
 from ..utils.dtypes import MT_EPSILON
-
-BIG = 3.0e38
 
 
 @dataclasses.dataclass
@@ -53,6 +52,7 @@ class BinnedScene:
     # scalar i64 on the device (Epad = capacity + chunk)
     num_entries: int | torch.Tensor
     cross_tris: torch.Tensor  # scalar i64 camera-plane-crossing triangles
+    bounds: torch.Tensor      # (6,) f32 the triangles' box, min xyz | max xyz
 
 
 @dataclasses.dataclass
@@ -113,87 +113,23 @@ def bin_triangles(proj, origin: torch.Tensor, p1, e1, e2,
     are bitwise the live-count table's. A live count above the capacity
     truncates the table: the caller must read ``num_entries`` and redo the
     frame at a larger capacity.
+
+    On CUDA tensors the per-triangle pass and the entry passes are kernels
+    K8 and K9 (``ops/cuda/bin_prepass.py``), around ``torch.cumsum`` and
+    ``torch.sort``; on CPU tensors their plain versions, bit for bit.
     """
-    dev = origin.device
-    f32, i32, i64 = torch.float32, torch.int32, torch.int64
-    p1x, p1y, p1z = p1
-    e1x, e1y, e1z = e1
-    e2x, e2y, e2z = e2
-    t_n = p1x.shape[0]
+    t_n = p1[0].shape[0]
     n_tx = -(-res_w // tw)
-    n_ty = -(-res_h // th)
-    n_tiles = n_tx * n_ty
-
-    q0x, q0y, q0z = (p1x - proj.origin[0], p1y - proj.origin[1],
-                     p1z - proj.origin[2])
-
-    def _dotb(vx, vy, vz, b):
-        return vx * b[0] + vy * b[1] + vz * b[2]
-
-    a0 = _dotb(q0x, q0y, q0z, proj.n)
-    b0 = _dotb(q0x, q0y, q0z, proj.u)
-    c0 = _dotb(q0x, q0y, q0z, proj.v)
-    a1 = a0 + _dotb(e1x, e1y, e1z, proj.n)
-    b1 = b0 + _dotb(e1x, e1y, e1z, proj.u)
-    c1 = c0 + _dotb(e1x, e1y, e1z, proj.v)
-    a2 = a0 + _dotb(e2x, e2y, e2z, proj.n)
-    b2 = b0 + _dotb(e2x, e2y, e2z, proj.u)
-    c2 = c0 + _dotb(e2x, e2y, e2z, proj.v)
-
-    f0, f1, f2 = a0 > 0.0, a1 > 0.0, a2 > 0.0
-    all_front = f0 & f1 & f2
-    any_front = f0 | f1 | f2
-    cross = any_front & ~all_front
-
-    if backface_cull:
-        # One shared origin: "facing away" is a per-triangle plane test,
-        # (e1 x e2) . (p1 - o) > 0. On a closed, consistently wound surface
-        # seen from outside such a hit is always behind a nearer front face.
-        nx = e1y * e2z - e1z * e2y
-        ny = e1z * e2x - e1x * e2z
-        nz = e1x * e2y - e1y * e2x
-        away = (nx * (p1x - origin[0]) + ny * (p1y - origin[1])
-                + nz * (p1z - origin[2])) > 0.0
-        cross = cross & ~away
-        any_front = any_front & ~away
-
-    def _px(b, a):
-        return proj.adjust_x + proj.sx * (b / torch.clamp_min(a, 1e-20))
-
-    def _py(c, a):
-        return proj.adjust_y + proj.sy * (c / torch.clamp_min(a, 1e-20))
-
-    px0, px1, px2 = _px(b0, a0), _px(b1, a1), _px(b2, a2)
-    py0, py1, py2 = _py(c0, a0), _py(c1, a1), _py(c2, a2)
-    guard = 0.5
-    x0 = torch.minimum(torch.minimum(px0, px1), px2) - guard
-    x1 = torch.maximum(torch.maximum(px0, px1), px2) + guard
-    y0 = torch.minimum(torch.minimum(py0, py1), py2) - guard
-    y1 = torch.maximum(torch.maximum(py0, py1), py2) + guard
-    # camera-plane crossers: conservative full-screen bbox
-    x0 = torch.where(cross, 0.0, x0)
-    y0 = torch.where(cross, 0.0, y0)
-    x1 = torch.where(cross, float(res_w - 1), x1)
-    y1 = torch.where(cross, float(res_h - 1), y1)
-
-    # clamp in float before every float -> int cast: out-of-range casts are
-    # undefined in C++ and saturate in XLA
-    ix0 = torch.clamp(torch.ceil(x0), 0, res_w - 1).to(i64)
-    ix1 = torch.floor(torch.clamp(x1, 0, res_w - 1)).to(i64)
-    iy0 = torch.clamp(torch.ceil(y0), 0, res_h - 1).to(i64)
-    iy1 = torch.floor(torch.clamp(y1, 0, res_h - 1)).to(i64)
-    onscreen = (any_front & (x1 >= 0) & (x0 <= res_w - 1)
-                & (y1 >= 0) & (y0 <= res_h - 1)
-                & (ix1 >= ix0) & (iy1 >= iy0))
-
-    tx0 = ix0 // tw
-    ty0 = iy0 // th
-    ntx = torch.where(onscreen, ix1 // tw - tx0 + 1, 0)
-    nty = torch.where(onscreen, iy1 // th - ty0 + 1, 0)
-    ntiles_tri = ntx * nty
+    n_tiles = n_tx * -(-res_h // th)
+    dbits = 31 - n_tiles.bit_length()
+    if dbits < 6:
+        raise ValueError(f"{n_tiles} tiles leaves only {dbits} depth bits; "
+                         "use larger tiles")
+    tp = bin_tri_pass(proj, origin, p1, e1, e2, res_h, res_w, th, tw, eps,
+                      backface_cull)
 
     # ---- expansion: entry j -> triangle #{t : cum[t] <= j} ----
-    cum = torch.cumsum(ntiles_tri, dim=0)                  # inclusive, i64
+    cum = torch.cumsum(tp.ntiles, dim=0)                   # inclusive, i64
     if capacity is None:
         # the live count sizes every per-entry tensor: the frame's one sync
         n_e = int(cum[-1]) if t_n else 0
@@ -202,94 +138,16 @@ def bin_triangles(proj, origin: torch.Tensor, p1, e1, e2,
         if capacity <= 0 or capacity % chunk:
             raise ValueError(f"capacity {capacity} must be a positive "
                              f"multiple of chunk {chunk}")
-        n_e = cum[-1] if t_n else torch.zeros((), dtype=i64, device=dev)
+        n_e = cum[-1] if t_n else torch.zeros((), dtype=torch.int64,
+                                              device=origin.device)
         size = capacity
-    j = torch.arange(size, dtype=i64, device=dev)
-    # a dead entry (j >= n_e) finds triangle T, the dead row appended to
-    # each per-triangle table below
-    tri_j = torch.searchsorted(cum, j, right=True)
 
-    # ---- (tile, quantised depth) key ----
-    dbits = 31 - n_tiles.bit_length()
-    if dbits < 6:
-        raise ValueError(f"{n_tiles} tiles leaves only {dbits} depth bits; "
-                         "use larger tiles")
-    dmax = (1 << dbits) - 1
-    depth = torch.minimum(
-        torch.minimum(torch.where(f0, a0, BIG), torch.where(f1, a1, BIG)),
-        torch.where(f2, a2, BIG))
-    depth = torch.clamp_min(depth, 0.0)
-    # camera-plane crossers can be hit nearer than their nearest front
-    # vertex, so their depth certificate must be 0 (else the kernel's gate
-    # could skip the block that holds the true nearest hit)
-    depth = torch.where(cross, 0.0, depth)
-    d_lo = torch.where(onscreen, depth, BIG).amin()
-    d_hi = torch.where(onscreen & torch.isfinite(depth), depth, 0.0).amax()
-    d_rng = torch.clamp_min(d_hi - d_lo, 1e-20)
-    dmax_f = torch.full_like(d_rng, float(dmax))   # filled on the device
-    scale = dmax_f / d_rng
-    # f32(dmax) may round up to 2**dbits, so clamp again in int space; an
-    # overflowing depth bucket would spill into the tile bits of the key
-    dq = torch.clamp(torch.clamp_min((depth - d_lo) * scale, 0.0),
-                     max=float(dmax)).to(i64).clamp_(max=dmax)
-
-    itab = torch.stack([cum, ntiles_tri, ntx, tx0, ty0, dq], dim=1)
-    if capacity is not None:
-        itab = torch.cat([itab, itab.new_zeros((1, 6))])   # the dead row
-    ient = itab.index_select(0, tri_j)                     # (E, 6)
-    si = j - ient[:, 0] + ient[:, 1]
-    ntx_j = torch.clamp_min(ient[:, 2], 1)
-    tile_j = (ient[:, 4] + si // ntx_j) * n_tx + ient[:, 3] + si % ntx_j
-    key = ((tile_j << dbits) | ient[:, 5]).to(i32)
-    if capacity is not None:
-        # dead entries: tile n_tiles at depth dmax, a key above every live
-        # one that still fits in 31 bits
-        key = torch.where(tri_j < t_n, key, (n_tiles << dbits) | dmax)
+    # ---- one stable sort by (tile, quantised depth) ----
+    key, tri, qstep = bin_entry_keys(cum, tp, n_tiles, n_tx, size, dbits)
     key, order = torch.sort(key, stable=True)
-    tri_sorted = tri_j.index_select(0, order)
-
-    # ---- per-tile segment starts: lower_bound(keys, tile << dbits) ----
-    # (n_tiles << dbits < 2**31, so the last query counts every entry)
-    tile_keys = torch.arange(n_tiles + 1, dtype=i64, device=dev) << dbits
-    starts = torch.searchsorted(key, tile_keys.to(i32)).to(i32)
-
-    # ---- per-triangle MT constants, gathered in entry order ----
-    # Primary rays share the object-frame origin o, so per (entry, ray d):
-    # det = A.d, u' = B.d, v' = C.d with A = k1 (e2 x e1),
-    # B = e2 x tv - eps A/k1, C = tv x e1 - eps A/k1, TD = k1 e2.(tv x e1),
-    # tv = o - p1, k1 = 1 - eps (the reference's per-camera cache,
-    # Trixel.cu:29-36, with the acceptance epsilons folded in).
-    ox, oy, oz = origin[0], origin[1], origin[2]
-    tvx, tvy, tvz = ox - p1x, oy - p1y, oz - p1z
-    mdx = e2y * e1z - e2z * e1y                            # e2 x e1
-    mdy = e2z * e1x - e2x * e1z
-    mdz = e2x * e1y - e2y * e1x
-    mux = e2y * tvz - e2z * tvy                            # e2 x tv
-    muy = e2z * tvx - e2x * tvz
-    muz = e2x * tvy - e2y * tvx
-    mvx = tvy * e1z - tvz * e1y                            # tv x e1
-    mvy = tvz * e1x - tvx * e1z
-    mvz = tvx * e1y - tvy * e1x
-    td = e2x * mvx + e2y * mvy + e2z * mvz
-    k1 = float(torch.tensor(1.0 - eps, dtype=f32))
-    eps_f = float(torch.tensor(eps, dtype=f32))
-    ftab = torch.stack(
-        [k1 * mdx, k1 * mdy, k1 * mdz,
-         mux - eps_f * mdx, muy - eps_f * mdy, muz - eps_f * mdz,
-         mvx - eps_f * mdx, mvy - eps_f * mdy, mvz - eps_f * mdz,
-         k1 * td, depth], dim=1)                           # (T, 11)
-
     e_pad = -(-size // chunk) * chunk + chunk
-    dead = torch.zeros((e_pad - size, GEOM_ROWS), dtype=f32, device=dev)
-    dead[:, 10] = BIG
-    ids = tri_sorted.to(i32)
-    if capacity is not None:
-        # dead entries gather the dead row T: zero constants, depth BIG
-        ftab = torch.cat([ftab, dead[:1]])
-        ids = torch.where(tri_sorted < t_n, ids, -1)
-    geom = torch.cat([ftab.index_select(0, tri_sorted), dead]).T.contiguous()
-    entry_tri = torch.cat([ids, torch.full((e_pad - size,), -1, dtype=i32,
-                                           device=dev)])
+    geom, entry_tri, starts = bin_entry_table(key, order, tri, tp.ftab,
+                                              n_tiles, dbits, e_pad)
     return BinnedScene(geom=geom, entry_tri=entry_tri, starts=starts,
-                       qstep=d_rng / dmax_f, num_entries=n_e,
-                       cross_tris=cross.sum())
+                       qstep=qstep, num_entries=n_e,
+                       cross_tris=tp.cross_tris, bounds=tp.stats[:6])

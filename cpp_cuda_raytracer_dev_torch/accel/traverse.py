@@ -33,6 +33,7 @@ import torch
 
 from ..ops import vecmath
 from ..ops.cuda.bin_intersect import bin_intersect
+from ..ops.cuda.bin_prepass import ray_table
 from ..ops.cuda.kd_traverse import kd_traverse, kd_traverse_reference
 from ..ops.cuda.tile_intersect import tile_intersect, tile_intersect_v2
 from ..ops.intersect import Hit, mt_test
@@ -529,19 +530,12 @@ def bin_object(o: torch.Tensor, tris, proj, config, res_h: int, res_w: int,
                ) -> tuple[torch.Tensor, BinnedScene]:
     """The kernel's operands for one object: the per-tile ray table and
     the binned entry table, at the image padded to whole tiles (with
-    ``capacity`` entries: `bin_triangles`)."""
+    ``capacity`` entries: `bin_triangles`). The ray table is bounded by the
+    root box that `bin_triangles`'s per-triangle pass reduces (K8 and its
+    second launch on CUDA tensors, ``ops/cuda/bin_prepass.py``)."""
     h2, w2, th, tw = _bin_meta(config, res_h, res_w)[:4]
     n_tx = w2 // tw
     n_tiles = (h2 // th) * n_tx
-    bmin, bmax = [], []
-    for v1, d1, d2 in ((tris.p1x, tris.e1x, tris.e2x),
-                       (tris.p1y, tris.e1y, tris.e2y),
-                       (tris.p1z, tris.e1z, tris.e2z)):
-        v2, v3 = v1 + d1, v1 + d2
-        bmin.append(torch.minimum(torch.minimum(v1, v2), v3).amin())
-        bmax.append(torch.maximum(torch.maximum(v1, v2), v3).amax())
-    rays = _ray_table(proj, o, bmin, bmax, n_tiles, n_tx, th, tw,
-                      config.draw_distance)
     binned = bin_triangles(proj.band_local(), o,
                            (tris.p1x, tris.p1y, tris.p1z),
                            (tris.e1x, tris.e1y, tris.e1z),
@@ -550,6 +544,8 @@ def bin_object(o: torch.Tensor, tris, proj, config, res_h: int, res_w: int,
                            eps=config.eps,
                            backface_cull=config.backface_cull,
                            capacity=capacity)
+    rays = ray_table(proj, o, binned.bounds, n_tiles, n_tx, th, tw,
+                     config.draw_distance)
     return rays, binned
 
 

@@ -1,0 +1,321 @@
+// Serving shading and composition: kernel K10.
+//
+// Counterpart of the JAX package's XLA-fused plain code of a forward
+// frame's shading and composition, not of a Pallas kernel: `shade_hits`
+// (cpp_cuda_raytracer_dev_tpu/models/renderer.py:116-223) and
+// `phong_radiance_c`, `tonemap_maxnorm`, `compose_framebuffer`
+// (ops/shade.py:46,76,86). Run eagerly in PyTorch that was about 100
+// small kernels a frame and object, and a (T, 12) concatenation of the
+// triangle leaves every frame to gather from. One thread a ray computes
+// what the plain PyTorch version computes (models/renderer.py
+// `shade_compose_reference`, without autograd), bit for bit:
+//
+//   the hit triangle's leaves, read directly (no per-frame pack);
+//   the object-frame direction R^T d, and Moller-Trumbore t from the
+//     object-frame origin with the plain version's acceptance; t is MT's
+//     where it accepts, the traversal's hit t otherwise (epsilon edges);
+//   the world hit point o + t d; the unit normal normalize(e1 x e2)
+//     rotated to world;
+//   Phong (light direction, |L.N| diffuse, |sum((L - 2 (L.N) N) * d)| **
+//     exponent specular);
+//   max-norm tonemap, x 255, half-to-even rounding, clamp, the background
+//     on a miss, uint8; radiance, normal and point (zeros on a miss).
+//
+// A ray takes the object its hit names (hit_obj); a launch serves up to
+// kMaxObjects objects [obj0, obj0 + n_obj), whose pointers (leaves,
+// colour, the pose's quaternion and translation) travel in the launch's
+// parameters, so any number of objects take ceil(n / kMaxObjects)
+// launches; the first also writes the misses. A thread builds its
+// object's rotation R from the quaternion (ops/quaternion.py to_matrix)
+// and the object-frame origin R^T (o - t) (Pose.inv_apply) itself. The
+// pose, the origin, the Phong parameters and the light are device
+// pointers, read anew by every replay of a captured frame.
+//
+// Operation for operation as the plain version: every product and sum
+// rounded on its own (the _rn intrinsics), dots summed as (x + y) + z,
+// IEEE division and reciprocal, rsqrt as torch.rsqrt (rsqrtf in float32),
+// pow as torch.pow with a tensor exponent (powf), nearbyint as
+// torch.round, NaN-propagating maximum (amax) and clamps. The one matrix
+// product of the plain version, Pose.inv_apply's (3,) @ (3, 3), is a
+// cuBLAS gemv; its order on an H100 (CUDA 12.8) was read from the card:
+// float32 (a0 b0 + a1 b1, fused) + a2 b2, float64 two fused steps (inv_dot
+// below; the bitwise checks of K10 hold it). A template over the rays'
+// type T serves float32 and float64 (the kd and brute paths' float64
+// frames).
+//
+// Bound: bytes. Per ray it reads the direction, t, the triangle and object
+// ids and the hit triangle's nine leaves and colour, and writes the image
+// (3 B) and radiance, normal and point (9 T); about 240 operations a hit
+// (50 of them the pose) are far below the issue rate.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxObjects = 8;
+constexpr int kObjPtrs = 12;   // p1x .. e2z, colour (T, 3), quat (4,), t (3,)
+
+template <typename T>
+struct Objects {
+  const T* p[kMaxObjects][kObjPtrs];
+};
+
+template <typename T>
+__device__ __forceinline__ T nmax(T a, T b) {   // torch.amax's combine
+  return a != a ? a : (b != b ? b : (a > b ? a : b));
+}
+
+template <typename T>
+__device__ __forceinline__ T clamp2(T v, T lo, T hi) {   // torch.clamp
+  return v != v ? v : fmin(fmax(v, lo), hi);
+}
+
+template <typename T>
+__device__ __forceinline__ T clamp_lo(T v, T lo) {   // torch.clamp_min
+  return v != v ? v : fmax(v, lo);
+}
+
+// Every product, sum and quotient of the plain version rounded on its own:
+// the _rn intrinsics are never contracted into a multiply-add. The file is
+// built with -fmad=true all the same (ops/cuda/_build.py), as PyTorch's own
+// kernels are, because the math library's float64 pow contracts under it:
+// built with -fmad=false, pow(x, 5.0) differs from torch.pow on 25 of 2^20
+// inputs in (1e-3, 3) on an H100 (float32 powf and rsqrt on none).
+__device__ __forceinline__ float mul(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float add(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float sub(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float div(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+__device__ __forceinline__ double div(double a, double b) {
+  return __ddiv_rn(a, b);
+}
+
+// Pose.inv_apply's (3,) @ (3, 3) product as cuBLAS's gemv forms it: v0 r0
+// + v1 r1 + v2 r2, fused as that kernel fuses it
+__device__ __forceinline__ float inv_dot(float v0, float r0, float v1,
+                                         float r1, float v2, float r2) {
+  return __fadd_rn(__fmaf_rn(v1, r1, __fmul_rn(v0, r0)), __fmul_rn(v2, r2));
+}
+__device__ __forceinline__ double inv_dot(double v0, double r0, double v1,
+                                          double r1, double v2, double r2) {
+  return __fma_rn(v2, r2, __fma_rn(v1, r1, __dmul_rn(v0, r0)));
+}
+
+// (a0 b0 + a1 b1) + a2 b2, and a0 b0 - a1 b1 (a cross product's component)
+template <typename T>
+__device__ __forceinline__ T dot3(T a0, T b0, T a1, T b1, T a2, T b2) {
+  return add(add(mul(a0, b0), mul(a1, b1)), mul(a2, b2));
+}
+template <typename T>
+__device__ __forceinline__ T cross1(T a0, T b0, T a1, T b1) {
+  return sub(mul(a0, b0), mul(a1, b1));
+}
+
+// the rotation of unit quaternion q = (x, y, z, w), row-major, as
+// ops/quaternion.py to_matrix computes it (1 - 2 y y - 2 z z is
+// (1 - (2 y) y) - (2 z) z)
+template <typename T>
+__device__ __forceinline__ void quat_matrix(const T* q, T* m) {
+  const T x = q[0], y = q[1], z = q[2], w = q[3];
+  const T x2 = mul(T(2), x), y2 = mul(T(2), y), z2 = mul(T(2), z);
+  m[0] = sub(sub(T(1), mul(y2, y)), mul(z2, z));
+  m[1] = sub(mul(x2, y), mul(z2, w));
+  m[2] = add(mul(x2, z), mul(y2, w));
+  m[3] = add(mul(x2, y), mul(z2, w));
+  m[4] = sub(sub(T(1), mul(x2, x)), mul(z2, z));
+  m[5] = sub(mul(y2, z), mul(x2, w));
+  m[6] = sub(mul(x2, z), mul(y2, w));
+  m[7] = add(mul(y2, z), mul(x2, w));
+  m[8] = sub(sub(T(1), mul(x2, x)), mul(y2, y));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+shade_compose_kernel(int n_rays, int obj0, int n_obj, int n_total,
+                     int first, Objects<T> objs, const T* rmd,
+                     const T* origin, const T* hit_t, const int* hit_tri,
+                     const int* hit_obj, const T* light_pos,
+                     const T* light_color, const T* diffuse,
+                     const T* specular, const T* exponent, T eps, T one_eps,
+                     T bg0, T bg1, T bg2, uint8_t* image, T* radiance,
+                     T* normal, T* point) {
+  const int r = blockIdx.x * kThreads + threadIdx.x;
+  if (r >= n_rays) return;
+  const int tri = hit_tri[r];
+  const int obj = hit_obj[r];
+  const bool hit = tri >= 0;
+  const int slot = obj - obj0;
+  const long long r3 = 3ll * r;
+  if (!(hit && slot >= 0 && slot < n_obj)) {
+    if (!first || (hit && obj >= 0 && obj < n_total)) return;
+    // a miss (or a hit of no object: zero radiance tonemapped to 0)
+    const T zero = T(0);
+    image[r3] = hit ? 0 : static_cast<uint8_t>(bg0);
+    image[r3 + 1] = hit ? 0 : static_cast<uint8_t>(bg1);
+    image[r3 + 2] = hit ? 0 : static_cast<uint8_t>(bg2);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      radiance[r3 + k] = zero;
+      normal[r3 + k] = zero;
+      point[r3 + k] = zero;
+    }
+    return;
+  }
+  const T* const* p = objs.p[slot];
+  const T p1x = p[0][tri], p1y = p[1][tri], p1z = p[2][tri];
+  const T e1x = p[3][tri], e1y = p[4][tri], e1z = p[5][tri];
+  const T e2x = p[6][tri], e2y = p[7][tri], e2z = p[8][tri];
+  const T* col = p[9] + 3ll * tri;
+  const T dx = rmd[r3], dy = rmd[r3 + 1], dz = rmd[r3 + 2];
+
+  // the pose: R, and the object-frame origin R^T (o - t)
+  T m[9];
+  quat_matrix(p[10], m);
+  const T vx = sub(origin[0], p[11][0]), vy = sub(origin[1], p[11][1]),
+          vz = sub(origin[2], p[11][2]);
+  const T oo[3] = {inv_dot(vx, m[0], vy, m[3], vz, m[6]),
+                   inv_dot(vx, m[1], vy, m[4], vz, m[7]),
+                   inv_dot(vx, m[2], vy, m[5], vz, m[8])};
+
+  // object-frame direction R^T d
+  const T ddx = dot3(m[0], dx, m[3], dy, m[6], dz);
+  const T ddy = dot3(m[1], dx, m[4], dy, m[7], dz);
+  const T ddz = dot3(m[2], dx, m[5], dy, m[8], dz);
+
+  // Moller-Trumbore t (ops/intersect.py mt_test)
+  const T tvx = sub(oo[0], p1x), tvy = sub(oo[1], p1y),
+          tvz = sub(oo[2], p1z);
+  const T pvx = cross1(ddy, e2z, ddz, e2y);
+  const T pvy = cross1(ddz, e2x, ddx, e2z);
+  const T pvz = cross1(ddx, e2y, ddy, e2x);
+  const T det = dot3(e1x, pvx, e1y, pvy, e1z, pvz);
+  const T qvx = cross1(tvy, e1z, tvz, e1y);
+  const T qvy = cross1(tvz, e1x, tvx, e1z);
+  const T qvz = cross1(tvx, e1y, tvy, e1x);
+  const T inv = div(T(1), det == T(0) ? T(1) : det);
+  const T u = mul(dot3(tvx, pvx, tvy, pvy, tvz, pvz), inv);
+  const T v = mul(dot3(ddx, qvx, ddy, qvy, ddz, qvz), inv);
+  const T t_mt = mul(dot3(e2x, qvx, e2y, qvy, e2z, qvz), inv);
+  const bool valid = fabs(det) >= eps && u >= eps && v >= eps
+                     && add(u, v) <= one_eps && t_mt >= eps;
+  const T t = valid ? t_mt : hit_t[r];
+
+  const T px = add(origin[0], mul(t, dx));
+  const T py = add(origin[1], mul(t, dy));
+  const T pz = add(origin[2], mul(t, dz));
+  // object-frame unit normal normalize(e1 x e2), rotated to world
+  const T cnx = cross1(e1y, e2z, e1z, e2y);
+  const T cny = cross1(e1z, e2x, e1x, e2z);
+  const T cnz = cross1(e1x, e2y, e1y, e2x);
+  const T inv_n = rsqrt(clamp_lo(dot3(cnx, cnx, cny, cny, cnz, cnz),
+                                 T(1e-30)));
+  const T nx_ = mul(cnx, inv_n), ny_ = mul(cny, inv_n),
+          nz_ = mul(cnz, inv_n);
+  const T nwx = dot3(m[0], nx_, m[1], ny_, m[2], nz_);
+  const T nwy = dot3(m[3], nx_, m[4], ny_, m[5], nz_);
+  const T nwz = dot3(m[6], nx_, m[7], ny_, m[8], nz_);
+
+  // Phong (ops/shade.py phong_radiance_c)
+  T lx = sub(light_pos[0], px), ly = sub(light_pos[1], py),
+    lz = sub(light_pos[2], pz);
+  const T inv_len = rsqrt(dot3(lx, lx, ly, ly, lz, lz));
+  lx = mul(lx, inv_len);
+  ly = mul(ly, inv_len);
+  lz = mul(lz, inv_len);
+  const T dot_r_n = dot3(lx, nwx, ly, nwy, lz, nwz);
+  const T two = mul(T(2), dot_r_n);
+  const T rsum = dot3(sub(lx, mul(two, nwx)), dx, sub(ly, mul(two, nwy)), dy,
+                      sub(lz, mul(two, nwz)), dz);
+  const T dif = mul(*diffuse, fabs(dot_r_n));
+  const T spec = mul(*specular, pow(fabs(rsum), *exponent));
+  T rad[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    rad[k] = add(mul(mul(col[k], dif), light_color[k]),
+                 mul(light_color[k], spec));
+
+  // max-norm tonemap, rounded half to even (ops/shade.py)
+  const T peak = nmax(nmax(rad[0], rad[1]), rad[2]);
+  const T den = peak > T(0) ? peak : T(1);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const T s = clamp2(nearbyint(mul(div(rad[k], den), T(255))), T(0),
+                       T(255));
+    image[r3 + k] = static_cast<uint8_t>(s);
+    radiance[r3 + k] = rad[k];
+  }
+  normal[r3] = nwx;
+  normal[r3 + 1] = nwy;
+  normal[r3 + 2] = nwz;
+  point[r3] = px;
+  point[r3 + 1] = py;
+  point[r3 + 2] = pz;
+}
+
+template <typename T>
+cudaError_t launch(int n_rays, int obj0, int n_obj, int n_total, int first,
+                   const void* const* obj_ptrs, const void* const* ops,
+                   double eps, const double* bg, void* const* outs,
+                   cudaStream_t stream) {
+  Objects<T> objs;
+  for (int i = 0; i < kMaxObjects; ++i)
+    for (int k = 0; k < kObjPtrs; ++k)
+      objs.p[i][k] = i < n_obj
+          ? static_cast<const T*>(obj_ptrs[i * kObjPtrs + k]) : nullptr;
+  const int blocks = (n_rays + kThreads - 1) / kThreads;
+  shade_compose_kernel<T><<<blocks, kThreads, 0, stream>>>(
+      n_rays, obj0, n_obj, n_total, first, objs,
+      static_cast<const T*>(ops[0]), static_cast<const T*>(ops[1]),
+      static_cast<const T*>(ops[2]), static_cast<const int*>(ops[3]),
+      static_cast<const int*>(ops[4]), static_cast<const T*>(ops[5]),
+      static_cast<const T*>(ops[6]), static_cast<const T*>(ops[7]),
+      static_cast<const T*>(ops[8]), static_cast<const T*>(ops[9]), T(eps),
+      T(1.0 + eps), T(bg[0]), T(bg[1]), T(bg[2]),
+      static_cast<uint8_t*>(outs[0]), static_cast<T*>(outs[1]),
+      static_cast<T*>(outs[2]), static_cast<T*>(outs[3]));
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int shade_max_objects() { return kMaxObjects; }
+
+// obj_ptrs: n_obj x 12 pointers (p1x .. e2z, colour, quaternion,
+// translation); ops: rmd, world origin, hit_t, hit_tri, hit_obj,
+// light_pos, light_color, diffuse, specular, exponent; bg: 3 doubles;
+// outs: image, radiance, normal, point.
+extern "C" int shade_compose_launch(int n_rays, int obj0, int n_obj,
+                                    int n_total, int first, int is_f64,
+                                    const void* const* obj_ptrs,
+                                    const void* const* ops, double eps,
+                                    const double* bg, void* const* outs,
+                                    void* stream) {
+  if (n_rays < 1 || n_obj < 1 || n_obj > kMaxObjects || obj0 < 0
+      || obj0 + n_obj > n_total)
+    return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  return (int)(is_f64
+      ? launch<double>(n_rays, obj0, n_obj, n_total, first, obj_ptrs, ops,
+                       eps, bg, outs, s)
+      : launch<float>(n_rays, obj0, n_obj, n_total, first, obj_ptrs, ops,
+                      eps, bg, outs, s));
+}

@@ -20,6 +20,7 @@ import dataclasses
 import torch
 
 from ..accel.binning import active_bin_budget, bin_budget
+from ..ops.cuda.shade import shade_compose
 from ..ops.gather import gather_rows, take_rows
 from ..ops.intersect import FixedOriginCache, Hit, mt_brute, mt_fixed_origin
 from ..ops.shade import compose_framebuffer, phong_radiance_c
@@ -221,11 +222,12 @@ def render_rays(scene: Scene, origin: torch.Tensor, rmd: torch.Tensor,
     return shade_and_compose(scene, origin, rmd, hit, config)
 
 
-def shade_and_compose(scene: Scene, origin: torch.Tensor, rmd: torch.Tensor,
-                      hit: Hit, config: RenderConfig) -> dict:
-    """Shade the hits and compose the image: `render_rays`'s dict of flat
-    per-ray tensors for a given hit (the sharded paths combine hits across
-    ranks first)."""
+def shade_compose_reference(scene: Scene, origin: torch.Tensor,
+                            rmd: torch.Tensor, hit: Hit,
+                            config: RenderConfig) -> dict:
+    """`shade_hits` and `compose_framebuffer`: the plain, differentiable
+    version of `shade_and_compose` (kernel K10's plain twin,
+    ``ops/cuda/shade.py``)."""
     radiance, normal, point, hit_mask = shade_hits(scene, origin, rmd, hit,
                                                    config)
     image = compose_framebuffer(radiance, hit_mask, config.background_rgb)
@@ -233,6 +235,22 @@ def shade_and_compose(scene: Scene, origin: torch.Tensor, rmd: torch.Tensor,
                 radiance=torch.where(hit_mask[..., None], radiance, 0.0),
                 hit_t=hit.t, hit_tri=hit.tri, hit_obj=hit.obj,
                 normal=normal, point=point)
+
+
+def shade_and_compose(scene: Scene, origin: torch.Tensor, rmd: torch.Tensor,
+                      hit: Hit, config: RenderConfig) -> dict:
+    """Shade the hits and compose the image: `render_rays`'s dict of flat
+    per-ray tensors for a given hit (the sharded paths combine hits across
+    ranks first). With autograd on and an input that requires grad (the
+    training steps) the differentiable `shade_compose_reference`; else
+    (`render`, `render_jit`, the sharded serving paths) `shade_compose`,
+    kernel K10 on CUDA tensors and the same plain version on CPU tensors,
+    bit for bit."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (rmd, origin, hit.t,
+                                      *scene.parameters())):
+        return shade_compose_reference(scene, origin, rmd, hit, config)
+    return shade_compose(scene, origin, rmd, hit, config)
 
 
 def render_differentiable(scene: Scene, camera: Camera,

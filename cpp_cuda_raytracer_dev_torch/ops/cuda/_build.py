@@ -27,7 +27,19 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+# Sources built with -fmad=true in place of -fmad=false: csrc/shade.cu rounds
+# each of its own operations with the _rn intrinsics, and under -fmad=true
+# the math library's float64 pow rounds as PyTorch's kernels (built so)
+# round it.
+FMAD_SOURCES = ("shade",)
 _loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _flags(name: str) -> tuple[str, ...]:
+    if name not in FMAD_SOURCES:
+        return NVCC_FLAGS
+    return tuple("-fmad=true" if f == "-fmad=false" else f
+                 for f in NVCC_FLAGS)
 
 
 def _nvcc() -> str:
@@ -40,7 +52,7 @@ def _nvcc() -> str:
 def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     key = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                         + " ".join(_flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}_{key}.so"
 
 
@@ -59,7 +71,8 @@ def build(*names: str) -> dict[str, tuple[Path, str]]:
         log = lib.with_name(f"{lib.name}.{os.getpid()}.log")
         with open(log, "w") as f:
             proc = subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                [_nvcc(), *_flags(name), "-o", str(tmp),
+                 str(CSRC / f"{name}.cu")],
                 stdout=f, stderr=subprocess.STDOUT)
         running[name] = (lib, tmp, log, proc)
     failed = []
