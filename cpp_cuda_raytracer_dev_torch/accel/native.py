@@ -22,6 +22,7 @@ from pathlib import Path
 
 import numpy as np
 
+from ..utils.profiling import tally
 from .kd_build import KDTree, build_kd
 
 SRC = Path(__file__).resolve().with_name("kd_native.cpp")
@@ -117,7 +118,11 @@ def build_kd_native(aabb_min: np.ndarray, aabb_max: np.ndarray,
 
 def build_kd_fast(aabb_min: np.ndarray, aabb_max: np.ndarray,
                   min_node_size: int = 1) -> KDTree:
-    """Native if possible (`native_available`), numpy otherwise."""
-    if native_available():
-        return build_kd_native(aabb_min, aabb_max, min_node_size)
-    return build_kd(aabb_min, aabb_max, min_node_size)
+    """Native if possible (`native_available`), numpy otherwise; the
+    build's host seconds count in ``kd_build_s`` (`utils/profiling.py`),
+    the first call's compile of the native builder not."""
+    native = native_available()
+    with tally("kd_build_s"):
+        if native:
+            return build_kd_native(aabb_min, aabb_max, min_node_size)
+        return build_kd(aabb_min, aabb_max, min_node_size)

@@ -39,6 +39,7 @@ from ..ops.cuda.tile_intersect import tile_intersect, tile_intersect_v2
 from ..ops.intersect import Hit, mt_test
 from .binning import BinnedScene, bin_triangles
 from ..utils.dtypes import DEFAULT_DRAW_DISTANCE, MT_EPSILON, SLAB_EPSILON
+from ..utils.profiling import tally
 from .kd_build import KDTree
 
 _CULL_ELEMS = 1 << 25     # (tile, plane, cluster) distances per cull group
@@ -623,9 +624,11 @@ class KDTables:
 
     @classmethod
     @torch.no_grad()
+    @tally("kd_build_s")
     def from_tree(cls, tree: KDTree, tris) -> "KDTables":
         """Tables of ``tree`` (accel/kd_build.py, numpy) over ``tris``, on
-        the triangles' device."""
+        the triangles' device; its host seconds count in ``kd_build_s``
+        (`utils/profiling.py`)."""
         dev = tris.p1x.device
         perm = torch.from_numpy(np.asarray(tree.perm, np.int64)).to(dev)
 

@@ -26,6 +26,7 @@ from ..ops.intersect import FixedOriginCache, Hit, mt_brute, mt_fixed_origin
 from ..ops.shade import compose_framebuffer, phong_radiance_c
 from ..utils import graphs
 from ..utils.config import RenderConfig
+from ..utils.profiling import span
 from .camera import Camera
 from .scene import Scene
 
@@ -327,21 +328,23 @@ def render_jit(scene: Scene, camera: Camera,
     On the CPU there is no graph: the frame runs as `render`'s, with the
     bin tables at the bucket and the same growth check.
 
-    `FRAME_GRAPHS` is the `GraphCache` (captures, buckets, regrowths).
+    `FRAME_GRAPHS` is the `GraphCache` (captures, buckets, regrowths). The
+    call runs in the span ``rt.render_jit`` (`utils/profiling.py`).
     """
-    if not jit_captures(config):
-        return render(scene, camera, config, accel)
-    key = (config, graphs.signature((scene, camera)),
-           camera.res_h, camera.res_w,
-           None if accel is None else tuple(id(a) for a in accel))
+    with span("rt.render_jit"):
+        if not jit_captures(config):
+            return render(scene, camera, config, accel)
+        key = (config, graphs.signature((scene, camera)),
+               camera.res_h, camera.res_w,
+               None if accel is None else tuple(id(a) for a in accel))
 
-    def body(args, bucket):
-        scene_, camera_ = args
-        with torch.no_grad(), bin_budget(bucket) as budget:
-            out = render_differentiable(scene_, camera_, config, accel)
-        return out, None if budget is None else budget.live
+        def body(args, bucket):
+            scene_, camera_ = args
+            with torch.no_grad(), bin_budget(bucket) as budget:
+                out = render_differentiable(scene_, camera_, config, accel)
+            return out, None if budget is None else budget.live
 
-    probe = ((lambda args: bin_entry_count(*args, config))
-             if config.method == "bin" else None)
-    return FRAME_GRAPHS.run(key, (scene, camera), body, probe,
-                            config.bin_chunk, pin=accel)
+        probe = ((lambda args: bin_entry_count(*args, config))
+                 if config.method == "bin" else None)
+        return FRAME_GRAPHS.run(key, (scene, camera), body, probe,
+                                config.bin_chunk, pin=accel)

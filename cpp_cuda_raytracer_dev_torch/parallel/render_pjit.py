@@ -62,6 +62,7 @@ from ..models.scene import Scene
 from ..ops.intersect import FixedOriginCache, Hit, mt_fixed_origin
 from ..utils import graphs
 from ..utils.config import RenderConfig
+from ..utils.profiling import span, tally
 from .collectives import allreduce_nearest_hit
 from .mesh import (PRIMS_AXIS, RAYS_AXIS, axis_group, axis_index, axis_size,
                    check_mesh, ray_band)
@@ -521,6 +522,8 @@ def make_train_step_jit(optimizer: torch.optim.Optimizer,
     through a static copy; a step with other parameters, or a target of
     another shape, captures anew (one pair of graphs is kept). With a mesh
     every rank runs its own graphs and captures anew at the same step.
+    A step runs in the span ``rt.train_step``; G2's capture counts in
+    ``capture_s`` (`utils/profiling.py`).
 
     A method that `render_jit` does not capture (`jit_captures`:
     "raster", whose dense list is sized by a host read) is not captured
@@ -554,31 +557,35 @@ def make_train_step_jit(optimizer: torch.optim.Optimizer,
         return body
 
     def step(params, target: torch.Tensor) -> torch.Tensor:
-        scene, camera = params["scene"], params["camera"]
-        key = (config, tuple(id(p) for p in graphs.leaves((scene, camera))),
-               graphs.signature((scene, camera, target)), camera.res_h,
-               camera.res_w)
-        if key != state["key"]:         # one pair of graphs is kept
-            state.update(key=key, cache=graphs.GraphCache(agree), g1=None,
-                         g2=None)
-        cache = state["cache"]
-        probe = ((lambda _: _band_entry_count(scene, camera, config, mesh))
-                 if config.method == "bin" else None)
-        loss = cache.run(key, target, forward_backward(params), probe,
-                         config.bin_chunk, pin=(params, accel))
-        if target.device.type != "cuda":
-            optimizer.step()
+        with span("rt.train_step"):
+            scene, camera = params["scene"], params["camera"]
+            key = (config,
+                   tuple(id(p) for p in graphs.leaves((scene, camera))),
+                   graphs.signature((scene, camera, target)), camera.res_h,
+                   camera.res_w)
+            if key != state["key"]:         # one pair of graphs is kept
+                state.update(key=key, cache=graphs.GraphCache(agree),
+                             g1=None, g2=None)
+            cache = state["cache"]
+            probe = ((lambda _: _band_entry_count(scene, camera, config,
+                                                  mesh))
+                     if config.method == "bin" else None)
+            loss = cache.run(key, target, forward_backward(params), probe,
+                             config.bin_chunk, pin=(params, accel))
+            if target.device.type != "cuda":
+                optimizer.step()
+                return loss
+            g1 = cache.graphs[key, cache.buckets.get(key)]
+            if state["g1"] is None:          # the first step: eager
+                optimizer.step()
+            else:
+                if state["g2"] is None or state["g1"] is not g1:
+                    state["g2"] = torch.cuda.CUDAGraph()
+                    with tally("capture_s"), torch.cuda.graph(
+                            state["g2"], pool=cache.pool):
+                        optimizer.step()
+                state["g2"].replay()
+            state["g1"] = g1
             return loss
-        g1 = cache.graphs[key, cache.buckets.get(key)]
-        if state["g1"] is None:          # the first step: eager
-            optimizer.step()
-        else:
-            if state["g2"] is None or state["g1"] is not g1:
-                state["g2"] = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(state["g2"], pool=cache.pool):
-                    optimizer.step()
-            state["g2"].replay()
-        state["g1"] = g1
-        return loss
     step.graphs = lambda: state["cache"]
     return step

@@ -35,6 +35,11 @@ once per key and bucket into a ``torch.cuda.CUDAGraph`` and replayed:
   the same call, which an SPMD program gives with the same keys as a single
   device (objects named by ``id`` are pinned, so no id is reused).
 
+- Tracing (`utils/profiling.py`): each replay runs in the span
+  ``rt.graphs.launch`` and each host read of the live count in
+  ``rt.graphs.live``; every probe, warm-up and capture adds its host
+  seconds to ``capture_s``.
+
 On the CPU there is no graph: the body runs on the caller's arguments at
 the same bucket, with the same growth check.
 """
@@ -45,6 +50,8 @@ import copy
 import dataclasses
 
 import torch
+
+from .profiling import span, tally
 
 
 def next_bucket(live: int, chunk: int) -> int:
@@ -100,15 +107,17 @@ def capture(body, args, bucket, pool) -> Captured:
     runs: on the H100 (torch 2.11, NCCL 2.28.9) an NCCL all-reduce and
     all-gather capture and replay bitwise in it, also with an eager
     collective of the same group still in flight when the capture
-    begins."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        body(args, bucket)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool):
-        out, live = body(args, bucket)
+    begins. Its host seconds count in ``capture_s``
+    (`utils/profiling.py` `SETUP_S`)."""
+    with tally("capture_s"):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            body(args, bucket)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool):
+            out, live = body(args, bucket)
     return Captured(graph, out, live)
 
 
@@ -138,19 +147,24 @@ class GraphCache:
 
     def bucket(self, key, args, probe, chunk: int | None) -> int | None:
         """The key's bucket; the first call of a key takes it from
-        ``probe(args)``. None for a program without bin tables."""
+        ``probe(args)`` (its host seconds count in ``capture_s``). None
+        for a program without bin tables."""
         if probe is None:
             return None
         if key not in self.buckets:
-            self.buckets[key] = next_bucket(self.count(probe(args)), chunk)
+            with tally("capture_s"):
+                n = self.count(probe(args))
+            self.buckets[key] = next_bucket(n, chunk)
         return self.buckets[key]
 
     def grow(self, key, live, bucket, chunk) -> int | None:
         """After a run at ``bucket``: None when its ``live`` count fits,
-        else the larger bucket to redo it at (one host read of 8 bytes)."""
+        else the larger bucket to redo it at (one host read of 8 bytes, in
+        the span ``rt.graphs.live``)."""
         if live is None:
             return None
-        n = self.count(live)
+        with span("rt.graphs.live"):
+            n = self.count(live)
         if n <= bucket:
             return None
         self.regrown += 1
@@ -188,7 +202,8 @@ class GraphCache:
         while True:
             if on_cuda:
                 prog = self.program(key, args, body, bucket)
-                prog.graph.replay()
+                with span("rt.graphs.launch"):
+                    prog.graph.replay()
                 out, live = prog.out, prog.live
             else:
                 out, live = body(args, bucket)

@@ -1,38 +1,70 @@
-"""Tracing, timing, and per-frame metrics (the JAX package's
-``utils/profiling.py``).
+"""Tracing and timing (the JAX package's ``utils/profiling.py``).
 
 The reference's observability is QueryPerformanceCounter wall timers around
 scene load / sort / KD build plus a per-frame FPS HUD redrawn with VT escape
 codes (``TEST_Dungeonrun/WinMain.cpp:47-48,122-151,219-235``). Here:
 
+- `span(name)`: a named range of the program (every name starts with
+  ``rt.``) in the host timeline of a running ``torch.profiler``, the clock
+  its CUPTI device trace is aligned to; a span nests in the span that
+  encloses it. With no profiler recording it is a shared null context,
+  one flag check. The spans: ``rt.render_jit`` (`render_jit`'s whole
+  call), ``rt.train_step`` (`make_train_step_jit`'s step), inside them
+  ``rt.graphs.launch`` (each replay of a captured graph) and
+  ``rt.graphs.live`` (the host's read of the live count, a wait on the
+  device).
+- `SETUP_S` and `tally(name)`: process-wide set-up seconds by cause, on the
+  host's clock: ``capture_s`` (every probe frame, and every warm-up and
+  capture of a graph), ``kd_build_s`` (the KD tree's build and its tables'
+  upload).
 - `trace(dir)`: context manager around ``torch.profiler.profile`` (CPU and,
-  where there is one, the CUDA device); writes a Chrome trace on exit.
-- `Timer`: named wall-clock phase timers with a printable report.
-- `FrameMetrics` / `metrics_line`: the per-frame HUD numbers.
-- `timed` and `device_time`: seconds per call. On a CUDA device
-  `device_time` reads CUDA events around a run of calls; on the CPU, which
-  the caller must ask for, it reads the wall clock.
-
-A timer handed a CUDA tensor (``fence``) synchronises its device before it
-reads the clock, so a timed region measures device work, not the enqueue.
+  where there is one, the CUDA device); writes a Chrome trace on exit,
+  which shows the spans above the kernels they launch.
+- `device_time`: seconds per call. On a CUDA device it reads CUDA events
+  around a run of calls; on the CPU, which the caller must ask for, it
+  reads the wall clock.
 """
 
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import time
 from pathlib import Path
-from typing import Any
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 DEFAULT_TRACE_DIR = Path(__file__).resolve().parents[2] / "build" / "trace"
 
+_IDLE = contextlib.nullcontext()
 
-def _sync(x: Any) -> None:
-    if isinstance(x, torch.Tensor) and x.device.type == "cuda":
-        torch.cuda.synchronize(x.device)
+# set-up seconds by cause, summed over the process (`tally`)
+SETUP_S = {"capture_s": 0.0, "kd_build_s": 0.0}
+
+
+def span(name: str):
+    """A context for the program's range ``name``: a host range of the
+    profiler while ``torch.profiler`` records (its module flag, set while
+    any profiler runs), the shared null context otherwise.
+
+    The range is a ``_RecordFunctionFast``, a host operation: a
+    ``record_function`` range also leaves a copy of itself among the
+    device's events, spanning the first to the last kernel launched
+    inside it (torch 2.11 on an H100), which a reader of the device trace
+    would count as device work."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _IDLE
+    return torch._C._profiler._RecordFunctionFast(name)
+
+
+@contextlib.contextmanager
+def tally(name: str):
+    """Add the host seconds of the block to ``SETUP_S[name]``."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        SETUP_S[name] += time.perf_counter() - t0
 
 
 def _sync_cuda() -> None:
@@ -55,65 +87,6 @@ def trace(log_dir: str | Path = DEFAULT_TRACE_DIR):
         yield prof
         _sync_cuda()
     prof.export_chrome_trace(str(log_dir / "trace.json"))
-
-
-class Timer:
-    """Named phase timers: ``with timer.phase("kd build"): ...``."""
-
-    def __init__(self) -> None:
-        self.phases: dict[str, float] = {}
-
-    @contextlib.contextmanager
-    def phase(self, name: str, fence: Any = None):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            _sync(fence)
-            self.phases[name] = (time.perf_counter() - t0
-                                 + self.phases.get(name, 0.0))
-
-    def report(self) -> str:
-        width = max((len(k) for k in self.phases), default=0)
-        return "\n".join(f"{k:<{width}}  {v * 1e3:10.2f} ms"
-                         for k, v in self.phases.items())
-
-
-@dataclasses.dataclass
-class FrameMetrics:
-    """Per-frame numbers the reference prints in its HUD
-    (WinMain.cpp:226-234)."""
-
-    frame_ms: float
-    num_rays: int
-    hit_rate: float = float("nan")
-
-    @property
-    def fps(self) -> float:
-        return 1e3 / self.frame_ms if self.frame_ms > 0 else float("inf")
-
-    @property
-    def rays_per_sec(self) -> float:
-        return self.num_rays / (self.frame_ms * 1e-3)
-
-
-def metrics_line(m: FrameMetrics) -> str:
-    return (f"{m.frame_ms:8.2f} ms  {m.fps:8.1f} FPS  "
-            f"{m.rays_per_sec:.3e} rays/s  hit={m.hit_rate:.3f}")
-
-
-def timed(fn, *args, iters: int = 10, warmup: int = 2) -> float:
-    """Wall-clock seconds per call of ``fn(*args)``, after ``warmup``
-    calls; the CUDA device, where there is one, is synchronised before the
-    clock is read."""
-    for _ in range(warmup):
-        fn(*args)
-    _sync_cuda()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn(*args)
-    _sync_cuda()
-    return (time.perf_counter() - t0) / iters
 
 
 def device_time(make_call, n_lo: int = 4, n_hi: int = 8, repeats: int = 3,

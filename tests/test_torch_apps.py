@@ -360,13 +360,6 @@ def test_profiling_helpers(tmp_path, monkeypatch):
     dt = profiling.device_time(lambda i: calls.append(i), n_lo=2, n_hi=3,
                                repeats=3, device="cpu")
     assert dt >= 0 and calls == list(range(11))    # distinct indices
-    assert profiling.timed(lambda x: x + 1, torch.ones(3), iters=2) >= 0
-    timer = profiling.Timer()
-    with timer.phase("load", fence=torch.ones(2)):
-        pass
-    assert "load" in timer.report()
-    m = profiling.FrameMetrics(frame_ms=20.0, num_rays=1000, hit_rate=0.5)
-    assert m.fps == 50.0 and "50.0 FPS" in profiling.metrics_line(m)
     with profiling.trace(tmp_path / "tr"):
         torch.ones(4).sum()
     assert (tmp_path / "tr" / "trace.json").stat().st_size > 0
