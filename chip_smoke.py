@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's ``method="bin"`` frame (its prepass through kernels K8
-and K9, its shading through K10) and its training step, the
+Drives the port's ``method="bin"`` frame (its set-up through kernel K11,
+its prepass through K8 and K9, its shading through K10) and its training
+step, the
 cluster paths ``method="pallas2"`` and ``"pallas"``, the per-tile bin
 kernel K6, the apps ``render_cli`` and ``animate``, the sharded entry points
 (at world size 1 over NCCL), the raster path, float64, the compiled
@@ -200,25 +201,34 @@ Phases (any failure raises and the process exits non-zero):
      runs uncaptured (``make_train_step``'s step), ``N_RASTER_STEPS`` steps
      bitwise the eager ones;
  17. the serving frame's kernels K8 (the bin prepass's per-triangle pass
-     and its ray table), K9 (the entry passes around the key sort) and K10
-     (shading and composition): K8 and K9 bitwise their plain versions
+     and its ray table), K9 (the entry passes around the key sort), K10
+     (shading and composition) and K11 (the frame's set-up: rays,
+     Projections, object frames): K8 and K9 bitwise their plain versions
      (every output of each launch) on a 96x64 sphere, headline frame 0 at
      the live count and at bucket 524,288, the band of its rows 270-539 and
      each object of a two-object scene sharing the headline Triangles;
      K10 bitwise its plain version on the sphere, frame 0, the band, the
-     two-object scene and the kd frame 0 in float64; each launch timed
-     (its device time from the profiler) against its plain version and its
-     byte bound; the replayed bin frame's device time by stage (each stage
-     captured alone: ray table, prepass, sort, table, K1, shading and
-     composition) with the kernels and with the plain versions; replayed
+     two-object scene and the kd frame 0 in float64; K11 (through
+     ``set_up_frame``) bitwise its plain version ``frame_setup_reference``
+     (every ray, origin and Projection field) on headline frame 0 for bin
+     and kd in float32 and kd in float64, the band of its rows 270-539,
+     the bin probe (no rays) and the two-object scene (bin, raster, and a
+     fixed band); each launch timed (its device time from the profiler)
+     against its plain version and its byte bound; the replayed bin
+     frame's device time by stage (each stage captured alone: set-up, ray
+     table, prepass, sort, table, K1, shading and composition) with the
+     kernels and with the plain versions; replayed
      bin, ``pallas2``, ``pallas`` and kd frames and the compiled
      all-leaves and pose/light/camera-only steps with the kernels and with
      the plain versions in their places, in turns, bitwise, one of each
      profiled (device busy, device and host operations, kernels seen: K8
      and K9 in every bin frame and step, K10 in every frame and in no
-     step); the counters from 0 over 8 bin frames through ``render``, a
-     ``pallas2`` and a ``pallas`` frame, and one bin training step (K10:
-     none). Phases 11 and 12 count K8-K10 on the apps and sharded paths.
+     step, K11 in no step; K11's counter moves in the captures with the
+     kernels and not on the plain route, whose replays show no K11); the
+     counters from 0 over 8 bin frames through ``render``, a ``pallas2``
+     and a ``pallas`` frame, and one bin training step (K10 and K11: none;
+     its set-up counted by ``set_up_frame.plain``). Phases 11 and 12 count
+     K8-K11 on the apps and sharded paths.
 A differing id passes as a tie when both triangles' t, by the oracle's
 constants, lie within 1e-5 of the oracle's t. Each phase prints its seconds.
 Operation bounds are given at the FMA peak (``bound_ms``: 2 operations a
@@ -278,6 +288,8 @@ RAY_TABLE_OPS_PER_RAY = 60
 K9_OPS_PER_TRI = 30
 K9_OPS_PER_ENTRY = 12
 K10_OPS_PER_HIT = 240          # csrc/shade.cu, "Bound"
+K11_OPS_PER_RAY = 25           # csrc/shade.cu, K11's "Bound"
+K11_OPS_PER_OBJECT_RAY = 15
 N_RASTER_STEPS = 2             # uncaptured compiled raster steps vs eager
 N_ANIMATE_TICKS = 30
 BACKGROUND = (240, 130, 0)
@@ -287,9 +299,13 @@ RASTER_FRAMES = 3
 RASTER_SPANS = (8, 16)         # timed once each against the default 4
 N_JIT_STEPS = 3                # compiled against eager steps, bitwise
 PROFILE_PAD_S = 0.005          # idle host time either side of a profiled call
-# the wrappers of kernels K8 (two launches), K9 (two) and K10
+LEAD_KERNELS = 100             # spin kernels that open a profiled window,
+LEAD_GAP_S = 0.001             # this far apart
+LEAD_NAME = "spin_kernel"      # torch.cuda._sleep's kernel
+LEAD_SEEN = []                 # of each profiled window's lead-in kernels
+# the wrappers of kernels K8 (two launches), K9 (two), K10 and K11
 SERVING_KERNELS = ("bin_tri_pass", "ray_table", "bin_entry_keys",
-                   "bin_entry_table", "shade_compose")
+                   "bin_entry_table", "shade_compose", "frame_setup")
 # each kernel's name in a profiler trace (a replay has no launch counter)
 KERNEL_NAMES = {"bin_intersect": "own_walk_kernel",
                 "segment_sum": "segment_sum_level",
@@ -300,7 +316,8 @@ KERNEL_NAMES = {"bin_intersect": "own_walk_kernel",
                 "ray_table": "ray_table_kernel",
                 "bin_entry_keys": "entry_keys_kernel",
                 "bin_entry_table": "entry_table_kernel",
-                "shade_compose": "shade_compose_kernel"}
+                "shade_compose": "shade_compose_kernel",
+                "frame_setup": "frame_setup_kernel"}
 # K3's and K6's design levers, each switched off (one ray a thread, which at
 # P 512 is also one entry group of 512 threads; one entry group of P / 4
 # threads; two rays a thread in two groups; the next block or chunk copied
@@ -333,21 +350,52 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def lead_in() -> None:
+    """Open a profiled window with `LEAD_KERNELS` short spin kernels,
+    `LEAD_GAP_S` apart, and a synchronise. Later in a long run the
+    profiler drops more of the first device records of a window (two in
+    phase 12: a sharded frame's K11, its first kernel, went unseen while
+    the same frame in a fresh process showed it; in phase 15 all of eight
+    spin kernels; in phase 17 all 20 launches of the ray table); these
+    are what it drops first, by count or by time. The readers leave the
+    spin kernels, and the host calls up to the synchronise, out; how
+    many were seen goes to `LEAD_SEEN`. A kernel's presence in a replay
+    is also held by its launch counter where it can be (K11)."""
+    for _ in range(LEAD_KERNELS):
+        torch.cuda._sleep(100)
+        time.sleep(LEAD_GAP_S)
+    torch.cuda.synchronize()
+
+
+def lead_seen(events) -> None:
+    """Record how many of `lead_in`'s kernels the profiler kept (and log
+    it when it dropped some)."""
+    kept = sum(a.count for a in events if LEAD_NAME in a.key)
+    LEAD_SEEN.append(kept)
+    if kept < LEAD_KERNELS:
+        log(f"profiler: kept {kept} of {LEAD_KERNELS} lead-in kernels "
+            f"(window {len(LEAD_SEEN)})")
+
+
 def device_profile(fn):
     """Run ``fn()`` once under torch.profiler, with `PROFILE_PAD_S` of idle
-    host time either side. Returns (device busy ms, device operations, the
-    8 largest device kernels as (name, count, ms)). Only device events
-    count: an aten op's own device time repeats its kernels'."""
+    host time either side and `lead_in` before it. Returns (device busy
+    ms, device operations, the 8 largest device kernels as (name, count,
+    ms)). Only device events count: an aten op's own device time repeats
+    its kernels'."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILE_PAD_S)
+        lead_in()
         fn()
         torch.cuda.synchronize()
         time.sleep(PROFILE_PAD_S)
-    on_dev = [a for a in prof.key_averages()
+    events = [a for a in prof.key_averages()
               if a.device_type == DeviceType.CUDA]
+    lead_seen(events)
+    on_dev = [a for a in events if LEAD_NAME not in a.key]
     on_dev.sort(key=lambda a: -a.self_device_time_total)
     top = [(a.key[:48], a.count, a.self_device_time_total / 1e3)
            for a in on_dev[:8]]
@@ -366,7 +414,8 @@ def replay_profile(fn):
     operations by name (with a process group they include the polls of
     NCCL's watchdog thread). The window has `PROFILE_PAD_S` of idle host
     time either side of the call (one profiled replay once lost the first
-    175 of its device records)."""
+    175 of its device records) and `lead_in` before it, whose kernels and
+    host calls are left out."""
     import collections
 
     from torch.autograd import DeviceType
@@ -374,20 +423,27 @@ def replay_profile(fn):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILE_PAD_S)
+        lead_in()
         fn()
         torch.cuda.synchronize()
         time.sleep(PROFILE_PAD_S)
-    calls = collections.Counter(
-        e.name for e in prof.events()
-        if e.device_type == DeviceType.CPU and e.name.startswith("cuda"))
-    events = prof.key_averages()
-    on_dev = [a for a in events if a.device_type == DeviceType.CUDA]
-    host = sum(a.count for a in events if a.device_type == DeviceType.CPU
-               and a.key.startswith("cuda"))
+    on_host = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CPU
+                      and e.name.startswith("cuda")),
+                     key=lambda e: e.time_range.start)
+    lead_end = next(e.time_range.end for e in on_host
+                    if e.name == "cudaDeviceSynchronize")
+    calls = collections.Counter(e.name for e in on_host
+                                if e.time_range.start >= lead_end)
+    events = [a for a in prof.key_averages()
+              if a.device_type == DeviceType.CUDA]
+    lead_seen(events)
+    on_dev = [a for a in events if LEAD_NAME not in a.key]
+    host = sum(calls.values())
     seen = {k: sum(a.count for a in on_dev if name in a.key)
             for k, name in KERNEL_NAMES.items()}
-    graphs = sum(a.count for a in events if a.device_type == DeviceType.CPU
-                 and a.key.startswith("cudaGraphLaunch"))
+    graphs = sum(n for name, n in calls.items()
+                 if name.startswith("cudaGraphLaunch"))
     return (sum(a.self_device_time_total for a in on_dev) / 1e3,
             sum(a.count for a in on_dev), host, seen, graphs, dict(calls))
 
@@ -1124,7 +1180,7 @@ def main() -> None:
     compiled["segment_sum"]["train_jit_kd"] = k7_kernel.pop("k2_train_jit")
     phase_done(16)
 
-    # ---- 17. the serving frame's kernels K8, K9 and K10 ----
+    # ---- 17. the serving frame's kernels K8, K9, K10 and K11 ----
     serving = run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs,
                                   target, smi, clock_mhz)
     for entry in serving:
@@ -1172,6 +1228,9 @@ def main() -> None:
     for entry in kernels:     # phases 12 and 15, path by path
         entry["launches_by_path"].update(sharded.get(entry["name"], {}))
         entry["launches_by_path"].update(compiled.get(entry["name"], {}))
+    log(f"profiled windows {len(LEAD_SEEN)}: lead-in kernels kept of "
+        f"{LEAD_KERNELS}: least {min(LEAD_SEEN)}, median "
+        f"{float(np.median(LEAD_SEEN))}, the last ten {LEAD_SEEN[-10:]}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1881,10 +1940,10 @@ def run_sharded(dev, headline_tv, frames, cfg, accel, ccfgs, target, smi):
         scene, cam = frames[0]
         c2, c5 = ccfgs["pallas2"], ccfgs["pallas"]
         acc = (accel,)
-        # K8 and K9 on every bin path, K10 on every serving path
+        # K8 and K9 on every bin path, K10 and K11 on every serving path
         prep = [bp.bin_tri_pass, bp.ray_table, bp.bin_entry_keys,
-                bp.bin_entry_table, k10.shade_compose]
-        shade = [k10.shade_compose]
+                bp.bin_entry_table, k10.shade_compose, k10.frame_setup]
+        shade = [k10.shade_compose, k10.frame_setup]
         cases = [
             ("render_sharded bin", "sharded_bin",
              lambda: pj.render_sharded(scene, cam, cfg, mesh1),
@@ -1970,9 +2029,10 @@ def run_sharded(dev, headline_tv, frames, cfg, accel, ccfgs, target, smi):
         out.setdefault("segment_sum", {})["sharded_train"] = counts[1]
         for k in prep:
             out.setdefault(k.__name__, {})["sharded_train"] = k.launches
-        if not bp.bin_tri_pass.launches or k10.shade_compose.launches:
-            raise RuntimeError("the sharded step skipped K8 or shaded "
-                               "through K10")
+        if not bp.bin_tri_pass.launches or k10.shade_compose.launches \
+                or k10.frame_setup.launches:
+            raise RuntimeError("the sharded step skipped K8, shaded "
+                               "through K10 or set up through K11")
         finite = all(bool(torch.isfinite(p.grad).all()) for p in shard_list)
         same_p = all(torch.equal(a, b) for a, b in zip(shard_list,
                                                        single_list))
@@ -2189,10 +2249,13 @@ def jit_frames(method, c, acc, kname, frames, smi, note="", mesh=None):
     `render_sharded_jit` against `render_sharded` under inference mode):
     frames 0, 1 and 0 bitwise, one graph captured, eager and replayed
     frames timed in turns and one of each profiled; ``kname`` must be seen
-    inside the replay. Returns {kernel: instances in the replayed frame}
-    (`KERNEL_NAMES`)."""
+    inside the replay, and K11's counter must move in the capture (the
+    plain set-up's must not). Returns {kernel: instances in the replayed
+    frame} (`KERNEL_NAMES`)."""
     from cpp_cuda_raytracer_dev_torch import render, render_jit
     from cpp_cuda_raytracer_dev_torch.models import renderer
+    from cpp_cuda_raytracer_dev_torch.models.camera import set_up_frame
+    from cpp_cuda_raytracer_dev_torch.ops.cuda import shade as k10
     from cpp_cuda_raytracer_dev_torch.parallel import render_pjit as pj
 
     name = "render_jit"
@@ -2208,9 +2271,12 @@ def jit_frames(method, c, acc, kname, frames, smi, note="", mesh=None):
         fns = {"eager": eager, "replayed": lambda scene, cam, config, accel:
                pj.render_sharded_jit(scene, cam, config, mesh, accel)}
     captures, regrown = cache.captures, cache.regrown
-    bad = []
+    plain = set_up_frame.plain
+    bad, k11 = [], 0
     for i in (0, 1, 0):          # frame 0, another camera and pose, frame 0
+        before = k10.frame_setup.launches
         got = fns["replayed"](*frames[i], c, acc)
+        k11 += k10.frame_setup.launches - before
         bad += [f"frame {i} {f}" for f in
                 differ(got, fns["eager"](*frames[i], c, acc))]
     torch.cuda.synchronize()
@@ -2219,7 +2285,9 @@ def jit_frames(method, c, acc, kname, frames, smi, note="", mesh=None):
     prof = {k: replay_profile(lambda: f(*frames[0], c, acc))
             for k, f in fns.items()}
     log(f"{name} {method}: bitwise the eager frames 0, 1, 0 "
-        f"{not bad}; graphs captured {cache.captures - captures}, "
+        f"{not bad}; K11 launches in the capture {k11}, set-ups by the "
+        f"plain version {set_up_frame.plain - plain}; graphs captured "
+        f"{cache.captures - captures}, "
         f"regrowths {cache.regrown - regrown}{note}; "
         + "; ".join(f"{k} frames {spread(v)}, profiled frame: device "
                     f"busy {prof[k][0]:.3f} ms in {prof[k][1]} device "
@@ -2241,9 +2309,10 @@ def jit_frames(method, c, acc, kname, frames, smi, note="", mesh=None):
                            f"{cache.captures - captures} graphs in "
                            f"{grown} regrowths")
     seen = prof["replayed"][3]
-    if seen[kname] < 1 or prof["replayed"][4] < 1:
+    if min(seen[kname], prof["replayed"][4], k11) < 1 \
+            or set_up_frame.plain != plain:
         raise RuntimeError(f"{kname} not seen inside the replayed {method} "
-                           "frame")
+                           f"frame, or K11 not captured in it ({k11})")
     return seen
 
 
@@ -2314,7 +2383,8 @@ def jit_steps(dev, headline_tv, c, acc, kname, target, smi, mesh=None,
     sets, both with ``mesh``: parameters and losses bitwise after
     `N_JIT_STEPS` steps and after ``turns`` of each in turns and the
     profiled ones; ``kname`` seen in every replayed step, K2 in the
-    all-leaves one only, K8 and K9 in every bin step and K10 in none.
+    all-leaves one only, K8 and K9 in every bin step and K10 and K11 in
+    none.
     Returns {kernel name: instances in the replayed all-leaves step} for
     ``kname``, K2 and `SERVING_KERNELS`."""
     from cpp_cuda_raytracer_dev_torch.parallel.render_pjit import (
@@ -2374,9 +2444,10 @@ def jit_steps(dev, headline_tv, c, acc, kname, target, smi, mesh=None,
                 or prof["compiled"][4] < 1:
             raise RuntimeError(f"the replayed {c.method} {kind} step ran "
                                f"{kname} {seen[kname]} and K2 {k2_seen} times")
-        # K8 and K9 in a bin step, K10 in none (the step shades with
-        # autograd)
-        if seen["shade_compose"] or (c.method == "bin") != (
+        # K8 and K9 in a bin step, K10 and K11 in none (the step shades
+        # and sets up with autograd)
+        if seen["shade_compose"] or seen["frame_setup"] or (
+                c.method == "bin") != (
                 seen["bin_tri_pass"] > 0 and seen["bin_entry_keys"] > 0):
             raise RuntimeError(f"the replayed {c.method} {kind} step ran "
                                f"the serving kernels {seen}")
@@ -2789,21 +2860,24 @@ def run_kd(dev, headline_tv, frames, idx_t, ref, target, smi, clock_mhz):
 def kernel_ms(fn, name, reps=KERNEL_REPS):
     """Device ms of one instance of the kernel named ``name`` in ``fn()``:
     the profiler's mean device time of its instances over ``reps`` calls,
-    after one warm-up call (the wrapper's own small operations and the
-    host's pace are left out; a record the profiler drops, as it sometimes
-    does, only leaves the mean over fewer)."""
+    after one warm-up call and `lead_in` (the wrapper's own small
+    operations and the host's pace are left out; a record the profiler
+    drops, as it sometimes does, only leaves the mean over fewer)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILE_PAD_S)
+        lead_in()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
         time.sleep(PROFILE_PAD_S)
-    ev = [a for a in prof.key_averages()
-          if a.device_type == DeviceType.CUDA and name in a.key]
+    events = [a for a in prof.key_averages()
+              if a.device_type == DeviceType.CUDA]
+    lead_seen(events)
+    ev = [a for a in events if name in a.key]
     n = sum(a.count for a in ev)
     if n < 1:
         raise RuntimeError(f"{name} not seen in {reps} calls")
@@ -2829,9 +2903,9 @@ def graph_ms(fn, reps=KERNEL_REPS):
 
 def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
                         smi, clock_mhz):
-    """Phase 17 (see the module docstring): kernels K8, K9 and K10. Returns
-    their rows of the kernels line (main() adds the sharded and app paths
-    to ``launches_by_path``)."""
+    """Phase 17 (see the module docstring): kernels K8, K9, K10 and K11.
+    Returns their rows of the kernels line (main() adds the sharded and
+    app paths to ``launches_by_path``)."""
     import contextlib
 
     from cpp_cuda_raytracer_dev_torch import (Camera, Pose, RenderConfig,
@@ -2841,6 +2915,8 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
     from cpp_cuda_raytracer_dev_torch.accel.traverse import (_bin_meta,
                                                              _ray_table)
     from cpp_cuda_raytracer_dev_torch.models import renderer
+    from cpp_cuda_raytracer_dev_torch.models.camera import (
+        PROJ_METHODS, frame_setup_reference, set_up_frame)
     from cpp_cuda_raytracer_dev_torch.models.renderer import (
         shade_compose_reference, shade_hits, trace_rays)
     from cpp_cuda_raytracer_dev_torch.ops.cuda import bin_prepass as bp
@@ -2849,6 +2925,7 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
         bin_intersect
     from cpp_cuda_raytracer_dev_torch.ops.quaternion import from_axis_angle
     from cpp_cuda_raytracer_dev_torch.ops.shade import compose_framebuffer
+    from cpp_cuda_raytracer_dev_torch.parallel import render_pjit as pj
     from cpp_cuda_raytracer_dev_torch.parallel.render_pjit import (
         make_train_step, make_train_step_jit)
     from cpp_cuda_raytracer_dev_torch.utils.graphs import GraphCache
@@ -2856,6 +2933,7 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
 
     wrappers = {k: getattr(bp, k) for k in SERVING_KERNELS[:4]}
     wrappers["shade_compose"] = k10.shade_compose
+    wrappers["frame_setup"] = k10.frame_setup
     th, tw, chunk = cfg.tile_h, cfg.tile_w, cfg.bin_chunk
 
     def cam_at(pos, w=RES_W, h=RES_H, dtype=torch.float32):
@@ -2864,7 +2942,7 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
                              device=dev, dtype=dtype)
 
     # ---- each kernel bitwise its plain version ----
-    max_err = {"K8": 0.0, "K9": 0.0, "K10": 0.0}
+    max_err = {"K8": 0.0, "K9": 0.0, "K10": 0.0, "K11": 0.0}
 
     def same(kname, name, a, b, bad):
         if a.dtype.is_floating_point and a.shape == b.shape and a.numel():
@@ -2948,6 +3026,47 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
             raise RuntimeError(f"{case}: {bad} differ from the plain version")
         return scene, cam, rmd, hit
 
+    def hold_setup(case, cam, poses, method, row0=0, band_h=None,
+                   rays=True):
+        """K11 (through `set_up_frame` without autograd) against its plain
+        version: the rays, the Projections and the object frames."""
+        bad = []
+        with torch.inference_mode():
+            before = k10.frame_setup.launches
+            got = set_up_frame(cam, poses, method, row0, band_h, rays)
+            ref = frame_setup_reference(cam, poses, method, row0, band_h,
+                                        rays)
+            torch.cuda.synchronize()
+        if k10.frame_setup.launches == before:
+            bad.append("K11 not launched")
+        pairs = [("rmd", got.rmd, ref.rmd)]
+        projs = [("camera", got.proj, ref.proj)]
+        for i, (g, r) in enumerate(zip(got.objects, ref.objects,
+                                       strict=True)):
+            pairs += [(f"object {i} origin", g.origin, r.origin),
+                      (f"object {i} rays", g.rays, r.rays)]
+            projs.append((f"object {i}", g.proj, r.proj))
+        for name, g, r in projs:
+            if (g is None) != (r is None) or (g is not None
+                                              and g.row0 != r.row0):
+                bad.append(f"K11 {name} Projection")
+            elif g is not None:
+                pairs += [(f"{name} Projection {f}", getattr(g, f),
+                           getattr(r, f))
+                          for f in ("origin", "n", "u", "v", "sx", "sy",
+                                    "adjust_x", "adjust_y")]
+        for name, g, r in pairs:
+            if (g is None) != (r is None):
+                bad.append(f"K11 {name}")
+            elif g is not None:
+                same("K11", name, g, r, bad)
+        log(f"K11 against its plain version [{case}]: {method}, rows "
+            f"[{row0}, {row0 + (band_h or cam.res_h - row0)}) of "
+            f"{cam.res_w}x{cam.res_h}, {len(poses)} objects, "
+            f"{cam.pos.dtype}, rays {rays}; bitwise {not bad}")
+        if bad:
+            raise RuntimeError(f"{case}: {bad} differ from the plain version")
+
     sphere = Scene([SceneObject(Triangles.from_vertices(uv_sphere(50, 50),
                                                         device=dev))])
     scam = cam_at((0.0, 0.0, -3.0), 96, 64)
@@ -2992,7 +3111,22 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
     hold_shade("kd frame 0, float64", scene64,
                cam_at((0.0, 0.0, -3.0), dtype=torch.float64),
                RenderConfig(method="kd"), (tab64,))
-    del tab64, scene64
+    del tab64
+    pose0 = [obj.pose]
+    hold_setup("headline frame 0", cam, pose0, "bin")
+    hold_setup("headline frame 0", cam, pose0, "kd")
+    hold_setup("headline frame 0, float64", cam_at((0.0, 0.0, -3.0),
+                                                   dtype=torch.float64),
+               [scene64.objects[0].pose], "kd")
+    hold_setup(f"headline frame 0, the band of rows {band}-{RES_H - 1}",
+               cam, pose0, "bin", band, RES_H - band)
+    hold_setup("headline frame 0, the bin probe", cam, pose0, "bin",
+               rays=False)
+    hold_setup("two-object scene", tcam, poses, "bin")
+    hold_setup("two-object scene", tcam, poses, "raster")
+    hold_setup(f"two-object scene, the band of rows {band}-{RES_H - 1}",
+               tcam, poses, "fixed", band, RES_H - band)
+    del scene64
 
     # ---- each kernel timed against its plain version and its bound ----
     with torch.inference_mode():
@@ -3008,6 +3142,8 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
         k10_ms = kernel_ms(
             lambda: k10.shade_compose(hs, hcam.pos, hrmd, hhit, cfg),
             "shade_compose_kernel")
+        k11_ms = {m: kernel_ms(lambda: set_up_frame(cam, pose0, m),
+                               "frame_setup_kernel") for m in ("bin", "kd")}
         rt_args = head["rt"]
         # device time of each twin, captured alone and replayed (the host's
         # pace left out, as from the kernels' profiler times)
@@ -3022,10 +3158,16 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
             "table": graph_ms(
                 lambda: bp.bin_entry_table_reference(*head["tt"])),
             "shade": graph_ms(lambda: shade_compose_reference(
-                hs, hcam.pos, hrmd, hhit, cfg))}
+                hs, hcam.pos, hrmd, hhit, cfg)),
+            **{f"setup_{m}": graph_ms(
+                lambda m=m: frame_setup_reference(cam, pose0, m))
+               for m in ("bin", "kd")}}
         calls = {"tri_pass": graph_ms(lambda: bp.bin_tri_pass(*head["args"])),
                  "shade": graph_ms(lambda: k10.shade_compose(
-                     hs, hcam.pos, hrmd, hhit, cfg))}
+                     hs, hcam.pos, hrmd, hhit, cfg)),
+                 **{f"setup_{m}": graph_ms(
+                     lambda m=m: set_up_frame(cam, pose0, m))
+                    for m in ("bin", "kd")}}
     t_n, tp = head["args"][2][0].shape[0], head["tp"]
     n_rays, size = head["rays"].shape[0] * head["rays"].shape[1], head["size"]
     e_pad = head["table"][1].shape[0]
@@ -3041,7 +3183,13 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
                   size * 16 + binned * 44 + e_pad * 48
                   + (head["n_tiles"] + 1) * 4),
         "shade": (K10_OPS_PER_HIT * n_hit,
-                  hrmd.shape[0] * (12 + 4 + 4 + 4 + 3 + 36) + hit_tris * 48)}
+                  hrmd.shape[0] * (12 + 4 + 4 + 4 + 3 + 36) + hit_tris * 48),
+        # K11 writes the rays, and for kd the object-frame rays too
+        "setup_bin": (K11_OPS_PER_RAY * hrmd.shape[0],
+                      hrmd.shape[0] * 12 + 4 * (12 + 7 + 16 + 12)),
+        "setup_kd": ((K11_OPS_PER_RAY + K11_OPS_PER_OBJECT_RAY)
+                     * hrmd.shape[0],
+                     hrmd.shape[0] * 24 + 4 * (12 + 7 + 16 + 12))}
     bounds = {k: op_bounds(*v, clock_mhz) for k, v in work.items()}
     for k, b in bounds.items():
         log(f"  {k}: {b['text']}")
@@ -3063,6 +3211,12 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
         f"{hit_tris} triangles): {k10_ms:.4f} ms (its wrapper replayed "
         f"{calls['shade']:.4f}), plain {plain['shade']:.4f}; "
         f"{bounds['shade']['text']} ({smi})")
+    for m in ("bin", "kd"):
+        log(f"K11 at headline frame 0, {m} ({hrmd.shape[0]} rays, one "
+            f"object): {k11_ms[m]:.4f} ms (its wrapper replayed "
+            f"{calls['setup_' + m]:.4f}), plain (replayed) "
+            f"{plain['setup_' + m]:.4f}; {bounds['setup_' + m]['text']} "
+            f"({smi})")
 
     # ---- the replayed bin frame's device time by stage, both routes ----
     with torch.inference_mode():
@@ -3079,6 +3233,7 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
             return keys(torch.cumsum(t.ntiles, 0), t, *kk[2:])
         stages = {
             "kernels": {
+                "set-up": lambda: set_up_frame(cam, pose0, "bin"),
                 "ray table": lambda: bp.ray_table(*rt),
                 "prepass": lambda: prepass(bp.bin_tri_pass,
                                            bp.bin_entry_keys),
@@ -3089,6 +3244,7 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
                 "shading + composition": lambda: k10.shade_compose(
                     scene, cam.pos, rmd, hit, cfg)},
             "plain": {
+                "set-up": lambda: frame_setup_reference(cam, pose0, "bin"),
                 "ray table": lambda: _ray_table(rt[0], rt[1], rt[2][:3],
                                                 rt[2][3:6], *rt[3:]),
                 "prepass": lambda: prepass(bp.bin_tri_pass_reference,
@@ -3120,7 +3276,9 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
                  (traverse, "ray_table",
                   lambda proj, o, b, *rest: _ray_table(proj, o, b[:3],
                                                        b[3:6], *rest)),
-                 (renderer, "shade_compose", shade_compose_reference))
+                 (renderer, "shade_compose", shade_compose_reference),
+                 (renderer, "set_up_frame", frame_setup_reference),
+                 (pj, "set_up_frame", frame_setup_reference))
         saved = [getattr(m, n) for m, n, _ in names]
         if kind == "plain":
             for m, n, f in names:
@@ -3140,11 +3298,15 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
                            ("kd", RenderConfig(method="kd"), (kd_tab,))):
         caches = {k: GraphCache() for k in kinds}
         saved_cache = renderer.FRAME_GRAPHS
+        k11 = {k: 0 for k in kinds}
 
         def run(kind, i):
             renderer.FRAME_GRAPHS = caches[kind]
+            before = k10.frame_setup.launches
             with route(kind):
-                return render_jit(*frames[i % N_FRAMES], c, acc)
+                out = render_jit(*frames[i % N_FRAMES], c, acc)
+            k11[kind] += k10.frame_setup.launches - before
+            return out
         try:
             bad = [f"frame {i} {f}" for i in (0, 1)
                    for f in differ(run("kernels", i), run("plain", i))]
@@ -3160,13 +3322,16 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
                         f"{prof[k][0]:.3f} ms in {prof[k][1]} device "
                         f"operations, {prof[k][2]} host operations"
                         for k, v in ms.items())
-            + f"; kernels seen {prof['kernels'][3]}; the largest device "
-            f"kernels of a replay with the kernels (name, count, ms): {top} "
-            f"({smi})")
+            + f"; kernels seen {prof['kernels'][3]}; K11 launches (captures "
+            f"and probes) {k11}; the largest device kernels of a replay with "
+            f"the kernels (name, count, ms): {top} ({smi})")
         seen = prof["kernels"][3]
-        if bad or not seen["shade_compose"] or (method == "bin") != (
-                seen["bin_tri_pass"] > 0 and seen["bin_entry_table"] > 0):
-            raise RuntimeError(f"replayed {method} frames: {bad}, {seen}")
+        if bad or not seen["shade_compose"] or k11["kernels"] < 1 \
+                or k11["plain"] or prof["plain"][3]["frame_setup"] or (
+                    method == "bin") != (seen["bin_tri_pass"] > 0
+                                         and seen["bin_entry_table"] > 0):
+            raise RuntimeError(f"replayed {method} frames: {bad}, {seen}, "
+                               f"K11 {k11}, plain route {prof['plain'][3]}")
     del kd_tab
 
     steps_by = {}
@@ -3205,7 +3370,8 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
             + f"; kernels seen {prof['kernels'][3]} ({smi})")
         seen = prof["kernels"][3]
         if not equal or losses["kernels"] != losses["plain"] \
-                or seen["shade_compose"] or not seen["bin_tri_pass"]:
+                or seen["shade_compose"] or seen["frame_setup"] \
+                or not seen["bin_tri_pass"]:
             raise RuntimeError(f"compiled {kind} steps: {seen}")
         del sets, opts, steps
 
@@ -3218,19 +3384,25 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
     for method, c, acc in (("pallas2", ccfgs["pallas2"], (accel,)),
                            ("pallas", ccfgs["pallas"], (accel,))):
         k10.shade_compose.launches = 0
+        k10.frame_setup.launches = 0
         render(*frames[0], c, acc)
         serve[f"shade_compose_{method}"] = k10.shade_compose.launches
+        serve[f"frame_setup_{method}"] = k10.frame_setup.launches
     for f in wrappers.values():
         f.launches = 0
+    plain0 = set_up_frame.plain
     p = train_set(dev, headline_tv)
     make_train_step(torch.optim.SGD([*p["scene"].parameters(),
                                      *p["camera"].parameters()], lr=LR),
                     cfg)(p, target)
     train = {k: f.launches for k, f in wrappers.items()}
+    train_plain = set_up_frame.plain - plain0
     log(f"launches: {N_FRAMES} bin frames through render {serve}; one "
-        f"bin training step {train}")
+        f"bin training step {train}, its set-ups by the plain version "
+        f"{train_plain}")
     if min(serve.values()) < 1 or min(serve[k] for k in wrappers) < N_FRAMES \
-            or train["shade_compose"] or min(
+            or train["shade_compose"] or train["frame_setup"] \
+            or train_plain < 1 or min(
                 train[k] for k in SERVING_KERNELS[:4]) < 1:
         raise RuntimeError("the serving kernels missed their paths")
 
@@ -3245,8 +3417,10 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
             steps_by["pose/light/camera-only"][k] for k in keys)
         return out
     k10_paths = by_path(["shade_compose"])
+    k11_paths = by_path(["frame_setup"])
     for m in ("pallas2", "pallas"):
         k10_paths[f"serve_{m}"] = serve[f"shade_compose_{m}"]
+        k11_paths[f"serve_{m}"] = serve[f"frame_setup_{m}"]
     base = "cpp_cuda_raytracer_dev_tpu/"
     return [{
         "name": "bin_tri_pass", "route": "cuda",
@@ -3286,7 +3460,21 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
         "ms": k10_ms, "plain_ms": plain["shade"],
         "bound_ms": bounds["shade"]["bound_ms"],
         "bound_by": bounds["shade"]["bound_by"], "library_ms": None,
-        "call_ms": calls["shade"], "launches_by_path": k10_paths}]
+        "call_ms": calls["shade"], "launches_by_path": k10_paths}, {
+        "name": "frame_setup", "route": "cuda",
+        "source": "cpp_cuda_raytracer_dev_torch/csrc/shade.cu",
+        "replaces": base + "models/camera.py:124",
+        "replaces_note": "with models/camera.py:107 (projection) and the pose "
+                         "transforms of models/renderer.py trace_rays; "
+                         "XLA-fused plain ops, not a Pallas kernel",
+        "launches": serve["frame_setup"], "max_abs_err": max_err["K11"],
+        "ms": k11_ms["bin"], "plain_ms": plain["setup_bin"],
+        "bound_ms": bounds["setup_bin"]["bound_ms"],
+        "bound_by": bounds["setup_bin"]["bound_by"], "library_ms": None,
+        "call_ms": calls["setup_bin"], "kd_ms": k11_ms["kd"],
+        "kd_plain_ms": plain["setup_kd"],
+        "kd_bound_ms": bounds["setup_kd"]["bound_ms"],
+        "launches_by_path": k11_paths}]
 
 
 def write_ply(path, tv: np.ndarray) -> None:
@@ -3360,7 +3548,8 @@ def run_entry_points(dev, headline_tv, smi):
                 "K4": k45.tile_intersect_v2, "K5": k45.tile_intersect,
                 "K6": bt.bin_tile_intersect, "K7": k7.kd_traverse,
                 **{k: getattr(bp, k) for k in SERVING_KERNELS[:4]},
-                "shade_compose": k10.shade_compose}
+                "shade_compose": k10.shade_compose,
+                "frame_setup": k10.frame_setup}
 
     # the apps' camera (render_cli.py): framed on the mesh's bounding box
     v = headline_tv.reshape(-1, 3)
@@ -3400,7 +3589,7 @@ def run_entry_points(dev, headline_tv, smi):
             f"PNG hit rate {float(png_hit.mean()):.6f} against the oracle's "
             f"{float(orc_hit.mean()):.6f} on {N_SAMPLE} rays, hit/miss "
             f"agreement {agree:.6f}; launches {launched} ({smi})")
-        want = [kernel_of[method], "shade_compose"]
+        want = [kernel_of[method], "shade_compose", "frame_setup"]
         if method == "bin":
             want += ["bin_tri_pass", "bin_entry_keys"]
         cli_launches[method] = launched
@@ -3439,9 +3628,10 @@ def run_entry_points(dev, headline_tv, smi):
     if (rep["frames"] != N_ANIMATE_TICKS or rep["objects"] != 2
             or k1_launches < 2 or seen < 2 * N_ANIMATE_TICKS
             or animate_seen["bin_tri_pass"] < 2 * N_ANIMATE_TICKS
-            or animate_seen["shade_compose"] < N_ANIMATE_TICKS):
+            or animate_seen["shade_compose"] < N_ANIMATE_TICKS
+            or animate_seen["frame_setup"] < N_ANIMATE_TICKS):
         raise RuntimeError("animate did not render its ticks through K1 "
-                           "and K8 twice a frame and K10 once")
+                           "and K8 twice a frame and K10 and K11 once")
     return cli_launches, animate_seen
 
 

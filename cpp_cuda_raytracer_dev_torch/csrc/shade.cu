@@ -1,4 +1,5 @@
-// Serving shading and composition: kernel K10.
+// Serving shading and composition: kernel K10; the serving frame's set-up:
+// kernel K11 (below K10).
 //
 // Counterpart of the JAX package's XLA-fused plain code of a forward
 // frame's shading and composition, not of a Pallas kernel: `shade_hits`
@@ -295,6 +296,253 @@ cudaError_t launch(int n_rays, int obj0, int n_obj, int n_total, int first,
   return cudaGetLastError();
 }
 
+
+// ---- K11: the serving frame's set-up ----
+//
+// Counterpart of the JAX package's XLA-fused plain code of a frame's
+// set-up, not of a Pallas kernel: `Camera.ray_directions` and `projection`
+// (cpp_cuda_raytracer_dev_tpu/models/camera.py:107,124) and the per-object
+// pose transforms of `trace_rays` and `Projection.transformed`
+// (models/renderer.py:66-112). In PyTorch the plain version is 380 kernels
+// a one-object bin frame on an H100, nearly all of a few scalars each (the
+// camera basis twice, the pose matrix rebuilt in five transforms), and some
+// 28 passes over the rays. One launch computes what the plain version
+// (models/camera.py `frame_setup_reference`) computes, bit for bit:
+//
+//   the camera basis n, u, v, the pixel pitch, the ray mods, and the
+//     projection's sx, sy and pixel-centre offsets (Camera.projection);
+//   each object's rotation R (ops/quaternion.py to_matrix), its origin
+//     R^T (pos - t) (Pose.inv_apply) and the projection's origin, n, u, v
+//     in its frame (Projection.transformed);
+//   the unit ray of every pixel of a band of rows [row0, row0 + band_h)
+//     (Camera.ray_directions at the frame's pixel coordinates), and for
+//     the methods that read them the object-frame rays R^T d
+//     (Pose.inv_apply_vec).
+//
+// Thread 0 of every block derives the camera's constants, then one thread
+// an object the object's, in shared memory: about 200 operations, no
+// synchronisation across blocks; block 0 writes them to the constants
+// buffer (kFrameConsts, then kObjConsts an object) whose views are the
+// frame's Projection fields and object origins. Each thread then writes
+// kSetupRays rays. A launch serves up to kMaxObjects objects [obj0, obj0 +
+// n_obj) (quaternion and translation pointers in the launch's parameters,
+// read anew by every replay of a captured frame); the first (first != 0)
+// also writes the rays and the camera's constants.
+//
+// Operation order is the plain version's as PyTorch runs it on the card,
+// read from an H100 (torch 2.11, CUDA 12.8): each elementwise product and
+// sum rounded on its own; torch.sum of a (3,) tensor as (x0 + x2) + x1 (its
+// reduction gives a block two threads, the first of which sums elements 0
+// and 2); a 0-dim tensor over a Python int as the tensor times the
+// reciprocal of the int, rounded on the host (PyTorch's division by a CPU
+// scalar); the (3,) @ (3, 3) products as K10's inv_dot (cuBLAS gemv); the
+// rays' (R, 3) @ (3, 3) product as cuBLAS's GEMM forms it, three fused
+// steps from the first term (float32 at 64 rays or more: below that cuBLAS
+// takes another kernel; float64 at any count).
+//
+// Bound: bytes. It writes 3 T a ray, and 3 T more an object for the
+// methods that read object-frame rays (6.2 MB a 960x540 float32 frame, 1.9
+// us at 3.35 TB/s); about 25 operations a ray and 15 an object's ray.
+
+constexpr int kSetupThreads = 256;
+constexpr int kSetupRays = 4;
+constexpr int kFrameConsts = 16;   // origin, n, u, v, sx, sy, adjust_x, _y
+constexpr int kObjConsts = 12;     // origin, n, u, v in the object's frame
+constexpr int kCamPtrs = 6;        // pos, look_at, up, film_w, film_h, focal
+
+template <typename T>
+struct Poses {
+  const T* quat[kMaxObjects];
+  const T* trans[kMaxObjects];
+  T* rays[kMaxObjects];            // R^T d (R, 3), or null
+};
+
+// torch.sum of a (3,) tensor on the card
+template <typename T>
+__device__ __forceinline__ T sum3(T x0, T x1, T x2) {
+  return add(add(x0, x2), x1);
+}
+
+// vecmath.normalize: a * rsqrt(dot(a, a))
+template <typename T>
+__device__ __forceinline__ void unit3(const T* a, T* out) {
+  const T inv = rsqrt(sum3(mul(a[0], a[0]), mul(a[1], a[1]),
+                           mul(a[2], a[2])));
+#pragma unroll
+  for (int k = 0; k < 3; ++k) out[k] = mul(a[k], inv);
+}
+
+// vecmath.cross
+template <typename T>
+__device__ __forceinline__ void cross3(const T* a, const T* b, T* out) {
+  out[0] = cross1(a[1], b[2], a[2], b[1]);
+  out[1] = cross1(a[2], b[0], a[0], b[2]);
+  out[2] = cross1(a[0], b[1], a[1], b[0]);
+}
+
+// v @ m for a (3,) v and a row-major 3x3 m (Pose.inv_apply's product)
+template <typename T>
+__device__ __forceinline__ void inv_apply3(const T* v, const T* m, T* out) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    out[j] = inv_dot(v[0], m[j], v[1], m[3 + j], v[2], m[6 + j]);
+}
+
+// shared constants: the frame's (kFrameConsts), the ray mods n_mod,
+// u_mod, v_mod (9), then an object's R (9) and kObjConsts
+constexpr int kShFrame = kFrameConsts + 9;
+constexpr int kShObj = 9 + kObjConsts;
+
+template <typename T>
+__device__ void camera_constants(const T* const* cam, int res_w, int res_h,
+                                 T adj_x, T adj_y, T* c) {
+  const T* pos = cam[0];
+  const T* look = cam[1];
+  const T* up = cam[2];
+  const T film_w = *cam[3], film_h = *cam[4], focal = *cam[5];
+  T a[3], n[3], upn[3], cu[3], e[3], v[3], u[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) a[k] = sub(look[k], pos[k]);
+  unit3(a, n);
+  unit3(up, upn);
+  cross3(upn, n, cu);
+  cross3(n, cu, e);
+  unit3(e, v);
+  cross3(v, n, u);
+  // film / res: PyTorch multiplies by the host's reciprocal of the int
+  const T pix_w = mul(film_w, div(T(1), T(res_w)));
+  const T pix_h = mul(film_h, div(T(1), T(res_h)));
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    c[k] = pos[k];
+    c[3 + k] = n[k];
+    c[6 + k] = u[k];
+    c[9 + k] = v[k];
+    const T um = mul(u[k], pix_w), vm = mul(v[k], pix_h);
+    c[kFrameConsts + k] = sub(sub(mul(n[k], focal), mul(vm, adj_y)),
+                              mul(um, adj_x));
+    c[kFrameConsts + 3 + k] = um;
+    c[kFrameConsts + 6 + k] = vm;
+  }
+  c[12] = div(focal, pix_w);
+  c[13] = div(focal, pix_h);
+  c[14] = adj_x;
+  c[15] = adj_y;
+}
+
+template <typename T>
+__device__ void object_constants(const T* quat, const T* trans, const T* c,
+                                 T* o) {
+  quat_matrix(quat, o);
+  T w[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) w[k] = sub(c[k], trans[k]);
+  inv_apply3(w, o, o + 9);
+  inv_apply3(c + 3, o, o + 12);
+  inv_apply3(c + 6, o, o + 15);
+  inv_apply3(c + 9, o, o + 18);
+}
+
+// the rays' (R, 3) @ R product, as cuBLAS's GEMM sums it
+template <typename T>
+__device__ __forceinline__ T gemm_dot(T d0, T r0, T d1, T r1, T d2, T r2);
+template <>
+__device__ __forceinline__ float gemm_dot(float d0, float r0, float d1,
+                                          float r1, float d2, float r2) {
+  return __fmaf_rn(d2, r2, __fmaf_rn(d1, r1, __fmul_rn(d0, r0)));
+}
+template <>
+__device__ __forceinline__ double gemm_dot(double d0, double r0, double d1,
+                                           double r1, double d2, double r2) {
+  return __fma_rn(d2, r2, __fma_rn(d1, r1, __dmul_rn(d0, r0)));
+}
+
+struct CamPtrs {
+  const void* p[kCamPtrs];
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kSetupThreads)
+frame_setup_kernel(int n_rays, int res_w, int res_h, int row0, int obj0,
+                   int n_obj, int first, CamPtrs cam_ptrs, Poses<T> poses,
+                   T adj_x, T adj_y, T* consts, T* rmd) {
+  __shared__ T sc[kShFrame];
+  __shared__ T so[kMaxObjects][kShObj];
+  const T* cam[kCamPtrs];
+#pragma unroll
+  for (int k = 0; k < kCamPtrs; ++k)
+    cam[k] = static_cast<const T*>(cam_ptrs.p[k]);
+  if (threadIdx.x == 0)
+    camera_constants(cam, res_w, res_h, adj_x, adj_y, sc);
+  __syncthreads();
+  if (static_cast<int>(threadIdx.x) < n_obj)
+    object_constants(poses.quat[threadIdx.x], poses.trans[threadIdx.x], sc,
+                     so[threadIdx.x]);
+  __syncthreads();
+  if (blockIdx.x == 0) {
+    if (first && threadIdx.x < kFrameConsts)
+      consts[threadIdx.x] = sc[threadIdx.x];
+    for (int k = threadIdx.x; k < n_obj * kObjConsts; k += kSetupThreads)
+      consts[kFrameConsts + (obj0 + k / kObjConsts) * kObjConsts
+             + k % kObjConsts] = so[k / kObjConsts][9 + k % kObjConsts];
+  }
+  const T* nm = sc + kFrameConsts;
+  const long long base = static_cast<long long>(row0) * res_w;
+#pragma unroll
+  for (int j = 0; j < kSetupRays; ++j) {
+    const int r = (blockIdx.x * kSetupRays + j) * kSetupThreads + threadIdx.x;
+    if (r >= n_rays) return;
+    // Camera.ray_directions at pixel (ix, iy) of the frame
+    const long long i = base + r;
+    const T ix = static_cast<T>(i % res_w), iy = static_cast<T>(i / res_w);
+    T d[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      d[k] = add(add(nm[k], mul(nm[3 + k], ix)), mul(nm[6 + k], iy));
+    const T inv = rsqrt(add(add(mul(d[0], d[0]), mul(d[1], d[1])),
+                            mul(d[2], d[2])));
+#pragma unroll
+    for (int k = 0; k < 3; ++k) d[k] = mul(d[k], inv);
+    const long long r3 = 3ll * r;
+    if (first) {
+      rmd[r3] = d[0];
+      rmd[r3 + 1] = d[1];
+      rmd[r3 + 2] = d[2];
+    }
+    for (int s = 0; s < n_obj; ++s) {
+      T* out = poses.rays[s];
+      if (out == nullptr) continue;
+      const T* m = so[s];
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        out[r3 + k] = gemm_dot(d[0], m[k], d[1], m[3 + k], d[2], m[6 + k]);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_setup(int n_rays, int res_w, int res_h, int row0,
+                         int obj0, int n_obj, int first,
+                         const void* const* cam, const void* const* quats,
+                         const void* const* trans, void* const* rays,
+                         double adj_x, double adj_y, void* consts, void* rmd,
+                         cudaStream_t stream) {
+  CamPtrs c;
+  for (int k = 0; k < kCamPtrs; ++k) c.p[k] = cam[k];
+  Poses<T> p;
+  for (int i = 0; i < kMaxObjects; ++i) {
+    p.quat[i] = i < n_obj ? static_cast<const T*>(quats[i]) : nullptr;
+    p.trans[i] = i < n_obj ? static_cast<const T*>(trans[i]) : nullptr;
+    p.rays[i] = i < n_obj ? static_cast<T*>(rays[i]) : nullptr;
+  }
+  const int per_block = kSetupThreads * kSetupRays;
+  const int blocks = n_rays > 0 ? (n_rays + per_block - 1) / per_block : 1;
+  frame_setup_kernel<T><<<blocks, kSetupThreads, 0, stream>>>(
+      n_rays, res_w, res_h, row0, obj0, n_obj, first, c, p, T(adj_x),
+      T(adj_y), static_cast<T*>(consts), static_cast<T*>(rmd));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int shade_max_objects() { return kMaxObjects; }
@@ -318,4 +566,30 @@ extern "C" int shade_compose_launch(int n_rays, int obj0, int n_obj,
                        eps, bg, outs, s)
       : launch<float>(n_rays, obj0, n_obj, n_total, first, obj_ptrs, ops,
                       eps, bg, outs, s));
+}
+
+// n_rays = band_h * res_w rays of frame rows [row0, row0 + band_h); cam:
+// pos, look_at, up, film_w, film_h, focal; quats, trans, rays: n_obj
+// pointers each (rays null where the method reads no object-frame rays);
+// adj_x, adj_y: the pixel-centre offsets; consts: kFrameConsts + kObjConsts
+// an object of the whole scene; rmd (n_rays, 3).
+extern "C" int frame_setup_launch(int n_rays, int res_w, int res_h, int row0,
+                                  int obj0, int n_obj, int first, int is_f64,
+                                  const void* const* cam,
+                                  const void* const* quats,
+                                  const void* const* trans,
+                                  void* const* rays, double adj_x,
+                                  double adj_y, void* consts, void* rmd,
+                                  void* stream) {
+  if (n_rays < 0 || res_w < 1 || res_h < 1 || row0 < 0 || n_obj < 0
+      || n_obj > kMaxObjects || obj0 < 0 || (!first && n_obj < 1))
+    return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  return (int)(is_f64
+      ? launch_setup<double>(n_rays, res_w, res_h, row0, obj0, n_obj, first,
+                             cam, quats, trans, rays, adj_x, adj_y, consts,
+                             rmd, s)
+      : launch_setup<float>(n_rays, res_w, res_h, row0, obj0, n_obj, first,
+                            cam, quats, trans, rays, adj_x, adj_y, consts,
+                            rmd, s));
 }

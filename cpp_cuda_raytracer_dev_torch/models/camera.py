@@ -8,6 +8,13 @@ Conventions (reference Camera.cpp:32-67):
                           + v_mod*(iy - adjust_y))
 with adjust = res // 2, minus half a pixel when the resolution is even.
 Row iy = 0 is the bottom of the image.
+
+A frame's set-up (`FrameSetup`): its rays, the camera's Projection and each
+posed object's origin, rays and Projection in the object's frame.
+`set_up_frame` is every frame's entry point: kernel K11
+(``ops/cuda/shade.py`` `frame_setup`) where no camera leaf needs autograd
+on the card, else the plain PyTorch `frame_setup_reference`, which is
+differentiable.
 """
 
 from __future__ import annotations
@@ -18,6 +25,14 @@ import torch
 from torch import nn
 
 from ..ops import vecmath
+from ..ops.cuda.shade import FRAME_CONSTS, OBJ_CONSTS, frame_setup
+
+
+# methods whose intersect reads the camera Projection (in the object's frame)
+PROJ_METHODS = ("bin", "raster")
+# methods whose intersect reads no object-frame rays: "bin" regenerates its
+# rays from the Projection (accel/traverse.py intersect_binned)
+NO_OBJECT_RAYS = ("bin",)
 
 
 def _adjust(res: int) -> float:
@@ -171,3 +186,113 @@ class RayBuffers:
                                    device=rmd.device),
                    rmi=torch.full((n,), -1, dtype=torch.int32,
                                   device=rmd.device))
+
+
+@dataclasses.dataclass
+class ObjectFrame:
+    """A frame's set-up in one object's frame (pose-on-the-ray,
+    Trixel.cu:60-66): the camera's origin R^T (pos - t), the rays R^T d
+    (None where the method reads none) and the Projection (None where the
+    method reads none)."""
+
+    origin: torch.Tensor
+    rays: torch.Tensor | None
+    proj: Projection | None
+
+
+@dataclasses.dataclass
+class FrameSetup:
+    """What a frame (or a band of rows) derives from the camera's and the
+    poses' leaves before its intersects: ``rmd`` (R, 3) unit rays (None
+    where no caller reads them), the camera Projection (``row0`` set for a
+    band; None where the method reads none) and one `ObjectFrame` a
+    pose."""
+
+    rmd: torch.Tensor | None
+    proj: Projection | None
+    objects: list[ObjectFrame]
+
+
+@torch.no_grad()
+def object_frames(poses, origin: torch.Tensor, rmd: torch.Tensor | None,
+                  proj: Projection | None, method: str) -> list[ObjectFrame]:
+    """Each pose's `ObjectFrame` of the rays ``rmd`` from ``origin``, without
+    autograd (the intersects that read them are discrete): rays for every
+    method but `NO_OBJECT_RAYS` (none where ``rmd`` is None), the
+    Projection for `PROJ_METHODS`."""
+    return [ObjectFrame(
+        origin=pose.inv_apply(origin),
+        rays=(None if method in NO_OBJECT_RAYS or rmd is None
+              else pose.inv_apply_vec(rmd)),
+        proj=(proj.transformed(pose)
+              if proj is not None and method in PROJ_METHODS else None))
+        for pose in poses]
+
+
+def frame_setup_reference(camera: Camera, poses, method: str, row0: int = 0,
+                          band_h: int | None = None,
+                          rays: bool = True) -> FrameSetup:
+    """The set-up of frame rows [row0, row0 + band_h) (the whole frame by
+    default) for the intersect ``method``: `Camera.ray_directions` (sliced
+    to the band; None without ``rays``, which a bin probe reads none of),
+    `Camera.projection` (for `PROJ_METHODS`, with ``row0``) and
+    `object_frames`. Plain PyTorch; the rays and the Projection carry
+    autograd to the camera (the training steps), the object frames none.
+    Kernel K11's plain version."""
+    rmd = None
+    if rays:
+        w = camera.res_w
+        rmd = camera.ray_directions()
+        if row0 or band_h is not None:
+            rmd = rmd[row0 * w:(row0 + (camera.res_h - row0 if band_h is None
+                                        else band_h)) * w]
+    proj = None
+    if method in PROJ_METHODS:
+        proj = dataclasses.replace(camera.projection(), row0=row0)
+    return FrameSetup(rmd, proj, object_frames(poses, camera.pos, rmd, proj,
+                                               method))
+
+
+def set_up_frame(camera: Camera, poses, method: str, row0: int = 0,
+                 band_h: int | None = None, rays: bool = True) -> FrameSetup:
+    """`frame_setup_reference`'s `FrameSetup`, bit for bit: from kernel K11
+    on CUDA tensors unless autograd needs the set-up (grad mode on and a
+    camera leaf that requires grad; the object frames never carry
+    autograd), else from the plain version. ``set_up_frame.plain`` counts
+    the CUDA calls that took the plain version: the share of set-ups K11
+    serves is ``frame_setup.launches`` / (launches + plain) (one launch a
+    call up to ``ops/cuda/shade.py`` `max_objects` poses)."""
+    dev = camera.pos.device
+    if dev.type == "cpu":
+        return frame_setup_reference(camera, poses, method, row0, band_h,
+                                     rays)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in camera.parameters()):
+        if dev.type == "cuda":
+            set_up_frame.plain += 1
+        return frame_setup_reference(camera, poses, method, row0, band_h,
+                                     rays)
+    poses = list(poses)
+    rmd, consts, obj_rays = frame_setup(
+        [getattr(camera, f) for f in Camera.LEAVES],
+        [p.quat for p in poses], [p.translation for p in poses],
+        camera.res_w, camera.res_h, row0,
+        camera.res_h - row0 if band_h is None else band_h,
+        _adjust(camera.res_w), _adjust(camera.res_h), rays,
+        rays and method not in NO_OBJECT_RAYS)
+    proj = None
+    if method in PROJ_METHODS:
+        proj = Projection(origin=consts[0:3], n=consts[3:6], u=consts[6:9],
+                          v=consts[9:12], sx=consts[12], sy=consts[13],
+                          adjust_x=consts[14], adjust_y=consts[15], row0=row0)
+    objects = []
+    for i, r in enumerate(obj_rays):
+        c = consts[FRAME_CONSTS + OBJ_CONSTS * i:][:OBJ_CONSTS]
+        objects.append(ObjectFrame(
+            origin=c[0:3], rays=r,
+            proj=None if proj is None else dataclasses.replace(
+                proj, origin=c[0:3], n=c[3:6], u=c[6:9], v=c[9:12])))
+    return FrameSetup(rmd, proj, objects)
+
+
+set_up_frame.plain = 0

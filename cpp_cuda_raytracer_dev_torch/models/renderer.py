@@ -27,7 +27,7 @@ from ..ops.shade import compose_framebuffer, phong_radiance_c
 from ..utils import graphs
 from ..utils.config import RenderConfig
 from ..utils.profiling import span
-from .camera import Camera
+from .camera import PROJ_METHODS, Camera, object_frames, set_up_frame
 from .scene import Scene
 
 _ACCEL_METHODS = {"grid": "ClusterAccel", "pallas": "ClusterAccel",
@@ -35,7 +35,6 @@ _ACCEL_METHODS = {"grid": "ClusterAccel", "pallas": "ClusterAccel",
 # float32 by construction: their kernels' operands (bin, grid, pallas,
 # pallas2) or raster's bitcast of t to int32 (as in the JAX package)
 _FLOAT32_METHODS = ("bin", "grid", "pallas", "pallas2", "raster")
-_PROJ_METHODS = ("bin", "raster")
 # render_jit and make_train_step_jit run these uncaptured: raster sizes its
 # dense list from the live count (ROADMAP queue 1)
 _UNCAPTURED = ("raster",)
@@ -58,7 +57,7 @@ class RenderOutput:
 @torch.no_grad()
 def trace_rays(scene: Scene, origin: torch.Tensor, rmd: torch.Tensor,
                config: RenderConfig, accel=None, band_h: int | None = None,
-               band_w: int | None = None, proj=None) -> Hit:
+               band_w: int | None = None, proj=None, frames=None) -> Hit:
     """Nearest hit over all objects for unit rays ``rmd`` (R, 3) from
     ``origin``; band_h * band_w == R (row-major) for the tiled paths.
     ``accel`` is a sequence of `ClusterAccel`, one per object, for the
@@ -68,7 +67,8 @@ def trace_rays(scene: Scene, origin: torch.Tensor, rmd: torch.Tensor,
 
     Each object moves the rays into its own frame (pose-on-the-ray,
     Trixel.cu:60-66); geometry never moves, so an accel built once serves
-    every pose.
+    every pose. ``frames``: the objects' `ObjectFrame`s of these rays (a
+    `FrameSetup`'s), else `object_frames` derives them.
     """
     if config.with_stats:
         raise ValueError("with_stats makes the intersect paths return "
@@ -81,14 +81,16 @@ def trace_rays(scene: Scene, origin: torch.Tensor, rmd: torch.Tensor,
         raise TypeError(f"method={config.method!r} runs in float32 only, "
                         f"not {rmd.dtype}; use 'brute' or 'fixed' for "
                         "float64")
-    if config.method in _PROJ_METHODS and proj is None:
+    if config.method in PROJ_METHODS and proj is None:
         raise ValueError(f"method={config.method!r} needs the camera "
                          "Projection (render() provides it)")
+    if frames is None:
+        frames = object_frames([obj.pose for obj in scene.objects], origin,
+                               rmd, proj, config.method)
     best = Hit.miss(rmd.shape[0], config.draw_distance, device=rmd.device,
                     dtype=rmd.dtype)
-    for oi, obj in enumerate(scene.objects):
-        d_obj = obj.pose.inv_apply_vec(rmd)
-        o_obj = obj.pose.inv_apply(origin)
+    for oi, (obj, frame) in enumerate(zip(scene.objects, frames)):
+        d_obj, o_obj = frame.rays, frame.origin
         if config.method == "brute":
             hit = mt_brute(o_obj, d_obj, obj.tris, config.draw_distance,
                            config.eps, config.chunk)
@@ -115,18 +117,16 @@ def trace_rays(scene: Scene, origin: torch.Tensor, rmd: torch.Tensor,
         elif config.method == "bin":
             from ..accel.traverse import intersect_binned
             budget = active_bin_budget()
-            hit = intersect_binned(o_obj, d_obj, obj.tris,
-                                   proj.transformed(obj.pose), config,
-                                   band_h, band_w, capacity=None
+            hit = intersect_binned(o_obj, d_obj, obj.tris, frame.proj,
+                                   config, band_h, band_w, capacity=None
                                    if budget is None else budget.capacity)
             if budget is not None:
                 hit, live = hit
                 budget.record(live)
         elif config.method == "raster":
             from ..accel.raster import intersect_raster
-            hit = intersect_raster(o_obj, d_obj, obj.tris,
-                                   proj.transformed(obj.pose), config,
-                                   band_h, band_w)
+            hit = intersect_raster(o_obj, d_obj, obj.tris, frame.proj,
+                                   config, band_h, band_w)
         else:
             raise ValueError(f"unknown intersect method {config.method!r}")
         hit.obj = torch.where(hit.tri >= 0, oi, -1).to(torch.int32)
@@ -216,10 +216,11 @@ def shade_hits(scene: Scene, origin: torch.Tensor, rmd: torch.Tensor,
 
 def render_rays(scene: Scene, origin: torch.Tensor, rmd: torch.Tensor,
                 config: RenderConfig, accel=None, band_h: int | None = None,
-                band_w: int | None = None, proj=None) -> dict:
+                band_w: int | None = None, proj=None, frames=None) -> dict:
     """Flat-ray pipeline (trace + shade + compose); a dict of flat per-ray
     tensors. The trace runs without gradients (hit topology is discrete)."""
-    hit = trace_rays(scene, origin, rmd, config, accel, band_h, band_w, proj)
+    hit = trace_rays(scene, origin, rmd, config, accel, band_h, band_w, proj,
+                     frames)
     return shade_and_compose(scene, origin, rmd, hit, config)
 
 
@@ -260,11 +261,14 @@ def render_differentiable(scene: Scene, camera: Camera,
     """One frame on the scene's device, differentiable with respect to the
     scene's and the camera's parameters (the JAX package's ``render``).
     ``accel``: one `ClusterAccel` per object for the cluster methods, one
-    `KDTables` per object for "kd"."""
-    rmd = camera.ray_directions()
-    proj = camera.projection() if config.method in _PROJ_METHODS else None
-    flat = render_rays(scene, camera.pos, rmd, config, accel, camera.res_h,
-                       camera.res_w, proj=proj)
+    `KDTables` per object for "kd". The set-up (rays, Projection, the
+    objects' frames) is `set_up_frame`'s: kernel K11 on the card unless a
+    camera leaf needs autograd."""
+    setup = set_up_frame(camera, [obj.pose for obj in scene.objects],
+                        config.method)
+    flat = render_rays(scene, camera.pos, setup.rmd, config, accel,
+                       camera.res_h, camera.res_w, proj=setup.proj,
+                       frames=setup.objects)
     h, w = camera.res_h, camera.res_w
     return RenderOutput(**{k: v.reshape(h, w, *v.shape[1:])
                            for k, v in flat.items()})
@@ -287,19 +291,19 @@ def jit_captures(config: RenderConfig) -> bool:
 
 
 def bin_entry_count(scene: Scene, camera: Camera, config: RenderConfig,
-                    proj=None, res_h: int | None = None) -> int:
+                    row0: int = 0, band_h: int | None = None) -> int:
     """The largest live entry count of the frame's bin tables: the probe
     that picks a key's first bucket (one uncaptured prepass an object).
-    ``proj`` and ``res_h``: a band's Projection and height (the sharded
-    paths), else the camera's."""
+    ``row0`` and ``band_h``: a band's first row and height (the sharded
+    paths), else the whole frame. It reads no rays, so none are made."""
     from ..accel.traverse import bin_object
     with torch.no_grad():
-        proj = camera.projection() if proj is None else proj
-        return max(bin_object(obj.pose.inv_apply(camera.pos), obj.tris,
-                              proj.transformed(obj.pose), config,
-                              res_h or camera.res_h,
+        setup = set_up_frame(camera, [obj.pose for obj in scene.objects],
+                             "bin", row0, band_h, rays=False)
+        return max(bin_object(frame.origin, obj.tris, frame.proj, config,
+                              band_h or camera.res_h - row0,
                               camera.res_w)[1].num_entries
-                   for obj in scene.objects)
+                   for obj, frame in zip(scene.objects, setup.objects))
 
 
 # render_jit's graphs, one memory pool (utils/graphs.py `GraphCache`)

@@ -1,6 +1,9 @@
 """Serving shading and composition: kernel K10 (``csrc/shade.cu``), the
 counterpart of the JAX package's XLA-fused plain code in ``shade_hits``
-(``models/renderer.py``) and ``ops/shade.py``; not a Pallas kernel.
+(``models/renderer.py``) and ``ops/shade.py``; and the serving frame's
+set-up: kernel K11 (the same source), the counterpart of the plain code of
+``Camera.ray_directions`` / ``projection`` (``models/camera.py``) and the
+pose transforms of ``trace_rays``. Neither is a Pallas kernel.
 
 - `shade_compose` is the wrapper: `render_rays`'s dict of flat per-ray
   outputs for given hits, without autograd. For CUDA tensors it launches
@@ -16,6 +19,20 @@ counterpart of the JAX package's XLA-fused plain code in ``shade_hits``
 `models/renderer.py` `shade_and_compose` calls it when autograd is off
 (`render`, `render_jit`, the sharded serving paths, the apps); with autograd
 on (the training steps) it runs the differentiable plain version.
+
+- `frame_setup` is K11's wrapper: on CUDA tensors (a camera's six leaves,
+  each object's quaternion and translation) it writes the rays of a band
+  of rows, the constants of the camera's and each object's Projection and
+  origin, and the object-frame rays where asked for (one thread a few
+  rays, templated over float32 and float64; up to `max_objects` objects a
+  launch), and raises if a launch fails or an operand is not one it takes.
+  `frame_setup.launches` counts its launches.
+
+``models/camera.py`` `set_up_frame` calls it, and assembles the frame's
+`FrameSetup` from its outputs, when no camera leaf needs autograd on the
+card (every serving frame and probe); with autograd on a camera leaf (the
+training steps) and on CPU tensors it runs the plain version,
+`frame_setup_reference`. The two agree bit for bit.
 """
 
 from __future__ import annotations
@@ -39,6 +56,10 @@ def _lib():
             [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2 + [ctypes.c_double]
             + [ctypes.c_void_p] * 3)
         lib.shade_compose_launch.restype = ctypes.c_int
+        lib.frame_setup_launch.argtypes = (
+            [ctypes.c_int] * 8 + [ctypes.c_void_p] * 4 + [ctypes.c_double] * 2
+            + [ctypes.c_void_p] * 3)
+        lib.frame_setup_launch.restype = ctypes.c_int
         _fn.append(lib)
     return _fn[0]
 
@@ -147,3 +168,82 @@ def _launch(scene, origin, rmd, hit, config):
                                f"error {err}")
         shade_compose.launches += 1
     return image, radiance, normal, point
+
+
+# ---- K11: the frame's set-up ----
+
+# K11's constants buffer (kFrameConsts, kObjConsts in csrc/shade.cu): the
+# camera's origin, n, u, v, sx, sy, adjust_x, adjust_y, then each object's
+# origin, n, u, v
+FRAME_CONSTS, OBJ_CONSTS = 16, 12
+
+
+def frame_setup(camera_leaves, quats, trans, res_w: int, res_h: int,
+                row0: int, band_h: int, adjust_x: float, adjust_y: float,
+                rays: bool = True, object_rays: bool = True):
+    """K11 on CUDA tensors: the set-up of frame rows [row0, row0 + band_h)
+    of a ``res_w`` x ``res_h`` camera given by its six leaves (pos,
+    look_at, up (3,); film_w, film_h, focal ()) for the objects posed by
+    the (4,) ``quats`` and (3,) ``trans``, all of one float dtype.
+    ``adjust_x``, ``adjust_y``: the pixel-centre offsets. Returns (``rmd``
+    (band_h * res_w, 3), or None without ``rays``; the constants buffer,
+    `FRAME_CONSTS` then `OBJ_CONSTS` an object; each object's rays R^T d,
+    or None without ``object_rays``). The plain version is
+    ``models/camera.py`` `frame_setup_reference`."""
+    cam = list(camera_leaves)
+    quats, trans = list(quats), list(trans)
+    dt, dev = cam[0].dtype, cam[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"no frame_setup kernel for {dev}")
+    if dt not in _DTYPES:
+        raise ValueError(f"the camera must be float32 or float64, not {dt}")
+    if not 0 <= row0 <= row0 + band_h <= res_h:
+        raise ValueError(f"rows [{row0}, {row0 + band_h}) are not rows of "
+                         f"a frame {res_h} high")
+    if object_rays and not rays:
+        raise ValueError("object-frame rays are made from the rays")
+    if len(cam) != 6 or len(quats) != len(trans):
+        raise ValueError("six camera leaves and a translation a quaternion")
+    for i, x in enumerate(cam):
+        want = (3,) if i < 3 else ()
+        if x.shape != want or x.dtype != dt or x.device != dev:
+            raise TypeError(f"camera leaf {i} must be {want} {dt} on {dev}, "
+                            f"got {tuple(x.shape)} {x.dtype} on {x.device}")
+    for q, t in zip(quats, trans):
+        if q.shape != (4,) or t.shape != (3,) or q.dtype != dt \
+                or t.dtype != dt or q.device != dev or t.device != dev:
+            raise TypeError(f"a pose must be a (4,) quaternion and a (3,) "
+                            f"translation, {dt} on {dev} like the camera, got "
+                            f"{tuple(q.shape)} {q.dtype}, {tuple(t.shape)} "
+                            f"{t.dtype}")
+    num_r = band_h * res_w if rays else 0
+    rmd = torch.empty((num_r, 3), dtype=dt, device=dev) if rays else None
+    consts = torch.empty((FRAME_CONSTS + OBJ_CONSTS * len(quats),),
+                         dtype=dt, device=dev)
+    out = [torch.empty((num_r, 3), dtype=dt, device=dev) if object_rays
+           else None for _ in quats]
+    keep = [x.contiguous() for x in cam]
+    cam_ptrs = (ctypes.c_void_p * len(keep))(*(x.data_ptr() for x in keep))
+    per = max_objects()
+    for obj0 in range(0, max(len(quats), 1), per):
+        group_q = [q.contiguous() for q in quats[obj0:obj0 + per]]
+        group_t = [t.contiguous() for t in trans[obj0:obj0 + per]]
+        keep += group_q + group_t
+
+        def ptrs(xs):
+            return (ctypes.c_void_p * per)(*(0 if x is None else x.data_ptr()
+                                             for x in xs))
+        err = _lib().frame_setup_launch(
+            num_r, res_w, res_h, row0, obj0, len(group_q), int(obj0 == 0),
+            int(dt == torch.float64), cam_ptrs, ptrs(group_q), ptrs(group_t),
+            ptrs(out[obj0:obj0 + per]), adjust_x, adjust_y,
+            consts.data_ptr(), 0 if rmd is None else rmd.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"frame_setup kernel launch failed: CUDA "
+                               f"error {err}")
+        frame_setup.launches += 1
+    return rmd, consts, out
+
+
+frame_setup.launches = 0

@@ -53,7 +53,7 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
-from ..models.camera import Camera
+from ..models.camera import Camera, set_up_frame
 from ..accel.binning import bin_budget
 from ..models.renderer import (RenderOutput, bin_entry_count, jit_captures,
                                render_differentiable, render_rays,
@@ -78,21 +78,18 @@ def _check_band(camera: Camera, mesh) -> tuple[int, int]:
     return ray_band(check_mesh(mesh), camera.res_h)
 
 
-def _band_rays(camera: Camera, row0: int, band_h: int) -> torch.Tensor:
-    """The band's rows of the frame's unit rays, flat (band_h * W, 3):
-    the same values as the whole frame's (ray generation is elementwise)."""
-    w = camera.res_w
-    return camera.ray_directions()[row0 * w:(row0 + band_h) * w]
-
-
-def _band_projection(camera: Camera, row0: int):
-    """The camera Projection of a band whose pixel rows start at ``row0``.
-    Pixel coordinates are affine, so a band window is an adjust_y shift,
-    which the bin prepass and raster apply (`Projection.band_local`); the
-    bin path's ray table counts rows from ``row0`` of the frame, so its rays
+def _band_setup(scene: Scene, camera: Camera, method: str, row0: int,
+                band_h: int):
+    """The `FrameSetup` of the band's rows (`set_up_frame`): the rays, flat
+    (band_h * W, 3), the same values as the whole frame's (ray generation
+    is elementwise), and the camera Projection with ``row0`` set. Pixel
+    coordinates are affine, so a band window is an adjust_y shift, which
+    the bin prepass and raster apply (`Projection.band_local`); the bin
+    path's ray table counts rows from ``row0`` of the frame, so its rays
     are bitwise the frame's (the JAX package regenerates them from the
     shifted projection)."""
-    return dataclasses.replace(camera.projection(), row0=row0)
+    return set_up_frame(camera, [obj.pose for obj in scene.objects], method,
+                        row0, band_h)
 
 
 def _whole_frame(flat: dict, mesh, band_h: int, w: int) -> RenderOutput:
@@ -121,11 +118,9 @@ def render_sharded(scene: Scene, camera: Camera, config: RenderConfig,
     kd methods take ``accel`` (one per object, replicated). Differentiable
     like `render_differentiable`; every rank returns the whole frame."""
     row0, band_h = _check_band(camera, mesh)
-    rmd = _band_rays(camera, row0, band_h)
-    proj = (_band_projection(camera, row0)
-            if config.method in ("bin", "raster") else None)
-    flat = render_rays(scene, camera.pos, rmd, config, accel, band_h,
-                       camera.res_w, proj=proj)
+    setup = _band_setup(scene, camera, config.method, row0, band_h)
+    flat = render_rays(scene, camera.pos, setup.rmd, config, accel, band_h,
+                       camera.res_w, proj=setup.proj, frames=setup.objects)
     return _whole_frame(flat, mesh, band_h, camera.res_w)
 
 
@@ -154,8 +149,7 @@ def _band_entry_count(scene: Scene, camera: Camera, config: RenderConfig,
     if mesh is None:
         return bin_entry_count(scene, camera, config)
     row0, band_h = _check_band(camera, mesh)
-    return bin_entry_count(scene, camera, config,
-                           _band_projection(camera, row0), band_h)
+    return bin_entry_count(scene, camera, config, row0, band_h)
 
 
 # render_sharded_jit's graphs: one `GraphCache` a mesh, as (mesh, cache)
@@ -286,15 +280,15 @@ def render_sharded_2d(scene: Scene, camera: Camera, config: RenderConfig,
     contract). Differentiable through the shading (ROADMAP F11)."""
     row0, band_h = _check_band(camera, mesh)
     pi, nprims = _prims(mesh)
-    rmd = _band_rays(camera, row0, band_h)
+    setup = _band_setup(scene, camera, "fixed", row0, band_h)
+    rmd = setup.rmd
     with torch.no_grad():
         best = Hit.miss(rmd.shape[0], config.draw_distance, device=rmd.device,
                         dtype=rmd.dtype)
-        for oi, obj in enumerate(scene.objects):
-            d_obj = obj.pose.inv_apply_vec(rmd)
-            o_obj = obj.pose.inv_apply(camera.pos)
+        for oi, (obj, frame) in enumerate(zip(scene.objects, setup.objects)):
             sub, chunk = _shard_tris(obj.tris, pi, nprims)
-            hit = mt_fixed_origin(d_obj, FixedOriginCache.build(o_obj, sub),
+            hit = mt_fixed_origin(frame.rays,
+                                  FixedOriginCache.build(frame.origin, sub),
                                   config.draw_distance, config.eps,
                                   config.chunk)
             best = best.merge(_shift(hit, pi * chunk, oi))
@@ -350,10 +344,11 @@ def render_sharded_2d_accel(scene: Scene, camera: Camera,
     min-combined across "prims" and shading runs on the combined hit."""
     row0, band_h = _check_band(camera, mesh)
     pi, nprims = _prims(mesh)
-    rmd = _band_rays(camera, row0, band_h)
+    setup = _band_setup(scene, camera, config.method, row0, band_h)
+    rmd = setup.rmd
     local = tuple(_accel_shard(shard_accel(a, nprims), pi) for a in accel)
     hit = trace_rays(scene, camera.pos, rmd, config, local, band_h,
-                     camera.res_w)
+                     camera.res_w, frames=setup.objects)
     with torch.no_grad():
         hit = _combine(hit, mesh)
     flat = shade_and_compose(scene, camera.pos, rmd, hit, config)
@@ -379,17 +374,15 @@ def render_sharded_2d_bin(scene: Scene, camera: Camera,
                          "contract)")
     row0, band_h = _check_band(camera, mesh)
     pi, nprims = _prims(mesh)
-    rmd = _band_rays(camera, row0, band_h)
+    setup = _band_setup(scene, camera, "bin", row0, band_h)
+    rmd = setup.rmd
     with torch.no_grad():
-        proj = _band_projection(camera, row0)
         best = Hit.miss(rmd.shape[0], config.draw_distance, device=rmd.device,
                         dtype=rmd.dtype)
-        for oi, obj in enumerate(scene.objects):
-            o_obj = obj.pose.inv_apply(camera.pos)
+        for oi, (obj, frame) in enumerate(zip(scene.objects, setup.objects)):
             sub, chunk = _shard_tris(obj.tris, pi, nprims)
-            hit = intersect_binned(o_obj, None, sub,
-                                   proj.transformed(obj.pose), config, band_h,
-                                   camera.res_w)
+            hit = intersect_binned(frame.origin, None, sub, frame.proj,
+                                   config, band_h, camera.res_w)
             best = best.merge(_shift(hit, pi * chunk, oi))
         best = _combine(best, mesh)
     flat = shade_and_compose(scene, camera.pos, rmd, best, config)
@@ -445,11 +438,10 @@ def make_loss_fn(config: RenderConfig, mesh=None, accel=None):
                                         accel).radiance
             return torch.mean((rad - target) ** 2)
         row0, band_h = _check_band(camera, mesh)
-        proj = (_band_projection(camera, row0)
-                if config.method in ("bin", "raster") else None)
-        flat = render_rays(scene, camera.pos, _band_rays(camera, row0,
-                                                         band_h),
-                           config, accel, band_h, camera.res_w, proj=proj)
+        setup = _band_setup(scene, camera, config.method, row0, band_h)
+        flat = render_rays(scene, camera.pos, setup.rmd, config, accel,
+                           band_h, camera.res_w, proj=setup.proj,
+                           frames=setup.objects)
         rad = flat["radiance"].reshape(band_h, camera.res_w, 3)
         band = ((rad - target[row0:row0 + band_h]) ** 2).sum() / target.numel()
         total = band.detach().clone()
