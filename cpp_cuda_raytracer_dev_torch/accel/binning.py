@@ -57,14 +57,18 @@ class BinnedScene:
 
 @dataclasses.dataclass
 class BinBudget:
-    """The entry capacity of every bin table built inside `bin_budget`, and
-    the largest live count among them (a scalar i64 on the device, None
-    until a table is built)."""
+    """The entry capacity of every bin table built inside `bin_budget`, the
+    live count of each table in the order they were built (``counts``,
+    scalar i64s on the device) and the largest of them (``live``, None
+    until a table is built). Recording a count launches nothing for the
+    first table, and one maximum for each later one."""
 
     capacity: int
     live: torch.Tensor | None = None
+    counts: list = dataclasses.field(default_factory=list)
 
     def record(self, n_e: torch.Tensor) -> None:
+        self.counts.append(n_e)
         self.live = n_e if self.live is None else torch.maximum(self.live,
                                                                 n_e)
 

@@ -346,7 +346,7 @@ def render_jit(scene: Scene, camera: Camera,
             scene_, camera_ = args
             with torch.no_grad(), bin_budget(bucket) as budget:
                 out = render_differentiable(scene_, camera_, config, accel)
-            return out, None if budget is None else budget.live
+            return out, budget
 
         probe = ((lambda args: bin_entry_count(*args, config))
                  if config.method == "bin" else None)

@@ -199,7 +199,7 @@ def render_sharded_jit(scene: Scene, camera: Camera, config: RenderConfig,
         scene_, camera_ = args
         with torch.no_grad(), bin_budget(bucket) as budget:
             out = render_sharded(scene_, camera_, config, mesh, accel)
-        return out, None if budget is None else budget.live
+        return out, budget
 
     probe = ((lambda args: _band_entry_count(*args, config, mesh))
              if config.method == "bin" else None)
@@ -545,7 +545,7 @@ def make_train_step_jit(optimizer: torch.optim.Optimizer,
                 loss.backward()
             if mesh is not None:
                 allreduce_gradients(trained, mesh)
-            return loss.detach(), None if budget is None else budget.live
+            return loss.detach(), budget
         return body
 
     def step(params, target: torch.Tensor) -> torch.Tensor:

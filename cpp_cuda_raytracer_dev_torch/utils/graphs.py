@@ -2,8 +2,9 @@
 a training step (`models/renderer.py` `render_jit`,
 `parallel/render_pjit.py` `make_train_step_jit`).
 
-On CUDA a program (``body(args, bucket) -> (outputs, live)``) is captured
-once per key and bucket into a ``torch.cuda.CUDAGraph`` and replayed:
+On CUDA a program (``body(args, bucket) -> (outputs, budget)``) is
+captured once per key and bucket into a ``torch.cuda.CUDAGraph`` and
+replayed:
 
 - Key: what the trace depends on (the method and the config, the leaves'
   shapes, dtypes and device, the ``accel`` object), given by the caller.
@@ -16,14 +17,19 @@ once per key and bucket into a ``torch.cuda.CUDAGraph`` and replayed:
 - One memory pool serves every graph of a cache. Outputs live in it, so
   each call returns clones of them, which no later replay overwrites.
 - Bucket: a program whose bin tables are sized at a capacity bucket
-  (`accel/binning.py` `bin_budget`) returns their largest live count as
-  ``live``. The first call of a key takes its bucket from a probe (the live
-  count of an uncaptured frame): the next power of two at or above it, a
-  multiple of ``chunk``. After each replay the host reads the live count
+  (`accel/binning.py` `bin_budget`) returns its `BinBudget` (else None),
+  which holds each table's live count and their largest, ``live``. The
+  first call of a key takes its bucket from a probe (the live count of an
+  uncaptured frame): the next power of two at or above it, a multiple of
+  ``chunk``. After each replay the host reads the live count
   (8 bytes, the only sync); above the bucket, the result is thrown away and
   the program is captured again at the bucket that holds it and replayed.
   The bucket never shrinks. A capture that fails raises: nothing falls back
   to the uncaptured program.
+- Fill: the cache keeps the budget of each key's last run (on CUDA the
+  captured one, whose counts each replay rewrites), so `fill` reads how
+  full each table of the last frame was, when asked: a frame makes no
+  read and launches nothing for it.
 - Agreement (the sharded paths, `parallel/render_pjit.py`): every rank of
   a mesh replays its own graph, whose collectives pair up only if every
   rank replays, regrows, warms up and captures at the same calls. A cache
@@ -95,7 +101,7 @@ class Captured:
 
     graph: torch.cuda.CUDAGraph
     out: object
-    live: torch.Tensor | None
+    budget: object          # the program's BinBudget, or None
 
 
 def capture(body, args, bucket, pool) -> Captured:
@@ -117,14 +123,16 @@ def capture(body, args, bucket, pool) -> Captured:
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=pool):
-            out, live = body(args, bucket)
-    return Captured(graph, out, live)
+            out, budget = body(args, bucket)
+    return Captured(graph, out, budget)
 
 
 class GraphCache:
     """Captured programs by key and bucket, in one memory pool. ``captures``
     counts the graphs captured and ``regrown`` the calls whose live count
-    outgrew their bucket; ``buckets`` holds each key's bucket.
+    outgrew their bucket; ``buckets`` holds each key's bucket and
+    ``tables`` the `BinBudget` of each key's last run (``last`` is the key
+    run last).
 
     ``agree``: None, or a function that returns the maximum over a mesh of
     a count (an int, or a scalar tensor on the program's device) as an int;
@@ -137,6 +145,8 @@ class GraphCache:
         self.graphs: dict = {}      # (key, bucket) -> Captured
         self.buckets: dict = {}     # key -> bucket
         self.pinned: dict = {}      # key -> objects the key names by id
+        self.tables: dict = {}      # key -> BinBudget of its last run
+        self.last = None
         self.captures = 0
         self.regrown = 0
 
@@ -157,20 +167,29 @@ class GraphCache:
             self.buckets[key] = next_bucket(n, chunk)
         return self.buckets[key]
 
-    def grow(self, key, live, bucket, chunk) -> int | None:
-        """After a run at ``bucket``: None when its ``live`` count fits,
-        else the larger bucket to redo it at (one host read of 8 bytes, in
-        the span ``rt.graphs.live``)."""
-        if live is None:
+    def grow(self, key, budget, bucket, chunk) -> int | None:
+        """After a run at ``bucket``: None when its ``budget``'s largest
+        live count fits, else the larger bucket to redo it at (one host
+        read of 8 bytes, in the span ``rt.graphs.live``)."""
+        if budget is None or budget.live is None:
             return None
         with span("rt.graphs.live"):
-            n = self.count(live)
+            n = self.count(budget.live)
         if n <= bucket:
             return None
         self.regrown += 1
         self.graphs.pop((key, bucket), None)    # the bucket never shrinks
         self.buckets[key] = next_bucket(n, chunk)
         return self.buckets[key]
+
+    def fill(self) -> tuple[list[int], int] | None:
+        """The live entry count of each bin table of the last run, in the
+        order they were built, and their capacity; None where that run
+        built none. Reads the counts from the device."""
+        budget = self.tables.get(self.last)
+        if budget is None or not budget.counts:
+            return None
+        return [int(n) for n in budget.counts], budget.capacity
 
     def program(self, key, args, body, bucket) -> Captured:
         """The key's graph at ``bucket``, captured on first use, its static
@@ -204,10 +223,11 @@ class GraphCache:
                 prog = self.program(key, args, body, bucket)
                 with span("rt.graphs.launch"):
                     prog.graph.replay()
-                out, live = prog.out, prog.live
+                out, budget = prog.out, prog.budget
             else:
-                out, live = body(args, bucket)
-            grown = self.grow(key, live, bucket, chunk)
+                out, budget = body(args, bucket)
+            self.tables[key], self.last = budget, key
+            grown = self.grow(key, budget, bucket, chunk)
             if grown is None:
                 return clone(out) if on_cuda else out
             bucket = grown

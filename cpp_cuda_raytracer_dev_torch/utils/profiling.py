@@ -17,6 +17,10 @@ codes (``TEST_Dungeonrun/WinMain.cpp:47-48,122-151,219-235``). Here:
   host's clock: ``capture_s`` (every probe frame, and every warm-up and
   capture of a graph), ``kd_build_s`` (the KD tree's build and its tables'
   upload).
+- `bin_fill()`: the live entry count of each bin table of the last frame
+  `render_jit` ran (its last replay on the card) and the tables' shared
+  capacity, read when asked: the program keeps the counts a frame makes
+  anyway, so a frame makes no read and launches nothing for it.
 - `trace(dir)`: context manager around ``torch.profiler.profile`` (CPU and,
   where there is one, the CUDA device); writes a Chrome trace on exit,
   which shows the spans above the kernels they launch.
@@ -65,6 +69,15 @@ def tally(name: str):
         yield
     finally:
         SETUP_S[name] += time.perf_counter() - t0
+
+
+def bin_fill() -> tuple[list[int], int] | None:
+    """([live entries of each object's bin table], their capacity) of the
+    last frame run by `render_jit`, or None where that frame built no bin
+    tables. Reads the counts from the device: call it outside the frames
+    being timed."""
+    from ..models import renderer
+    return renderer.FRAME_GRAPHS.fill()
 
 
 def _sync_cuda() -> None:

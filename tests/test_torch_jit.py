@@ -43,7 +43,8 @@ import pytest
 import torch
 
 import cpp_cuda_raytracer_dev_torch as P
-from cpp_cuda_raytracer_dev_torch.accel.binning import bin_triangles
+from cpp_cuda_raytracer_dev_torch.accel.binning import (BinBudget,
+                                                        bin_triangles)
 from cpp_cuda_raytracer_dev_torch.accel.traverse import bin_object
 from cpp_cuda_raytracer_dev_torch.models import renderer
 from cpp_cuda_raytracer_dev_torch.models.renderer import (jit_captures,
@@ -403,7 +404,7 @@ def test_graph_cache_takes_the_agreed_counts():
 
     def body(x, bucket):
         runs.append(bucket)
-        return x * 2, torch.tensor(100)
+        return x * 2, BinBudget(bucket, torch.tensor(100))
 
     cache = GraphCache(agree=agree)
     x = torch.ones(3)
