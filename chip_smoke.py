@@ -222,13 +222,29 @@ Phases (any failure raises and the process exits non-zero):
      all-leaves and pose/light/camera-only steps with the kernels and with
      the plain versions in their places, in turns, bitwise, one of each
      profiled (device busy, device and host operations, kernels seen: K8
-     and K9 in every bin frame and step, K10 in every frame and in no
-     step, K11 in no step; K11's counter moves in the captures with the
-     kernels and not on the plain route, whose replays show no K11); the
-     counters from 0 over 8 bin frames through ``render``, a ``pallas2``
-     and a ``pallas`` frame, and one bin training step (K10 and K11: none;
-     its set-up counted by ``set_up_frame.plain``). Phases 11 and 12 count
-     K8-K11 on the apps and sharded paths.
+     and K9 in every bin frame and step, K10 in every frame and step, K12
+     in every step, K11 in no step; the plain route's steps run K10's and
+     K12's twins; K11's counter moves in the captures with the kernels and
+     not on the plain route, whose replays show no K11); the counters from
+     0 over 8 bin frames through ``render``, a ``pallas2`` and a
+     ``pallas`` frame, and one bin training step (K10 and K12 once, K11
+     none: its set-up counted by ``set_up_frame.plain``). Phases 11 and 12
+     count K8-K12 on the apps and sharded paths;
+ 18. the training shading's backward K12 (``models/shade_grad.py``, the
+     autograd Function whose forward is K10): K12 bitwise its plain twin
+     ``shade_grad_reference`` (partials, constants, the rays', tables' and
+     hit t's cotangents) at headline frame 0 with the training loss's
+     radiance cotangent (the pose/light/camera and the all-leaves steps'
+     calls) and with random cotangents of radiance, normal and point; each
+     step's call timed (its device time from the profiler) against its
+     twin and its byte bound; the compiled pose/light/camera-only and
+     all-leaves steps (``make_train_step_jit``) with K12 and with its twin
+     in its place, in turns, losses and parameters bitwise, one of each
+     profiled, and the counters (K10's and K12's launches, and
+     ``shade_compose_grad.plain``, the backward passes on the card that
+     did not launch K12: the twin route's). K12's row of the kernels line
+     takes its ``launches`` from phase 17's eager bin step (counter at 0
+     before it); the log prints the process's totals.
 A differing id passes as a tie when both triangles' t, by the oracle's
 constants, lie within 1e-5 of the oracle's t. Each phase prints its seconds.
 Operation bounds are given at the FMA peak (``bound_ms``: 2 operations a
@@ -290,6 +306,7 @@ K9_OPS_PER_ENTRY = 12
 K10_OPS_PER_HIT = 240          # csrc/shade.cu, "Bound"
 K11_OPS_PER_RAY = 25           # csrc/shade.cu, K11's "Bound"
 K11_OPS_PER_OBJECT_RAY = 15
+K12_OPS_PER_HIT = 400          # csrc/shade.cu, K12's "Bound"
 N_RASTER_STEPS = 2             # uncaptured compiled raster steps vs eager
 N_ANIMATE_TICKS = 30
 BACKGROUND = (240, 130, 0)
@@ -317,7 +334,8 @@ KERNEL_NAMES = {"bin_intersect": "own_walk_kernel",
                 "bin_entry_keys": "entry_keys_kernel",
                 "bin_entry_table": "entry_table_kernel",
                 "shade_compose": "shade_compose_kernel",
-                "frame_setup": "frame_setup_kernel"}
+                "frame_setup": "frame_setup_kernel",
+                "shade_grad": "shade_grad_kernel"}
 # K3's and K6's design levers, each switched off (one ray a thread, which at
 # P 512 is also one entry group of 512 threads; one entry group of P / 4
 # threads; two rays a thread in two groups; the next block or chunk copied
@@ -1181,14 +1199,20 @@ def main() -> None:
     phase_done(16)
 
     # ---- 17. the serving frame's kernels K8, K9, K10 and K11 ----
-    serving = run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs,
-                                  target, smi, clock_mhz)
+    train_k12, serving = run_serving_kernels(dev, headline_tv, frames, cfg,
+                                             accel, ccfgs, target, smi,
+                                             clock_mhz)
     for entry in serving:
         paths = entry["launches_by_path"]
         for method, launched in cli_launches.items():
             paths[f"render_cli_{method}"] = launched[entry["name"]]
         paths["animate_replays"] = animate_seen[entry["name"]]
     phase_done(17)
+
+    # ---- 18. the training shading's backward, K12 ----
+    serving.append(run_shade_grad(dev, headline_tv, cfg, target, smi,
+                                  clock_mhz, train_k12))
+    phase_done(18)
 
     kernels = [{
         "name": "bin_intersect", "route": "cuda",
@@ -2017,7 +2041,7 @@ def run_sharded(dev, headline_tv, frames, cfg, accel, ccfgs, target, smi):
         loss1 = pj.make_train_step(torch.optim.SGD(single_list, lr=LR),
                                    cfg)(single, target)
         shard, shard_list = params()
-        for k in (k1.bin_intersect, k2.segment_sum, *prep):
+        for k in (k1.bin_intersect, k2.segment_sum, *prep, k10.shade_grad):
             k.launches = 0
         start.record()
         loss2 = pj.make_train_step(torch.optim.SGD(shard_list, lr=LR), cfg,
@@ -2027,12 +2051,13 @@ def run_sharded(dev, headline_tv, frames, cfg, accel, ccfgs, target, smi):
         counts = (k1.bin_intersect.launches, k2.segment_sum.launches)
         out.setdefault("bin_intersect", {})["sharded_train"] = counts[0]
         out.setdefault("segment_sum", {})["sharded_train"] = counts[1]
-        for k in prep:
+        for k in (*prep, k10.shade_grad):
             out.setdefault(k.__name__, {})["sharded_train"] = k.launches
-        if not bp.bin_tri_pass.launches or k10.shade_compose.launches \
-                or k10.frame_setup.launches:
-            raise RuntimeError("the sharded step skipped K8, shaded "
-                               "through K10 or set up through K11")
+        if not bp.bin_tri_pass.launches or k10.shade_compose.launches != 1 \
+                or k10.shade_grad.launches != 1 or k10.frame_setup.launches:
+            raise RuntimeError("the sharded step skipped K8, did not shade "
+                               "through K10 and K12 once or set up through "
+                               "K11")
         finite = all(bool(torch.isfinite(p.grad).all()) for p in shard_list)
         same_p = all(torch.equal(a, b) for a, b in zip(shard_list,
                                                        single_list))
@@ -2383,8 +2408,8 @@ def jit_steps(dev, headline_tv, c, acc, kname, target, smi, mesh=None,
     sets, both with ``mesh``: parameters and losses bitwise after
     `N_JIT_STEPS` steps and after ``turns`` of each in turns and the
     profiled ones; ``kname`` seen in every replayed step, K2 in the
-    all-leaves one only, K8 and K9 in every bin step and K10 and K11 in
-    none.
+    all-leaves one only, K8 and K9 in every bin step, K10 and K12 in every
+    step and K11 in none.
     Returns {kernel name: instances in the replayed all-leaves step} for
     ``kname``, K2 and `SERVING_KERNELS`."""
     from cpp_cuda_raytracer_dev_torch.parallel.render_pjit import (
@@ -2444,16 +2469,17 @@ def jit_steps(dev, headline_tv, c, acc, kname, target, smi, mesh=None,
                 or prof["compiled"][4] < 1:
             raise RuntimeError(f"the replayed {c.method} {kind} step ran "
                                f"{kname} {seen[kname]} and K2 {k2_seen} times")
-        # K8 and K9 in a bin step, K10 and K11 in none (the step shades
-        # and sets up with autograd)
-        if seen["shade_compose"] or seen["frame_setup"] or (
-                c.method == "bin") != (
+        # K8 and K9 in a bin step, K10 and K12 in every step (the
+        # shading's forward and backward), K11 in none (the step sets up
+        # with autograd)
+        if not seen["shade_compose"] or not seen["shade_grad"] \
+                or seen["frame_setup"] or (c.method == "bin") != (
                 seen["bin_tri_pass"] > 0 and seen["bin_entry_keys"] > 0):
             raise RuntimeError(f"the replayed {c.method} {kind} step ran "
                                f"the serving kernels {seen}")
         if all_leaves:
             out = {kname: seen[kname], "segment_sum": k2_seen,
-                   **{k: seen[k] for k in SERVING_KERNELS}}
+                   **{k: seen[k] for k in (*SERVING_KERNELS, "shade_grad")}}
         del steps, opts
     return out
 
@@ -2511,7 +2537,7 @@ def run_jit(dev, headline_tv, frames, cfg, accel, ccfgs, target, smi):
                      smi)
     out["bin_intersect"]["train_jit"] = seen["bin_intersect"]
     out["segment_sum"] = {"serve_jit": 0, "train_jit": seen["segment_sum"]}
-    for k in SERVING_KERNELS:
+    for k in (*SERVING_KERNELS, "shade_grad"):
         out[k] = {"train_jit": seen[k]}
     return out
 
@@ -2905,7 +2931,8 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
                         smi, clock_mhz):
     """Phase 17 (see the module docstring): kernels K8, K9, K10 and K11.
     Returns their rows of the kernels line (main() adds the sharded and
-    app paths to ``launches_by_path``)."""
+    app paths to ``launches_by_path``) and K12's launches in one eager bin
+    training step, its counter at 0 before it."""
     import contextlib
 
     from cpp_cuda_raytracer_dev_torch import (Camera, Pose, RenderConfig,
@@ -2919,6 +2946,8 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
         PROJ_METHODS, frame_setup_reference, set_up_frame)
     from cpp_cuda_raytracer_dev_torch.models.renderer import (
         shade_compose_reference, shade_hits, trace_rays)
+    from cpp_cuda_raytracer_dev_torch.models.shade_grad import \
+        shade_grad_reference
     from cpp_cuda_raytracer_dev_torch.ops.cuda import bin_prepass as bp
     from cpp_cuda_raytracer_dev_torch.ops.cuda import shade as k10
     from cpp_cuda_raytracer_dev_torch.ops.cuda.bin_intersect import \
@@ -3269,8 +3298,11 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
     @contextlib.contextmanager
     def route(kind):
         """The plain versions in the kernels' places (``kind`` "plain"), as
-        phase 3 puts the aligned walk in K1's place."""
-        names = ((binning, "bin_tri_pass", bp.bin_tri_pass_reference),
+        phase 3 puts the aligned walk in K1's place; the steps' shading
+        then runs K10's and K12's twins."""
+        names = ((k10, "shade_compose", shade_compose_reference),
+                 (k10, "shade_grad", shade_grad_reference),
+                 (binning, "bin_tri_pass", bp.bin_tri_pass_reference),
                  (binning, "bin_entry_keys", bp.bin_entry_keys_reference),
                  (binning, "bin_entry_table", bp.bin_entry_table_reference),
                  (traverse, "ray_table",
@@ -3368,11 +3400,13 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
                         f"operations, {prof[k][2]} host operations"
                         for k, v in ms.items())
             + f"; kernels seen {prof['kernels'][3]} ({smi})")
-        seen = prof["kernels"][3]
+        seen, plain_seen = prof["kernels"][3], prof["plain"][3]
         if not equal or losses["kernels"] != losses["plain"] \
-                or seen["shade_compose"] or seen["frame_setup"] \
-                or not seen["bin_tri_pass"]:
-            raise RuntimeError(f"compiled {kind} steps: {seen}")
+                or not seen["shade_compose"] or not seen["shade_grad"] \
+                or seen["frame_setup"] or not seen["bin_tri_pass"] \
+                or plain_seen["shade_compose"] or plain_seen["shade_grad"]:
+            raise RuntimeError(f"compiled {kind} steps: {seen}, plain "
+                               f"route {plain_seen}")
         del sets, opts, steps
 
     # ---- launches on the eager main paths, the counters from 0 ----
@@ -3388,7 +3422,7 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
         render(*frames[0], c, acc)
         serve[f"shade_compose_{method}"] = k10.shade_compose.launches
         serve[f"frame_setup_{method}"] = k10.frame_setup.launches
-    for f in wrappers.values():
+    for f in (*wrappers.values(), k10.shade_grad):
         f.launches = 0
     plain0 = set_up_frame.plain
     p = train_set(dev, headline_tv)
@@ -3396,13 +3430,14 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
                                      *p["camera"].parameters()], lr=LR),
                     cfg)(p, target)
     train = {k: f.launches for k, f in wrappers.items()}
+    train_k12 = k10.shade_grad.launches
     train_plain = set_up_frame.plain - plain0
     log(f"launches: {N_FRAMES} bin frames through render {serve}; one "
-        f"bin training step {train}, its set-ups by the plain version "
-        f"{train_plain}")
+        f"bin training step {train}, K12 {train_k12}, its set-ups by the "
+        f"plain version {train_plain}")
     if min(serve.values()) < 1 or min(serve[k] for k in wrappers) < N_FRAMES \
-            or train["shade_compose"] or train["frame_setup"] \
-            or train_plain < 1 or min(
+            or train["shade_compose"] != 1 or train_k12 != 1 \
+            or train["frame_setup"] or train_plain < 1 or min(
                 train[k] for k in SERVING_KERNELS[:4]) < 1:
         raise RuntimeError("the serving kernels missed their paths")
 
@@ -3422,7 +3457,7 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
         k10_paths[f"serve_{m}"] = serve[f"shade_compose_{m}"]
         k11_paths[f"serve_{m}"] = serve[f"frame_setup_{m}"]
     base = "cpp_cuda_raytracer_dev_tpu/"
-    return [{
+    return train_k12, [{
         "name": "bin_tri_pass", "route": "cuda",
         "source": "cpp_cuda_raytracer_dev_torch/csrc/bin_prepass.cu",
         "replaces": base + "accel/binning.py:67",
@@ -3475,6 +3510,156 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
         "kd_plain_ms": plain["setup_kd"],
         "kd_bound_ms": bounds["setup_kd"]["bound_ms"],
         "launches_by_path": k11_paths}]
+
+
+def run_shade_grad(dev, headline_tv, cfg, target, smi, clock_mhz,
+                   train_k12):
+    """Phase 18 (see the module docstring): kernel K12, the training
+    shading's backward. Returns its row of the kernels line, whose
+    ``launches`` are ``train_k12``, phase 17's count in one eager bin
+    training step."""
+    import contextlib
+
+    from cpp_cuda_raytracer_dev_torch.models import shade_grad as sg
+    from cpp_cuda_raytracer_dev_torch.models.renderer import trace_rays
+    from cpp_cuda_raytracer_dev_torch.ops.cuda import shade as k10
+    from cpp_cuda_raytracer_dev_torch.parallel.render_pjit import \
+        make_train_step_jit
+
+    p = train_set(dev, headline_tv)
+    scene, cam = p["scene"], p["camera"]
+    with torch.no_grad():
+        rmd = cam.ray_directions()
+        hit = trace_rays(scene, cam.pos, rmd, cfg, None, RES_H, RES_W,
+                         cam.projection())
+        rad = k10.shade_compose(scene, cam.pos, rmd, hit, cfg)["radiance"]
+        # the steps' cotangent: d mean((radiance - target)^2) / d radiance
+        ct = 2.0 * (rad - target.reshape(-1, 3)) / rad.numel()
+    gen = torch.Generator(device=dev).manual_seed(18)
+    ct_n, ct_p = (torch.randn(rmd.shape, generator=gen, device=dev)
+                  for _ in range(2))
+    # (cotangents, rows, the rays' cotangent, the tables', hit t's)
+    cases = {"pose/light/camera step": ((ct, None, None), True, True, False,
+                                        False),
+             "all-leaves step": ((ct, None, None), True, True, True, False),
+             "every cotangent and output": ((ct, ct_n, ct_p), True, True,
+                                            True, True)}
+    args = {k: (scene, cam.pos, rmd, hit, cfg, *v) for k, v in cases.items()}
+    bad, err = [], 0.0
+    for name, a in args.items():
+        with torch.no_grad():
+            got, want = k10.shade_grad(*a), sg.shade_grad_reference(*a)
+        torch.cuda.synchronize()
+        for part, x, y in zip(("partials", "consts", "rays", "rows",
+                               "hit_t"), got, want):
+            if x is None and y is None:
+                continue
+            err = max(err, float((x.double() - y.double()).abs().max()))
+            if not torch.equal(x, y):
+                bad.append(f"{name}: {part}")
+    log(f"K12 against its plain twin at headline frame 0 ({rmd.shape[0]} "
+        f"rays, {int((hit.tri >= 0).sum())} hits; {', '.join(cases)}): "
+        f"bitwise {not bad} {bad}")
+    if bad:
+        raise RuntimeError(f"K12 differs from its twin: {bad}")
+
+    # K12 timed against its twin and its bound, for each step's call
+    ms = {k: kernel_ms(lambda k=k: k10.shade_grad(*args[k]),
+                       "shade_grad_kernel") for k in list(cases)[:2]}
+    plain = {k: graph_ms(lambda k=k: sg.shade_grad_reference(*args[k]))
+             for k in list(cases)[:2]}
+    n_r, n_hit = rmd.shape[0], int((hit.tri >= 0).sum())
+    hit_tris = int(torch.unique(hit.tri[hit.tri >= 0]).numel())
+    # each input read once (the rays, t, ids and the cotangent a ray, the
+    # hit triangles' 12 leaves), each output written once (24 partials,
+    # the rays' cotangent, and the tables' 12-wide rows)
+    base = n_r * (12 + 12 + 12 + 96 + 12) + hit_tris * 48
+    work = {"pose/light/camera step": (K12_OPS_PER_HIT * n_hit, base),
+            "all-leaves step": (K12_OPS_PER_HIT * n_hit, base + n_r * 48)}
+    bounds = {k: op_bounds(*v, clock_mhz) for k, v in work.items()}
+    for k in ms:
+        log(f"K12 at headline frame 0, the {k}'s call: {ms[k]:.4f} ms, its "
+            f"twin captured alone {plain[k]:.4f} ms; {bounds[k]['text']} "
+            f"({smi})")
+
+    # a compiled step, the kernel route against the twin route, in turns
+    @contextlib.contextmanager
+    def route(kind):
+        saved = k10.shade_grad
+        if kind == "twin":
+            k10.shade_grad = sg.shade_grad_reference
+        try:
+            yield
+        finally:
+            k10.shade_grad = saved
+    kinds = ("kernel", "twin")
+    step_ms, launches_by_path = {}, {"train": train_k12}
+    for kind in ("pose/light/camera-only", "all-leaves"):
+        sets = {k: train_set(dev, headline_tv) for k in kinds}
+        if kind != "all-leaves":
+            for q in sets.values():
+                q["scene"].objects[0].tris.requires_grad_(False)
+
+        def leaves(q):
+            return [x for x in (*q["scene"].parameters(),
+                                *q["camera"].parameters()) if x.requires_grad]
+        steps = {k: make_train_step_jit(torch.optim.SGD(leaves(q), lr=LR),
+                                        cfg) for k, q in sets.items()}
+
+        def run(k, _i=0):
+            with route(k):
+                return steps[k](sets[k], target)
+        counts = (k10.shade_compose.launches, k10.shade_grad.launches,
+                  sg.shade_compose_grad.plain)
+        losses = {k: [float(run(k)) for _ in range(N_JIT_STEPS)]
+                  for k in kinds}
+        turns = in_turns(run, kinds, N_PAIRED)
+        prof = {k: replay_profile(lambda k=k: run(k)) for k in kinds}
+        equal = all(torch.equal(a, b) for a, b in
+                    zip(leaves(sets["kernel"]), leaves(sets["twin"])))
+        moved = (k10.shade_compose.launches - counts[0],
+                 k10.shade_grad.launches - counts[1],
+                 sg.shade_compose_grad.plain - counts[2])
+        step_ms[kind] = {k: float(np.median(v)) for k, v in turns.items()}
+        seen = prof["kernel"][3]
+        launches_by_path["train_jit" if kind == "all-leaves" else
+                         "train_jit_pose_light_camera"] = seen["shade_grad"]
+        log(f"compiled {kind} steps, K12 and its twin in turns: losses "
+            f"{losses['kernel']} / {losses['twin']}, parameters bitwise "
+            f"equal {equal}; "
+            + "; ".join(f"{k} {spread(v)}, profiled: device busy "
+                        f"{prof[k][0]:.3f} ms in {prof[k][1]} device "
+                        f"operations, {prof[k][2]} host operations"
+                        for k, v in turns.items())
+            + f"; kernels seen {seen}; counters moved (K10 launches, K12 "
+            f"launches, backward passes on the card without K12) {moved} "
+            f"({smi})")
+        if not equal or losses["kernel"] != losses["twin"] \
+                or seen["shade_grad"] < 1 or seen["shade_compose"] < 1 \
+                or prof["twin"][3]["shade_grad"] or moved[1] < 1 \
+                or moved[2] < 1:
+            raise RuntimeError(f"compiled {kind} steps: {seen}, {moved}")
+        del sets, steps
+    log(f"counters: shade_compose.launches {k10.shade_compose.launches}, "
+        f"shade_grad.launches {k10.shade_grad.launches}, "
+        f"shade_compose_grad.plain {sg.shade_compose_grad.plain} (the twin "
+        "route's backward passes above)")
+    k = "pose/light/camera step"
+    return {
+        "name": "shade_grad", "route": "cuda",
+        "source": "cpp_cuda_raytracer_dev_torch/csrc/shade.cu",
+        "replaces": None,
+        "replaces_note": "none: JAX differentiates models/renderer.py:116 "
+                         "shade_hits by itself; K12 is the backward of the "
+                         "autograd Function whose forward is K10",
+        "launches": train_k12, "max_abs_err": err,
+        "ms": ms[k], "plain_ms": plain[k], "bound_ms": bounds[k]["bound_ms"],
+        "bound_by": bounds[k]["bound_by"], "library_ms": None,
+        "bound_issue_ms": bounds[k]["bound_issue_ms"],
+        "all_leaves_ms": ms["all-leaves step"],
+        "all_leaves_plain_ms": plain["all-leaves step"],
+        "all_leaves_bound_ms": bounds["all-leaves step"]["bound_ms"],
+        "step_ms": step_ms, "launches_by_path": launches_by_path}
 
 
 def write_ply(path, tv: np.ndarray) -> None:

@@ -1,5 +1,6 @@
 // Serving shading and composition: kernel K10; the serving frame's set-up:
-// kernel K11 (below K10).
+// kernel K11 (below K10); the training shading's backward: kernel K12
+// (below K11).
 //
 // Counterpart of the JAX package's XLA-fused plain code of a forward
 // frame's shading and composition, not of a Pallas kernel: `shade_hits`
@@ -543,6 +544,380 @@ cudaError_t launch_setup(int n_rays, int res_w, int res_h, int row0,
   return cudaGetLastError();
 }
 
+
+// ---- K12: the training shading's backward ----
+//
+// Counterpart of the JAX package's XLA-fused autograd of the plain code of a
+// training frame's shading (`shade_hits`,
+// cpp_cuda_raytracer_dev_tpu/models/renderer.py:116-223, and
+// `phong_radiance_c`, ops/shade.py:46), which JAX differentiates and fuses
+// by itself; not of a Pallas kernel. Run eagerly in PyTorch that was some
+// 800 autograd nodes a step (the forward's 310 and their backward), among
+// them a (T, 12) concatenation of the triangle leaves and a gather of it,
+// every step. K10 is the forward (models/shade_grad.py); one thread a ray
+// of K12 recomputes what K10 computes (the object-frame direction, MT's t,
+// u, v and det, the hit point, the normal, Phong) and writes, bit for bit
+// as its plain twin (models/shade_grad.py `shade_grad_reference`):
+//
+//   the cotangent of the ray's direction rmd (R, 3);
+//   one column a ray of the partials of every scalar leaf (kGradCols: the
+//     world origin, light_pos, light_color, diffuse, specular, exponent;
+//     then kObjGradCols an object: R, row-major, and the object-frame
+//     origin), column-major (column c at partials + c R), which torch.sum
+//     adds up over the rays: no float atomics, so a step repeats bitwise;
+//   where a triangle table needs a gradient, the (R, 12) cotangent rows of
+//     the hit triangle's leaves p1, e1, e2 and colour (ops/gather.py's
+//     packed order), which the segment sum K2 adds up by triangle;
+//   where asked, the cotangent of the traversal's t (rays whose recomputed
+//     MT rejects the hit keep that t);
+//   each object's R and o - t (kGradConsts), block 0's first threads.
+//
+// It takes the cotangents of radiance, normal and point that autograd
+// gives; an absent one is a template flag (kCts), not a zero tensor. Rays
+// of no object of the launch write nothing, except in the first launch,
+// which writes every output of every ray that it does not own as zero (a
+// later launch's rays are then written again by it). Misses and the
+// other objects' columns are zero.
+//
+// Autograd's conventions: where's masks (the acceptance, the hit's object),
+// abs's sgn(0) = 0, clamp_min's gradient 0 below the clamp, rsqrt's
+// -x^3 / 2, reciprocal(where(det == 0, 1, det)) (0 where det is 0), pow's
+// base gradient 0 where the exponent is 0 and its exponent gradient 0
+// where the base is 0 (pow_backward_self, pow_backward_exponent). Order:
+// K10's for the recompute; every product and sum of the backward rounded
+// on its own, dots summed (x + y) + z, as the twin writes them.
+//
+// Bound: bytes. Per ray it reads what K10 reads and the cotangents (3 T
+// each), and writes the partials (24 T for one object), the direction's
+// cotangent (3 T) and, for the tables, 12 T; about 400 operations a hit
+// are far below the issue rate.
+
+constexpr int kGradCols = 12;     // origin, light_pos, light_color, kd, ks, ex
+constexpr int kObjGradCols = 12;  // R (9), the object-frame origin (3)
+constexpr int kGradConsts = 12;   // R (9), o - t (3)
+
+template <typename T>
+__device__ __forceinline__ T sgn(T x) {   // torch.sign, abs's gradient
+  return x > T(0) ? T(1) : (x < T(0) ? T(-1) : T(0));
+}
+
+template <typename T>
+__device__ __forceinline__ T dot3v(const T* a, const T* b) {
+  return dot3(a[0], b[0], a[1], b[1], a[2], b[2]);
+}
+
+template <typename T, int kCts>
+__global__ void __launch_bounds__(kThreads)
+shade_grad_kernel(int n_rays, int obj0, int n_obj, int n_total, int first,
+                  Objects<T> objs, const T* rmd, const T* origin,
+                  const T* hit_t, const int* hit_tri, const int* hit_obj,
+                  const T* light_pos, const T* light_color,
+                  const T* diffuse, const T* specular, const T* exponent,
+                  T eps, T one_eps, const T* ct_rad, const T* ct_nrm,
+                  const T* ct_pnt, T* partials, T* consts, T* g_rmd,
+                  T* g_rows, T* g_ht) {
+  const int r = blockIdx.x * kThreads + threadIdx.x;
+  if (blockIdx.x == 0 && static_cast<int>(threadIdx.x) < n_obj) {
+    const T* const* p = objs.p[threadIdx.x];
+    T* c = consts + static_cast<long long>(obj0 + threadIdx.x) * kGradConsts;
+    quat_matrix(p[10], c);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) c[9 + k] = sub(origin[k], p[11][k]);
+  }
+  if (r >= n_rays) return;
+  const long long R = n_rays;
+  const int tri = hit_tri[r];
+  const int obj = hit_obj[r];
+  const int slot = obj - obj0;
+  const bool own = tri >= 0 && slot >= 0 && slot < n_obj;
+  const T zero = T(0);
+  if (first && partials != nullptr) {
+    for (int o = 0; o < n_total; ++o) {
+      if (own && o == obj) continue;
+      T* col = partials + (kGradCols + static_cast<long long>(o)
+                           * kObjGradCols) * R + r;
+#pragma unroll
+      for (int k = 0; k < kObjGradCols; ++k) col[k * R] = zero;
+    }
+  }
+  if (!own) {
+    if (!first) return;
+    if (partials != nullptr) {
+#pragma unroll
+      for (int k = 0; k < kGradCols; ++k) partials[k * R + r] = zero;
+    }
+    if (g_rmd != nullptr) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) g_rmd[3ll * r + k] = zero;
+    }
+    if (g_rows != nullptr) {
+#pragma unroll
+      for (int k = 0; k < 12; ++k) g_rows[12ll * r + k] = zero;
+    }
+    if (g_ht != nullptr) g_ht[r] = zero;
+    return;
+  }
+
+  // ---- the forward, as K10 computes it ----
+  const T* const* p = objs.p[slot];
+  const T p1[3] = {p[0][tri], p[1][tri], p[2][tri]};
+  const T e1[3] = {p[3][tri], p[4][tri], p[5][tri]};
+  const T e2[3] = {p[6][tri], p[7][tri], p[8][tri]};
+  const T* colp = p[9] + 3ll * tri;
+  const T col[3] = {colp[0], colp[1], colp[2]};
+  const long long r3 = 3ll * r;
+  const T d[3] = {rmd[r3], rmd[r3 + 1], rmd[r3 + 2]};
+  T m[9];
+  quat_matrix(p[10], m);
+  const T vx = sub(origin[0], p[11][0]), vy = sub(origin[1], p[11][1]),
+          vz = sub(origin[2], p[11][2]);
+  const T oo[3] = {inv_dot(vx, m[0], vy, m[3], vz, m[6]),
+                   inv_dot(vx, m[1], vy, m[4], vz, m[7]),
+                   inv_dot(vx, m[2], vy, m[5], vz, m[8])};
+  T dd[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    dd[j] = dot3(m[j], d[0], m[3 + j], d[1], m[6 + j], d[2]);
+  const T tv[3] = {sub(oo[0], p1[0]), sub(oo[1], p1[1]), sub(oo[2], p1[2])};
+  T pv[3], qv[3];
+  cross3(dd, e2, pv);
+  cross3(tv, e1, qv);
+  const T det = dot3v(e1, pv);
+  const T inv = div(T(1), det == T(0) ? T(1) : det);
+  const T u = mul(dot3v(tv, pv), inv);
+  const T v = mul(dot3v(dd, qv), inv);
+  const T e_t = dot3v(e2, qv);
+  const T t_mt = mul(e_t, inv);
+  const bool valid = fabs(det) >= eps && u >= eps && v >= eps
+                     && add(u, v) <= one_eps && t_mt >= eps;
+  const T t = valid ? t_mt : hit_t[r];
+  T pt[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) pt[k] = add(origin[k], mul(t, d[k]));
+  T cn[3];
+  cross3(e1, e2, cn);
+  const T cs = dot3v(cn, cn);
+  const T inv_n = rsqrt(clamp_lo(cs, T(1e-30)));
+  const T nn[3] = {mul(cn[0], inv_n), mul(cn[1], inv_n), mul(cn[2], inv_n)};
+  T nw[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    nw[i] = dot3(m[3 * i], nn[0], m[3 * i + 1], nn[1], m[3 * i + 2], nn[2]);
+
+  // ---- the backward ----
+  T g_nw[3] = {zero, zero, zero}, g_p[3] = {zero, zero, zero},
+    g_d[3] = {zero, zero, zero};
+  T g_lp[3] = {zero, zero, zero}, g_lc[3] = {zero, zero, zero},
+    g_col[3] = {zero, zero, zero};
+  T g_kd = zero, g_ks = zero, g_ex = zero;
+  if (kCts & 1) {   // radiance: Phong (ops/shade.py phong_radiance_c)
+    const T kd = *diffuse, ks = *specular, ex = *exponent;
+    T l[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) l[k] = sub(light_pos[k], pt[k]);
+    const T inv_len = rsqrt(dot3v(l, l));
+    const T lh[3] = {mul(l[0], inv_len), mul(l[1], inv_len),
+                     mul(l[2], inv_len)};
+    const T dot = dot3v(lh, nw);
+    const T two = mul(T(2), dot);
+    T rr[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) rr[k] = sub(lh[k], mul(two, nw[k]));
+    const T rsum = dot3v(rr, d);
+    const T dif = mul(kd, fabs(dot));
+    const T a = fabs(rsum);
+    const T pw = pow(a, ex);
+    const T spec = mul(ks, pw);
+    const T gr[3] = {ct_rad[r3], ct_rad[r3 + 1], ct_rad[r3 + 2]};
+    T ga[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      ga[k] = mul(gr[k], light_color[k]);
+      g_col[k] = mul(ga[k], dif);
+      g_lc[k] = add(mul(gr[k], mul(col[k], dif)), mul(gr[k], spec));
+    }
+    const T g_dif = dot3v(ga, col);
+    const T g_spec = add(add(ga[0], ga[1]), ga[2]);
+    g_ks = mul(g_spec, pw);
+    const T g_pw = mul(g_spec, ks);
+    const T g_a = ex == T(0) ? zero
+                  : mul(g_pw, mul(ex, pow(a, sub(ex, T(1)))));
+    g_ex = mul(g_pw, a == T(0) && ex >= T(0) ? zero : mul(pw, log(a)));
+    const T g_rsum = mul(g_a, sgn(rsum));
+    g_kd = mul(g_dif, fabs(dot));
+    T g_dot = mul(mul(g_dif, kd), sgn(dot));
+    T g_r[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      g_r[k] = mul(g_rsum, d[k]);
+      g_d[k] = mul(g_rsum, rr[k]);
+    }
+    const T g_two = -dot3v(g_r, nw);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) g_nw[k] = -mul(g_r[k], two);
+    g_dot = add(g_dot, mul(T(2), g_two));
+    T g_lh[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      g_lh[k] = add(g_r[k], mul(g_dot, nw[k]));
+      g_nw[k] = add(g_nw[k], mul(g_dot, lh[k]));
+    }
+    const T g_ls = mul(mul(T(-0.5), dot3v(g_lh, l)),
+                       mul(mul(inv_len, inv_len), inv_len));
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      g_lp[k] = add(mul(g_lh[k], inv_len), mul(mul(T(2), g_ls), l[k]));
+      g_p[k] = -g_lp[k];
+    }
+  }
+  if (kCts & 2) {   // normal
+#pragma unroll
+    for (int k = 0; k < 3; ++k) g_nw[k] = add(g_nw[k], ct_nrm[r3 + k]);
+  }
+  if (kCts & 4) {   // point
+#pragma unroll
+    for (int k = 0; k < 3; ++k) g_p[k] = add(g_p[k], ct_pnt[r3 + k]);
+  }
+  // the hit point o + t d
+  const T g_t = dot3v(g_p, d);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) g_d[k] = add(g_d[k], mul(g_p[k], t));
+  // the world normal R n and the unit normal n = cn rsqrt(|cn|^2)
+  T g_m[9], g_n[3], g_cn[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) g_m[3 * i + j] = mul(g_nw[i], nn[j]);
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    g_n[j] = dot3(g_nw[0], m[j], g_nw[1], m[3 + j], g_nw[2], m[6 + j]);
+    g_cn[j] = mul(g_n[j], inv_n);
+  }
+  const T g_cs = cs >= T(1e-30)
+      ? mul(mul(T(-0.5), dot3v(g_n, cn)), mul(mul(inv_n, inv_n), inv_n))
+      : zero;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) g_cn[k] = add(g_cn[k], mul(mul(T(2), g_cs),
+                                                         cn[k]));
+  T g_e1[3], g_e2[3], x[3];
+  cross3(e2, g_cn, g_e1);
+  cross3(g_cn, e1, g_e2);
+  // MT's t = e_t / det where the recompute accepts the hit
+  const T g_tm = valid ? g_t : zero;
+  const T g_e = mul(g_tm, inv);
+  const T g_det = det == T(0) ? zero
+                  : -mul(mul(g_tm, e_t), mul(inv, inv));
+  T g_qv[3], g_pv[3], g_tv[3], g_dd[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    g_e2[k] = add(g_e2[k], mul(g_e, qv[k]));
+    g_qv[k] = mul(g_e, e2[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    g_e1[k] = add(g_e1[k], mul(g_det, pv[k]));
+    g_pv[k] = mul(g_det, e1[k]);
+  }
+  cross3(e1, g_qv, g_tv);
+  cross3(g_qv, tv, x);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) g_e1[k] = add(g_e1[k], x[k]);
+  cross3(e2, g_pv, g_dd);
+  cross3(g_pv, dd, x);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) g_e2[k] = add(g_e2[k], x[k]);
+  // the object-frame direction R^T d
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      g_m[3 * i + j] = add(g_m[3 * i + j], mul(g_dd[j], d[i]));
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    g_d[i] = add(g_d[i], dot3(m[3 * i], g_dd[0], m[3 * i + 1], g_dd[1],
+                              m[3 * i + 2], g_dd[2]));
+
+  if (partials != nullptr) {
+    const T shared[kGradCols] = {g_p[0], g_p[1], g_p[2], g_lp[0], g_lp[1],
+                                 g_lp[2], g_lc[0], g_lc[1], g_lc[2], g_kd,
+                                 g_ks, g_ex};
+#pragma unroll
+    for (int k = 0; k < kGradCols; ++k) partials[k * R + r] = shared[k];
+    T* col_o = partials + (kGradCols + static_cast<long long>(obj)
+                           * kObjGradCols) * R + r;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) col_o[k * R] = g_m[k];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) col_o[(9 + k) * R] = g_tv[k];
+  }
+  if (g_rmd != nullptr) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) g_rmd[r3 + k] = g_d[k];
+  }
+  if (g_rows != nullptr) {
+    T* row = g_rows + 12ll * r;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      row[k] = -g_tv[k];
+      row[3 + k] = g_e1[k];
+      row[6 + k] = g_e2[k];
+      row[9 + k] = g_col[k];
+    }
+  }
+  if (g_ht != nullptr) g_ht[r] = valid ? zero : g_t;
+}
+
+template <typename T, int kCts>
+cudaError_t launch_grad_cts(int n_rays, int obj0, int n_obj, int n_total,
+                            int first, const Objects<T>& objs,
+                            const void* const* ops, double eps,
+                            const void* const* cts, void* const* outs,
+                            cudaStream_t stream) {
+  const int blocks = n_rays > 0 ? (n_rays + kThreads - 1) / kThreads : 1;
+  shade_grad_kernel<T, kCts><<<blocks, kThreads, 0, stream>>>(
+      n_rays, obj0, n_obj, n_total, first, objs,
+      static_cast<const T*>(ops[0]), static_cast<const T*>(ops[1]),
+      static_cast<const T*>(ops[2]), static_cast<const int*>(ops[3]),
+      static_cast<const int*>(ops[4]), static_cast<const T*>(ops[5]),
+      static_cast<const T*>(ops[6]), static_cast<const T*>(ops[7]),
+      static_cast<const T*>(ops[8]), static_cast<const T*>(ops[9]), T(eps),
+      T(1.0 + eps), static_cast<const T*>(cts[0]),
+      static_cast<const T*>(cts[1]), static_cast<const T*>(cts[2]),
+      static_cast<T*>(outs[0]), static_cast<T*>(outs[1]),
+      static_cast<T*>(outs[2]), static_cast<T*>(outs[3]),
+      static_cast<T*>(outs[4]));
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_grad(int n_rays, int obj0, int n_obj, int n_total,
+                        int first, int cts_mask, const void* const* obj_ptrs,
+                        const void* const* ops, double eps,
+                        const void* const* cts, void* const* outs,
+                        cudaStream_t stream) {
+  Objects<T> objs;
+  for (int i = 0; i < kMaxObjects; ++i)
+    for (int k = 0; k < kObjPtrs; ++k)
+      objs.p[i][k] = i < n_obj
+          ? static_cast<const T*>(obj_ptrs[i * kObjPtrs + k]) : nullptr;
+#define K12_CASE(c)                                                        \
+  case c:                                                                  \
+    return launch_grad_cts<T, c>(n_rays, obj0, n_obj, n_total, first,      \
+                                 objs, ops, eps, cts, outs, stream);
+  switch (cts_mask) {
+    K12_CASE(1)
+    K12_CASE(2)
+    K12_CASE(3)
+    K12_CASE(4)
+    K12_CASE(5)
+    K12_CASE(6)
+    K12_CASE(7)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef K12_CASE
+}
+
 }  // namespace
 
 extern "C" int shade_max_objects() { return kMaxObjects; }
@@ -592,4 +967,30 @@ extern "C" int frame_setup_launch(int n_rays, int res_w, int res_h, int row0,
       : launch_setup<float>(n_rays, res_w, res_h, row0, obj0, n_obj, first,
                             cam, quats, trans, rays, adj_x, adj_y, consts,
                             rmd, s));
+}
+
+// K12. obj_ptrs, ops and eps: K10's; cts_mask: bit 0 radiance, 1 normal, 2
+// point, whose cotangents (R, 3) are cts[0..2] (null where absent); outs:
+// partials (kGradCols + kObjGradCols n_total, R), consts (n_total,
+// kGradConsts), the cotangent of rmd (R, 3), of the tables' rows (R, 12)
+// and of hit_t (R,), each but consts null where not asked for.
+extern "C" int shade_grad_launch(int n_rays, int obj0, int n_obj, int n_total,
+                                 int first, int is_f64, int cts_mask,
+                                 const void* const* obj_ptrs,
+                                 const void* const* ops, double eps,
+                                 const void* const* cts, void* const* outs,
+                                 void* stream) {
+  if (n_rays < 0 || n_obj < 1 || n_obj > kMaxObjects || obj0 < 0
+      || obj0 + n_obj > n_total || cts_mask < 1 || cts_mask > 7
+      || outs[1] == nullptr)
+    return (int)cudaErrorInvalidValue;
+  for (int k = 0; k < 3; ++k)
+    if (((cts_mask >> k) & 1) != (cts[k] != nullptr))
+      return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  return (int)(is_f64
+      ? launch_grad<double>(n_rays, obj0, n_obj, n_total, first, cts_mask,
+                            obj_ptrs, ops, eps, cts, outs, s)
+      : launch_grad<float>(n_rays, obj0, n_obj, n_total, first, cts_mask,
+                           obj_ptrs, ops, eps, cts, outs, s));
 }

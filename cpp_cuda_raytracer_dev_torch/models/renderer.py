@@ -29,6 +29,7 @@ from ..utils.config import RenderConfig
 from ..utils.profiling import span
 from .camera import PROJ_METHODS, Camera, object_frames, set_up_frame
 from .scene import Scene
+from .shade_grad import shade_compose_grad
 
 _ACCEL_METHODS = {"grid": "ClusterAccel", "pallas": "ClusterAccel",
                   "pallas2": "ClusterAccel", "kd": "KDTables"}
@@ -229,7 +230,8 @@ def shade_compose_reference(scene: Scene, origin: torch.Tensor,
                             config: RenderConfig) -> dict:
     """`shade_hits` and `compose_framebuffer`: the plain, differentiable
     version of `shade_and_compose` (kernel K10's plain twin,
-    ``ops/cuda/shade.py``)."""
+    ``ops/cuda/shade.py``, and the autograd reference of K12's twin,
+    ``models/shade_grad.py``)."""
     radiance, normal, point, hit_mask = shade_hits(scene, origin, rmd, hit,
                                                    config)
     image = compose_framebuffer(radiance, hit_mask, config.background_rgb)
@@ -244,14 +246,16 @@ def shade_and_compose(scene: Scene, origin: torch.Tensor, rmd: torch.Tensor,
     """Shade the hits and compose the image: `render_rays`'s dict of flat
     per-ray tensors for a given hit (the sharded paths combine hits across
     ranks first). With autograd on and an input that requires grad (the
-    training steps) the differentiable `shade_compose_reference`; else
-    (`render`, `render_jit`, the sharded serving paths) `shade_compose`,
-    kernel K10 on CUDA tensors and the same plain version on CPU tensors,
+    training steps) `shade_compose_grad`, differentiable: kernel K10
+    forward and kernel K12 backward on CUDA tensors, their plain twins on
+    CPU tensors; else (`render`, `render_jit`, the sharded serving paths)
+    `shade_compose`, kernel K10 on CUDA tensors and the plain version on
+    CPU tensors. Every route's outputs are `shade_compose_reference`'s,
     bit for bit."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (rmd, origin, hit.t,
                                       *scene.parameters())):
-        return shade_compose_reference(scene, origin, rmd, hit, config)
+        return shade_compose_grad(scene, origin, rmd, hit, config)
     return shade_compose(scene, origin, rmd, hit, config)
 
 

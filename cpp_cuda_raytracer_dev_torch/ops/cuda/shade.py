@@ -1,9 +1,11 @@
-"""Serving shading and composition: kernel K10 (``csrc/shade.cu``), the
+"""Shading and composition: kernel K10 (``csrc/shade.cu``), the
 counterpart of the JAX package's XLA-fused plain code in ``shade_hits``
-(``models/renderer.py``) and ``ops/shade.py``; and the serving frame's
-set-up: kernel K11 (the same source), the counterpart of the plain code of
-``Camera.ray_directions`` / ``projection`` (``models/camera.py``) and the
-pose transforms of ``trace_rays``. Neither is a Pallas kernel.
+(``models/renderer.py``) and ``ops/shade.py``, and its backward, kernel K12
+(the same source), the counterpart of that code's autograd; and the
+serving frame's set-up: kernel K11 (the same source), the counterpart of
+the plain code of ``Camera.ray_directions`` / ``projection``
+(``models/camera.py``) and the pose transforms of ``trace_rays``. None is
+a Pallas kernel.
 
 - `shade_compose` is the wrapper: `render_rays`'s dict of flat per-ray
   outputs for given hits, without autograd. For CUDA tensors it launches
@@ -18,7 +20,15 @@ pose transforms of ``trace_rays``. Neither is a Pallas kernel.
 
 `models/renderer.py` `shade_and_compose` calls it when autograd is off
 (`render`, `render_jit`, the sharded serving paths, the apps); with autograd
-on (the training steps) it runs the differentiable plain version.
+on (the training steps) ``models/shade_grad.py``'s autograd Function calls
+it as its forward.
+
+- `shade_grad` is K12's launcher, that Function's backward on the card:
+  for CUDA tensors it launches the kernel (up to `max_objects` objects a
+  launch) and raises if a launch fails, an operand is not one it takes or
+  the tensors are on another device (the Function takes the plain twin,
+  ``models/shade_grad.py`` `shade_grad_reference`, for CPU tensors). The
+  two agree bit for bit. `shade_grad.launches` counts its launches.
 
 - `frame_setup` is K11's wrapper: on CUDA tensors (a camera's six leaves,
   each object's quaternion and translation) it writes the rays of a band
@@ -60,6 +70,10 @@ def _lib():
             [ctypes.c_int] * 8 + [ctypes.c_void_p] * 4 + [ctypes.c_double] * 2
             + [ctypes.c_void_p] * 3)
         lib.frame_setup_launch.restype = ctypes.c_int
+        lib.shade_grad_launch.argtypes = (
+            [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2 + [ctypes.c_double]
+            + [ctypes.c_void_p] * 3)
+        lib.shade_grad_launch.restype = ctypes.c_int
         _fn.append(lib)
     return _fn[0]
 
@@ -126,6 +140,34 @@ def shade_compose(scene, origin: torch.Tensor, rmd: torch.Tensor, hit,
 shade_compose.launches = 0
 
 
+def _operands(scene, origin, rmd, hit) -> list:
+    """K10's and K12's per-ray and scalar operands, contiguous: rmd, the
+    world origin, hit t, triangle and object ids, light_pos, light_color,
+    diffuse, specular, exponent. A device parameter is cast to the rays'
+    dtype, as the plain version's 0-dim operands are."""
+    dt, phong = rmd.dtype, scene.phong
+    return [rmd.contiguous(), origin.to(dt).contiguous(), hit.t.contiguous(),
+            hit.tri.contiguous(), hit.obj.contiguous(),
+            *(x.to(dt).contiguous() for x in (
+                phong.light_pos, phong.light_color, phong.diffuse,
+                phong.specular, phong.exponent))]
+
+
+def _object_groups(scene, dt):
+    """(obj0, tensors) for each launch's objects [obj0, obj0 +
+    `max_objects`): 12 an object, p1x .. e2z, colour, the quaternion and
+    the translation (cast to the rays' dtype ``dt``)."""
+    per = max_objects()
+    for obj0 in range(0, len(scene.objects), per):
+        group = []
+        for obj in scene.objects[obj0:obj0 + per]:
+            tris = obj.tris
+            group += [getattr(tris, f).contiguous() for f in _TRI_FIELDS]
+            group += [tris.color.contiguous(), obj.pose.quat.contiguous(),
+                      obj.pose.translation.to(dt).contiguous()]
+        yield obj0, group
+
+
 def _launch(scene, origin, rmd, hit, config):
     """K10's launches on checked operands: (image, radiance, normal,
     point)."""
@@ -136,27 +178,13 @@ def _launch(scene, origin, rmd, hit, config):
                                for _ in range(3))
     if num_r == 0:
         return image, radiance, normal, point
-    phong = scene.phong
-
-    def flat(x):   # a device parameter in the rays' dtype, as the plain
-        return x.to(dt).contiguous()   # version's 0-dim operands are cast
-    keep = [rmd.contiguous(), flat(origin), hit.t.contiguous(),
-            hit.tri.contiguous(), hit.obj.contiguous(),
-            flat(phong.light_pos), flat(phong.light_color),
-            flat(phong.diffuse), flat(phong.specular), flat(phong.exponent)]
+    keep = _operands(scene, origin, rmd, hit)
     ops = (ctypes.c_void_p * len(keep))(*(x.data_ptr() for x in keep))
     outs = (ctypes.c_void_p * 4)(image.data_ptr(), radiance.data_ptr(),
                                  normal.data_ptr(), point.data_ptr())
     bg = (ctypes.c_double * 3)(*(float(c) for c in config.background_rgb))
-    per = max_objects()
     n_total = len(scene.objects)
-    for obj0 in range(0, n_total, per):
-        group = []
-        for obj in scene.objects[obj0:obj0 + per]:
-            tris = obj.tris
-            group += [getattr(tris, f).contiguous() for f in _TRI_FIELDS]
-            group += [tris.color.contiguous(), obj.pose.quat.contiguous(),
-                      flat(obj.pose.translation)]
+    for obj0, group in _object_groups(scene, dt):
         keep += group
         ptrs = (ctypes.c_void_p * len(group))(*(x.data_ptr() for x in group))
         err = _lib().shade_compose_launch(
@@ -247,3 +275,63 @@ def frame_setup(camera_leaves, quats, trans, res_w: int, res_h: int,
 
 
 frame_setup.launches = 0
+
+
+# ---- K12: the training shading's backward ----
+
+# K12's partials (kGradCols, kObjGradCols in csrc/shade.cu): the world
+# origin, light_pos, light_color, diffuse, specular, exponent; then each
+# object's R (row-major) and object-frame origin R^T (o - t)
+GRAD_COLS, OBJ_GRAD_COLS = 12, 12
+
+
+def shade_grad(scene, origin: torch.Tensor, rmd: torch.Tensor, hit, config,
+               cts, rows: bool, ray_ct: bool, tri_ct: bool, hit_t_ct: bool):
+    """K12: the backward of `shade_compose` for the unit rays ``rmd`` (R, 3)
+    on the card from ``origin`` and their ``hit`` over ``scene``, bit for
+    bit its plain twin ``models/shade_grad.py`` `shade_grad_reference`
+    (which documents the arguments and the outputs). ``cts``: the
+    cotangents of radiance, normal and point, (R, 3) each or None, not all
+    None. Raises on tensors of any other device."""
+    dt, dev, num_r = rmd.dtype, rmd.device, rmd.shape[0]
+    if dev.type != "cuda":
+        raise ValueError(f"no shade_grad kernel for {dev}")
+    _check(scene, origin, rmd, hit)
+    cts = [None if c is None else c.contiguous() for c in cts]
+    if all(c is None for c in cts):
+        raise ValueError("no cotangent: nothing to differentiate")
+    for c in cts:
+        if c is not None and (c.shape != (num_r, 3) or c.dtype != dt
+                              or c.device != dev):
+            raise TypeError(f"a cotangent must be ({num_r}, 3) {dt} on "
+                            f"{dev}, got {tuple(c.shape)} {c.dtype} on "
+                            f"{c.device}")
+    n_total = len(scene.objects)
+
+    def empty(shape, on=True):
+        return torch.empty(shape, dtype=dt, device=dev) if on else None
+    outs = (empty((GRAD_COLS + OBJ_GRAD_COLS * n_total, num_r), rows),
+            empty((n_total, 12)), empty((num_r, 3), ray_ct),
+            empty((num_r, 12), tri_ct), empty((num_r,), hit_t_ct))
+    keep = _operands(scene, origin, rmd, hit)
+    ops = (ctypes.c_void_p * len(keep))(*(x.data_ptr() for x in keep))
+    ct_ptrs = (ctypes.c_void_p * 3)(*(0 if c is None else c.data_ptr()
+                                      for c in cts))
+    out_ptrs = (ctypes.c_void_p * 5)(*(0 if x is None else x.data_ptr()
+                                       for x in outs))
+    mask = sum(1 << k for k, c in enumerate(cts) if c is not None)
+    for obj0, group in _object_groups(scene, dt):
+        keep += group
+        ptrs = (ctypes.c_void_p * len(group))(*(x.data_ptr() for x in group))
+        err = _lib().shade_grad_launch(
+            num_r, obj0, len(group) // 12, n_total, int(obj0 == 0),
+            int(dt == torch.float64), mask, ptrs, ops, float(config.eps),
+            ct_ptrs, out_ptrs, torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"shade_grad kernel launch failed: CUDA error "
+                               f"{err}")
+        shade_grad.launches += 1
+    return outs
+
+
+shade_grad.launches = 0

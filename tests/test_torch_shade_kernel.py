@@ -13,13 +13,15 @@ On the CPU:
   equal on >= 99.9% of pixels, every mismatch an exact-t tie at rtol 1e-5;
   hit_t at rtol 1e-5; radiance at rtol 1e-4, atol 1e-5 where the ids agree;
   the image within 1);
-- `shade_and_compose` takes the differentiable plain version with autograd
-  on and an input that requires grad, the wrapper otherwise, and the
-  wrapper refuses operands the kernel does not take.
+- `shade_and_compose` takes the differentiable version with autograd on
+  and an input that requires grad (``models/shade_grad.py``, whose own
+  tests are tests/test_torch_shade_grad.py), the wrapper otherwise, and
+  the wrapper refuses operands the kernel does not take.
 
 On the card (marked ``gpu``; they skip here): K10 bitwise its plain version
 on the same cases (float32 and float64, 1, 2 and 9 objects, the epsilon
-edge, a frame of misses), and no launch on the differentiable path:
+edge, a frame of misses), and on the differentiable path one launch of
+K10 forward and one of K12 backward:
     python -m pytest --noconftest -p no:cacheprovider -m gpu \\
         tests/test_torch_shade_kernel.py
 """
@@ -130,8 +132,8 @@ def test_plain_version_is_the_unsplit_shading(case, edge):
 
 
 def test_shading_dispatch_by_autograd():
-    """Autograd on: the differentiable plain version (gradients reach the
-    Phong parameters); off: the wrapper; bitwise the same outputs."""
+    """Autograd on: the differentiable version (gradients reach the Phong
+    parameters); off: the wrapper; bitwise the same outputs."""
     scene, cam, config, origin, rmd, hit = _world("two posed objects", "cpu")
     scene.phong.requires_grad_(True)
     out = shade_and_compose(scene, origin, rmd, hit, config)
@@ -262,18 +264,21 @@ def test_kernel_matches_plain_version_on_gpu(case, edge):
 
 
 @pytest.mark.gpu
-def test_no_launch_with_autograd_on_gpu():
+def test_autograd_launches_k10_and_k12_on_gpu():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     scene, cam, config, origin, rmd, hit = _world("two posed objects",
                                                   "cuda")
     scene.phong.requires_grad_(True)
-    before = k10.shade_compose.launches
+    before = k10.shade_compose.launches, k10.shade_grad.launches
     out = shade_and_compose(scene, origin, rmd, hit, config)
     out["radiance"].sum().backward()
-    assert k10.shade_compose.launches == before
+    assert (k10.shade_compose.launches, k10.shade_grad.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert scene.phong.diffuse.grad is not None
     with torch.no_grad():
         off = shade_and_compose(scene, origin, rmd, hit, config)
-    assert k10.shade_compose.launches == before + 1
+    assert (k10.shade_compose.launches, k10.shade_grad.launches) == (
+        before[0] + 2, before[1] + 1)
     for f in OUT:
         assert torch.equal(out[f].detach(), off[f]), f
