@@ -240,9 +240,8 @@ Phases (any failure raises and the process exits non-zero):
      twin and its byte bound; the compiled pose/light/camera-only and
      all-leaves steps (``make_train_step_jit``) with K12 and with its twin
      in its place, in turns, losses and parameters bitwise, one of each
-     profiled, and the counters (K10's and K12's launches, and
-     ``shade_compose_grad.plain``, the backward passes on the card that
-     did not launch K12: the twin route's). K12's row of the kernels line
+     profiled, and the counters (K10's and K12's launches). K12's row of
+     the kernels line
      takes its ``launches`` from phase 17's eager bin step (counter at 0
      before it); the log prints the process's totals.
 A differing id passes as a tie when both triangles' t, by the oracle's
@@ -1907,13 +1906,14 @@ def nccl_capture_check(dev, mesh) -> None:
         parts = [torch.empty_like(y) for _ in range(n)]
         dist.all_gather(parts, y, group=group)
         return torch.cat(parts) - 1.0, None
-    prog = graphs.capture(body, x, None, torch.cuda.graph_pool_handle())
+    graph, (out, _) = graphs.capture(lambda: body(x, None),
+                                     torch.cuda.graph_pool_handle())
     ok = []
     for v in (3.0, -5.5):
         x.fill_(v)
-        prog.graph.replay()
+        graph.replay()
         torch.cuda.synchronize()
-        ok.append(torch.equal(prog.out, torch.full((n * 4096,),
+        ok.append(torch.equal(out, torch.full((n * 4096,),
                                                    (2 * v + 1) * n - 1,
                                                    device=dev)))
     log(f"NCCL all_reduce and all_gather over {n} rank(s), captured in a "
@@ -2943,9 +2943,10 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
                                                              _ray_table)
     from cpp_cuda_raytracer_dev_torch.models import renderer
     from cpp_cuda_raytracer_dev_torch.models.camera import (
-        PROJ_METHODS, frame_setup_reference, set_up_frame)
-    from cpp_cuda_raytracer_dev_torch.models.renderer import (
-        shade_compose_reference, shade_hits, trace_rays)
+        frame_setup_reference, set_up_frame)
+    from cpp_cuda_raytracer_dev_torch.models.renderer import trace_rays
+    from cpp_cuda_raytracer_dev_torch.models.shading import (
+        shade_compose_reference, shade_hits)
     from cpp_cuda_raytracer_dev_torch.models.shade_grad import \
         shade_grad_reference
     from cpp_cuda_raytracer_dev_torch.ops.cuda import bin_prepass as bp
@@ -3609,8 +3610,7 @@ def run_shade_grad(dev, headline_tv, cfg, target, smi, clock_mhz,
         def run(k, _i=0):
             with route(k):
                 return steps[k](sets[k], target)
-        counts = (k10.shade_compose.launches, k10.shade_grad.launches,
-                  sg.shade_compose_grad.plain)
+        counts = (k10.shade_compose.launches, k10.shade_grad.launches)
         losses = {k: [float(run(k)) for _ in range(N_JIT_STEPS)]
                   for k in kinds}
         turns = in_turns(run, kinds, N_PAIRED)
@@ -3618,8 +3618,7 @@ def run_shade_grad(dev, headline_tv, cfg, target, smi, clock_mhz,
         equal = all(torch.equal(a, b) for a, b in
                     zip(leaves(sets["kernel"]), leaves(sets["twin"])))
         moved = (k10.shade_compose.launches - counts[0],
-                 k10.shade_grad.launches - counts[1],
-                 sg.shade_compose_grad.plain - counts[2])
+                 k10.shade_grad.launches - counts[1])
         step_ms[kind] = {k: float(np.median(v)) for k, v in turns.items()}
         seen = prof["kernel"][3]
         launches_by_path["train_jit" if kind == "all-leaves" else
@@ -3632,18 +3631,14 @@ def run_shade_grad(dev, headline_tv, cfg, target, smi, clock_mhz,
                         f"operations, {prof[k][2]} host operations"
                         for k, v in turns.items())
             + f"; kernels seen {seen}; counters moved (K10 launches, K12 "
-            f"launches, backward passes on the card without K12) {moved} "
-            f"({smi})")
+            f"launches) {moved} ({smi})")
         if not equal or losses["kernel"] != losses["twin"] \
                 or seen["shade_grad"] < 1 or seen["shade_compose"] < 1 \
-                or prof["twin"][3]["shade_grad"] or moved[1] < 1 \
-                or moved[2] < 1:
+                or prof["twin"][3]["shade_grad"] or moved[1] < 1:
             raise RuntimeError(f"compiled {kind} steps: {seen}, {moved}")
         del sets, steps
     log(f"counters: shade_compose.launches {k10.shade_compose.launches}, "
-        f"shade_grad.launches {k10.shade_grad.launches}, "
-        f"shade_compose_grad.plain {sg.shade_compose_grad.plain} (the twin "
-        "route's backward passes above)")
+        f"shade_grad.launches {k10.shade_grad.launches}")
     k = "pose/light/camera step"
     return {
         "name": "shade_grad", "route": "cuda",

@@ -53,8 +53,9 @@ def main(argv=None):
     from .render_cli import device_from_arg
     dev = device_from_arg(args.device, p)
 
-    from .. import (Camera, ClusterAccel, Pose, RenderConfig, Scene,
-                    SceneObject, Triangles, render_jit)
+    from .. import (Camera, Pose, RenderConfig, Scene, SceneObject, Triangles,
+                    render_jit)
+    from ..accel.methods import build_accel
     from ..io import ply
     from ..models.animation import demo_script, run_script
     from ..ops.quaternion import from_axis_angle
@@ -82,10 +83,8 @@ def main(argv=None):
     config = RenderConfig(method=args.method, leaf_size=args.leaf_size,
                           max_candidates=args.max_candidates,
                           draw_distance=max(400.0, 10 * size))
-    accel = None
-    if args.method in ("grid", "pallas", "pallas2"):
-        # the objects share one Triangles, so one accel serves both
-        accel = (ClusterAccel.build(tris, args.leaf_size),) * len(objects)
+    accel = build_accel(args.method, [o.tris for o in objects],
+                        args.leaf_size)
 
     if args.out:
         os.makedirs(args.out, exist_ok=True)

@@ -55,10 +55,9 @@ def main(argv=None):
     args = p.parse_args(argv)
     dev = device_from_arg(args.device, p)
 
-    from .. import (Camera, ClusterAccel, RenderConfig, Scene, SceneObject,
-                    Triangles, render_jit)
-    from ..accel.kd_build import build_kd
-    from ..accel.traverse import KDTables
+    from .. import (Camera, RenderConfig, Scene, SceneObject, Triangles,
+                    render_jit)
+    from ..accel.methods import build_accel
     from ..io import ply
     from ..utils.image import write_png
     from ..utils.profiling import device_time
@@ -85,18 +84,11 @@ def main(argv=None):
                           max_candidates=args.max_candidates,
                           draw_distance=max(400.0, 10 * size))
 
-    accel = None
-    if args.method in ("grid", "pallas", "pallas2"):
-        t0 = time.perf_counter()
-        accel = (ClusterAccel.build(tris, args.leaf_size),)
-        print(f"cluster build: {time.perf_counter() - t0:.2f}s "
-              f"({accel[0].num_clusters} clusters)")
-    elif args.method == "kd":
-        t0 = time.perf_counter()
-        tree = build_kd(mesh.aabb_min, mesh.aabb_max, args.leaf_size)
-        accel = (KDTables.from_tree(tree, tris),)
-        print(f"kd build: {time.perf_counter() - t0:.2f}s "
-              f"({tree.num_nodes} nodes, depth {tree.max_depth})")
+    t0 = time.perf_counter()
+    accel = build_accel(args.method, [tris], args.leaf_size)
+    if accel is not None:
+        print(f"{type(accel[0]).__name__} build: "
+              f"{time.perf_counter() - t0:.2f}s")
 
     t0 = time.perf_counter()
     out = render_jit(scene, camera, config, accel)

@@ -26,13 +26,7 @@ from torch import nn
 
 from ..ops import vecmath
 from ..ops.cuda.shade import FRAME_CONSTS, OBJ_CONSTS, frame_setup
-
-
-# methods whose intersect reads the camera Projection (in the object's frame)
-PROJ_METHODS = ("bin", "raster")
-# methods whose intersect reads no object-frame rays: "bin" regenerates its
-# rays from the Projection (accel/traverse.py intersect_binned)
-NO_OBJECT_RAYS = ("bin",)
+from ..utils.config import METHODS
 
 
 def _adjust(res: int) -> float:
@@ -217,15 +211,16 @@ class FrameSetup:
 def object_frames(poses, origin: torch.Tensor, rmd: torch.Tensor | None,
                   proj: Projection | None, method: str) -> list[ObjectFrame]:
     """Each pose's `ObjectFrame` of the rays ``rmd`` from ``origin``, without
-    autograd (the intersects that read them are discrete): rays for every
-    method but `NO_OBJECT_RAYS` (none where ``rmd`` is None), the
-    Projection for `PROJ_METHODS`."""
+    autograd (the intersects that read them are discrete): the rays and the
+    Projection where ``method`` reads them (`METHODS`; no rays where
+    ``rmd`` is None)."""
+    facts = METHODS[method]
     return [ObjectFrame(
         origin=pose.inv_apply(origin),
-        rays=(None if method in NO_OBJECT_RAYS or rmd is None
-              else pose.inv_apply_vec(rmd)),
+        rays=(pose.inv_apply_vec(rmd)
+              if facts.object_rays and rmd is not None else None),
         proj=(proj.transformed(pose)
-              if proj is not None and method in PROJ_METHODS else None))
+              if proj is not None and facts.proj else None))
         for pose in poses]
 
 
@@ -235,7 +230,7 @@ def frame_setup_reference(camera: Camera, poses, method: str, row0: int = 0,
     """The set-up of frame rows [row0, row0 + band_h) (the whole frame by
     default) for the intersect ``method``: `Camera.ray_directions` (sliced
     to the band; None without ``rays``, which a bin probe reads none of),
-    `Camera.projection` (for `PROJ_METHODS`, with ``row0``) and
+    `Camera.projection` (where ``method`` reads it, with ``row0``) and
     `object_frames`. Plain PyTorch; the rays and the Projection carry
     autograd to the camera (the training steps), the object frames none.
     Kernel K11's plain version."""
@@ -247,7 +242,7 @@ def frame_setup_reference(camera: Camera, poses, method: str, row0: int = 0,
             rmd = rmd[row0 * w:(row0 + (camera.res_h - row0 if band_h is None
                                         else band_h)) * w]
     proj = None
-    if method in PROJ_METHODS:
+    if METHODS[method].proj:
         proj = dataclasses.replace(camera.projection(), row0=row0)
     return FrameSetup(rmd, proj, object_frames(poses, camera.pos, rmd, proj,
                                                method))
@@ -262,26 +257,22 @@ def set_up_frame(camera: Camera, poses, method: str, row0: int = 0,
     the CUDA calls that took the plain version: the share of set-ups K11
     serves is ``frame_setup.launches`` / (launches + plain) (one launch a
     call up to ``ops/cuda/shade.py`` `max_objects` poses)."""
-    dev = camera.pos.device
-    if dev.type == "cpu":
-        return frame_setup_reference(camera, poses, method, row0, band_h,
-                                     rays)
-    if torch.is_grad_enabled() and any(
+    on_card = camera.pos.device.type == "cuda"
+    if not on_card or torch.is_grad_enabled() and any(
             t.requires_grad for t in camera.parameters()):
-        if dev.type == "cuda":
-            set_up_frame.plain += 1
+        set_up_frame.plain += int(on_card)
         return frame_setup_reference(camera, poses, method, row0, band_h,
                                      rays)
-    poses = list(poses)
+    poses, facts = list(poses), METHODS[method]
     rmd, consts, obj_rays = frame_setup(
         [getattr(camera, f) for f in Camera.LEAVES],
         [p.quat for p in poses], [p.translation for p in poses],
         camera.res_w, camera.res_h, row0,
         camera.res_h - row0 if band_h is None else band_h,
         _adjust(camera.res_w), _adjust(camera.res_h), rays,
-        rays and method not in NO_OBJECT_RAYS)
+        rays and facts.object_rays)
     proj = None
-    if method in PROJ_METHODS:
+    if facts.proj:
         proj = Projection(origin=consts[0:3], n=consts[3:6], u=consts[6:9],
                           v=consts[9:12], sx=consts[12], sy=consts[13],
                           adjust_x=consts[14], adjust_y=consts[15], row0=row0)

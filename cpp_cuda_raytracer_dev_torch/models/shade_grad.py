@@ -3,10 +3,10 @@
 and kernel K12 backward (``csrc/shade.cu``), in place of some 800 autograd
 nodes a step.
 
-- Forward: `shade_compose` (``ops/cuda/shade.py``): K10 on CUDA tensors,
-  the plain ``models/renderer.py`` `shade_compose_reference` on CPU tensors;
-  the outputs are bitwise the autograd chain's. Nothing is gathered or
-  packed: the backward recomputes each ray from its hit, as K10 does.
+- Forward: ``models/shading.py`` `shade_compose`: K10 on CUDA tensors,
+  the plain `shade_compose_reference` on CPU tensors; the outputs are
+  bitwise the autograd chain's. Nothing is gathered or packed: the
+  backward recomputes each ray from its hit, as K10 does.
 - Backward: K12 (``ops/cuda/shade.py`` `shade_grad`) on CUDA tensors,
   its plain twin `shade_grad_reference` on CPU tensors; the two agree bit
   for bit. Either writes, for every ray, the cotangent of its direction
@@ -21,8 +21,9 @@ nodes a step.
   partials over the rays (one ``torch.sum``, no float atomics, so a step
   repeats bitwise), the triangle rows' segment sums (``ops/gather.py``
   `segment_sum_rows`: a stable sort and kernel K2; ``index_add_`` where
-  `shade_hits` takes `take_rows`), and the chain from each object's R and
-  origin to its quaternion and translation (`_pose_grads`).
+  `sums_by_k2` says no, as `shade_hits` then takes `take_rows`), and the
+  chain from each object's R and origin to its quaternion and translation
+  (`_pose_grads`).
 
 The twin follows autograd's conventions: ``torch.where``'s masks, ``abs``'s
 sgn(0) = 0, ``clamp_min``'s gradient 0 below the clamp, ``rsqrt``'s
@@ -32,8 +33,7 @@ operations is K12's: every product and sum its own rounding, dots summed
 as (x + y) + z.
 
 ``models/renderer.py`` `shade_and_compose` takes `shade_compose_grad`
-when autograd is on and an input requires grad; ``.plain`` on it counts
-the CUDA backward passes that did not launch K12.
+when autograd is on and an input requires grad.
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ from ..ops.cuda import shade as k10
 from ..ops.cuda.shade import GRAD_COLS, OBJ_GRAD_COLS
 from ..ops.intersect import Hit
 from ..ops.quaternion import to_matrix
+from .shading import shade_compose
 
 _TABLES = ("p1x", "p1y", "p1z", "e1x", "e1y", "e1z", "e2x", "e2y", "e2z",
            "color")
@@ -53,7 +54,6 @@ _PHONG = ("light_pos", "light_color", "diffuse", "specular", "exponent")
 # then the Phong leaves and each object's quaternion, translation, tables
 _ORIGIN, _RMD, _HIT_T, _LEAD = 4, 5, 6, 7
 _PER_OBJ = 2 + len(_TABLES)
-_K12 = k10.shade_grad   # K12's wrapper, whose counter a test's patch keeps
 
 
 def _cross(a, b):
@@ -92,7 +92,7 @@ def shade_grad_reference(scene, origin, rmd, hit, config, cts, rows: bool,
     for oi, obj in enumerate(scene.objects):
         mask = (hit.obj == oi) & (hit.tri >= 0)
         tables = [getattr(obj.tris, f).detach() for f in _TABLES]
-        # the forward, as models/renderer.py shade_hits computes it
+        # the forward, as models/shading.py shade_hits computes it
         m = to_matrix(obj.pose.quat.detach())
         v_o = origin - obj.pose.translation.detach().to(dt)
         oo = v_o @ m
@@ -244,7 +244,7 @@ class _ShadeCompose(torch.autograd.Function):
                 *leaves):
         ctx.set_materialize_grads(False)
         hit = Hit(t=hit_t, tri=hit_tri, obj=hit_obj)
-        out = k10.shade_compose(scene, origin, rmd, hit, config)
+        out = shade_compose(scene, origin, rmd, hit, config)
         ctx.mark_non_differentiable(out["image"])
         ctx.scene, ctx.config = scene, config
         ctx.save_for_backward(origin, rmd, hit_t, hit_tri, hit_obj, *leaves)
@@ -269,14 +269,11 @@ class _ShadeCompose(torch.autograd.Function):
             any(on[:2]) for on in obj_need)
         tri_ct = any(any(on[2:]) for on in obj_need)
         hit = Hit(t=hit_t, tri=hit_tri, obj=hit_obj)
-        on_card = rmd.device.type == "cuda"
-        before = _K12.launches
         partials, consts, g_rmd, g_rows, g_ht = (
-            k10.shade_grad if on_card else shade_grad_reference)(
+            k10.shade_grad if rmd.device.type == "cuda"
+            else shade_grad_reference)(
             ctx.scene, origin, rmd, hit, ctx.config, (g_rad, g_nrm, g_pnt),
             rows, need[_RMD], tri_ct, need[_HIT_T])
-        if on_card and _K12.launches == before:
-            shade_compose_grad.plain += 1
 
         grads = [None] * n_in
         grads[_RMD], grads[_HIT_T] = g_rmd, g_ht
@@ -309,11 +306,11 @@ class _ShadeCompose(torch.autograd.Function):
 def _table_sums(g_rows, hit_tri, hit_obj, oi: int, t_rows: int, config,
                 dtype) -> torch.Tensor:
     """(t_rows, 12) sums of object ``oi``'s cotangent rows by triangle, as
-    `shade_hits`'s gather backward sums them: K2's segment sum in float32
-    with ``sorted_scatter``, ``index_add_`` otherwise. Rays of other
-    objects and misses go to a row past the table, which is dropped."""
+    `shade_hits`'s gather backward sums them: K2's segment sum where
+    `sums_by_k2`, ``index_add_`` otherwise. Rays of other objects and
+    misses go to a row past the table, which is dropped."""
     idx = torch.where(hit_obj == oi, hit_tri, t_rows)
-    if config.sorted_scatter and dtype == torch.float32:
+    if gather.sums_by_k2(config.sorted_scatter, dtype):
         return gather.segment_sum_rows(g_rows, idx, t_rows + 1)[:t_rows]
     out = torch.zeros((t_rows + 1, 12), dtype=g_rows.dtype,
                       device=g_rows.device)
@@ -333,6 +330,3 @@ def shade_compose_grad(scene, origin: torch.Tensor, rmd: torch.Tensor, hit,
         scene, config, hit.tri, hit.obj, origin, rmd, hit.t, *leaves)
     return dict(image=image, radiance=radiance, hit_t=hit.t, hit_tri=hit.tri,
                 hit_obj=hit.obj, normal=normal, point=point)
-
-
-shade_compose_grad.plain = 0

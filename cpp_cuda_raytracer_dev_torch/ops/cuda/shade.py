@@ -1,27 +1,24 @@
 """Shading and composition: kernel K10 (``csrc/shade.cu``), the
 counterpart of the JAX package's XLA-fused plain code in ``shade_hits``
-(``models/renderer.py``) and ``ops/shade.py``, and its backward, kernel K12
+(``models/shading.py``) and ``ops/shade.py``, and its backward, kernel K12
 (the same source), the counterpart of that code's autograd; and the
 serving frame's set-up: kernel K11 (the same source), the counterpart of
 the plain code of ``Camera.ray_directions`` / ``projection``
 (``models/camera.py``) and the pose transforms of ``trace_rays``. None is
 a Pallas kernel.
 
-- `shade_compose` is the wrapper: `render_rays`'s dict of flat per-ray
+- `shade_compose` is K10's launcher: `render_rays`'s dict of flat per-ray
   outputs for given hits, without autograd. For CUDA tensors it launches
   the hand-written kernel (one thread a ray, templated over float32 and
   float64; up to `max_objects` objects a launch, so any number of objects
-  take several) and raises if the launch fails or an operand is not one it
-  takes; for CPU tensors it runs the plain version,
-  ``models/renderer.py`` `shade_compose_reference`. Nothing falls back from
-  the card to the plain version; the two agree bit for bit.
-- `shade_compose.launches` counts kernel launches; inside a captured CUDA
-  graph that is the capture's launch, not the replays'.
+  take several) and raises if the launch fails, an operand is not one it
+  takes or the tensors are on another device. Its plain version is
+  ``models/shading.py`` `shade_compose_reference`; the two agree bit for
+  bit. `shade_compose.launches` counts kernel launches; inside a captured
+  CUDA graph that is the capture's launch, not the replays'.
 
-`models/renderer.py` `shade_and_compose` calls it when autograd is off
-(`render`, `render_jit`, the sharded serving paths, the apps); with autograd
-on (the training steps) ``models/shade_grad.py``'s autograd Function calls
-it as its forward.
+``models/shading.py`` `shade_compose` chooses between the two by device,
+for the serving frames and the training steps' forward.
 
 - `shade_grad` is K12's launcher, that Function's backward on the card:
   for CUDA tensors it launches the kernel (up to `max_objects` objects a
@@ -124,12 +121,10 @@ def shade_compose(scene, origin: torch.Tensor, rmd: torch.Tensor, hit,
     """The frame's flat outputs for unit rays ``rmd`` (R, 3) from the world
     origin ``origin`` (3,) and their nearest ``hit`` (a `Hit` over
     ``scene``'s objects): image (R, 3) uint8, radiance, hit_t, hit_tri,
-    hit_obj, normal, point (R, 3), as `shade_compose_reference`."""
+    hit_obj, normal, point (R, 3), as `shade_compose_reference`. Raises
+    on tensors of any device but CUDA."""
     _check(scene, origin, rmd, hit)
     dev = rmd.device
-    if dev.type == "cpu":
-        from ...models.renderer import shade_compose_reference
-        return shade_compose_reference(scene, origin, rmd, hit, config)
     if dev.type != "cuda":
         raise ValueError(f"no shade_compose kernel for {dev}")
     out = _launch(scene, origin, rmd, hit, config)

@@ -73,6 +73,14 @@ def gather_rows(tables, idx: torch.Tensor):
                    [t.shape for t in tables])
 
 
+def sums_by_k2(sorted_scatter: bool, dtype: torch.dtype) -> bool:
+    """Whether the triangle rows' sums (a gather's backward) go through
+    `segment_sum_rows` (kernel K2, which sums float32 rows; with
+    ``sorted_scatter``) rather than a scatter-add (`take_rows`'s
+    ``index_select`` backward, ``index_add_``)."""
+    return sorted_scatter and dtype == torch.float32
+
+
 def take_rows(tables, idx: torch.Tensor):
     """Per-table ``index_select`` with autograd's own backward."""
     return tuple(t.index_select(0, idx) for t in tables)

@@ -55,14 +55,15 @@ import torch.distributed as dist
 
 from ..models.camera import Camera, set_up_frame
 from ..accel.binning import bin_budget
-from ..models.renderer import (RenderOutput, bin_entry_count, jit_captures,
-                               render_differentiable, render_rays,
-                               shade_and_compose, trace_rays)
+from ..accel.methods import INTERSECTS
+from ..models.renderer import (RenderOutput, bin_entry_count, compiled_frame,
+                               jit_captures, render_differentiable,
+                               render_rays, shade_and_compose, trace_rays)
 from ..models.scene import Scene
-from ..ops.intersect import FixedOriginCache, Hit, mt_fixed_origin
+from ..ops.intersect import Hit
 from ..utils import graphs
-from ..utils.config import RenderConfig
-from ..utils.profiling import span, tally
+from ..utils.config import METHODS, RenderConfig
+from ..utils.profiling import span
 from .collectives import allreduce_nearest_hit
 from .mesh import (PRIMS_AXIS, RAYS_AXIS, axis_group, axis_index, axis_size,
                    check_mesh, ray_band)
@@ -170,41 +171,25 @@ def sharded_graphs(mesh) -> graphs.GraphCache:
 def render_sharded_jit(scene: Scene, camera: Camera, config: RenderConfig,
                        mesh, accel=None) -> RenderOutput:
     """`render_sharded` compiled, the counterpart of
-    ``jax.jit(render_sharded)``: on CUDA each rank replays one captured
-    graph a frame, its band's frame (``render_differentiable``'s body
-    without gradients) and the all-gather of the bands over "rays", and
-    returns clones of the whole frame. The outputs are bitwise
-    `render_sharded`'s.
-
-    The key rules of `render_jit` (the config, the leaves' shapes, dtypes
-    and device, the resolution, the ``accel`` objects): every rank of an
-    SPMD program hits or misses its cache at the same call. Method "bin" sizes its band's tables at a bucket
-    agreed over the mesh: the first call takes the largest band's probe,
-    and after each replay the ranks all-reduce their live counts (MAX), so
-    that every rank regrows, captures again and replays at the same call.
-    "raster" is not captured (`jit_captures`): it runs as `render_sharded`
-    does, without gradients. A capture that fails raises; nothing falls
-    back to the uncaptured frame. On the CPU (gloo) there are no graphs:
-    the same bucketed body runs, with the same agreed growth check.
+    ``jax.jit(render_sharded)`` (``models/renderer.py`` `compiled_frame`):
+    on CUDA each rank replays one captured graph a frame, its band's frame
+    and the all-gather of the bands over "rays", and returns clones of the
+    whole frame. Every rank of an SPMD program hits or misses its cache at
+    the same call. The bin bucket is agreed over the mesh: the first call
+    takes the largest band's probe, and after each replay the ranks
+    all-reduce their live counts (MAX), so that every rank regrows,
+    captures again and replays at the same call. A method that
+    `jit_captures` does not capture runs as `render_sharded` does, without
+    gradients. On the CPU (gloo) there are no graphs: the same bucketed
+    body runs, with the same agreed growth check.
 
     `sharded_graphs(mesh)` is the mesh's `GraphCache`."""
     if not jit_captures(config):
         with torch.no_grad():
             return render_sharded(scene, camera, config, mesh, accel)
-    key = (config, graphs.signature((scene, camera)),
-           camera.res_h, camera.res_w,
-           None if accel is None else tuple(id(a) for a in accel))
-
-    def body(args, bucket):
-        scene_, camera_ = args
-        with torch.no_grad(), bin_budget(bucket) as budget:
-            out = render_sharded(scene_, camera_, config, mesh, accel)
-        return out, budget
-
-    probe = ((lambda args: _band_entry_count(*args, config, mesh))
-             if config.method == "bin" else None)
-    return sharded_graphs(mesh).run(key, (scene, camera), body, probe,
-                                    config.bin_chunk, pin=accel)
+    return compiled_frame(sharded_graphs(mesh), render_sharded,
+                          _band_entry_count, scene, camera, config, accel,
+                          mesh)
 
 
 @dataclasses.dataclass
@@ -270,6 +255,29 @@ def _shift(hit: Hit, offset: int, oi: int) -> Hit:
                .to(torch.int32))
 
 
+def _render_ranges(scene: Scene, camera: Camera, config: RenderConfig,
+                   mesh, method: str) -> RenderOutput:
+    """The frame on a ("rays", "prims") mesh with this prim rank's range of
+    every object's triangles (`_shard_tris`) intersected by ``method``'s
+    intersect, ids shifted to the object's and the nearest hit
+    min-combined across "prims"; shading runs on the combined hit."""
+    row0, band_h = _check_band(camera, mesh)
+    pi, nprims = _prims(mesh)
+    setup = _band_setup(scene, camera, method, row0, band_h)
+    rmd = setup.rmd
+    with torch.no_grad():
+        best = Hit.miss(rmd.shape[0], config.draw_distance, device=rmd.device,
+                        dtype=rmd.dtype)
+        for oi, (obj, frame) in enumerate(zip(scene.objects, setup.objects)):
+            sub, chunk = _shard_tris(obj.tris, pi, nprims)
+            hit = INTERSECTS[method](frame, sub, None, config, band_h,
+                                     camera.res_w)
+            best = best.merge(_shift(hit, pi * chunk, oi))
+        best = _combine(best, mesh)
+    flat = shade_and_compose(scene, camera.pos, rmd, best, config)
+    return _whole_frame(flat, mesh, band_h, camera.res_w)
+
+
 def render_sharded_2d(scene: Scene, camera: Camera, config: RenderConfig,
                       mesh) -> RenderOutput:
     """Forward frame on a ("rays", "prims") mesh: rows sharded over "rays"
@@ -278,23 +286,7 @@ def render_sharded_2d(scene: Scene, camera: Camera, config: RenderConfig,
     hit is min-combined across "prims", and shading runs on the combined
     hit. The ``config.method`` is not read (the JAX function has the same
     contract). Differentiable through the shading (ROADMAP F11)."""
-    row0, band_h = _check_band(camera, mesh)
-    pi, nprims = _prims(mesh)
-    setup = _band_setup(scene, camera, "fixed", row0, band_h)
-    rmd = setup.rmd
-    with torch.no_grad():
-        best = Hit.miss(rmd.shape[0], config.draw_distance, device=rmd.device,
-                        dtype=rmd.dtype)
-        for oi, (obj, frame) in enumerate(zip(scene.objects, setup.objects)):
-            sub, chunk = _shard_tris(obj.tris, pi, nprims)
-            hit = mt_fixed_origin(frame.rays,
-                                  FixedOriginCache.build(frame.origin, sub),
-                                  config.draw_distance, config.eps,
-                                  config.chunk)
-            best = best.merge(_shift(hit, pi * chunk, oi))
-        best = _combine(best, mesh)
-    flat = shade_and_compose(scene, camera.pos, rmd, best, config)
-    return _whole_frame(flat, mesh, band_h, camera.res_w)
+    return _render_ranges(scene, camera, config, mesh, "fixed")
 
 
 def shard_accel(accel, nprims: int):
@@ -365,28 +357,12 @@ def render_sharded_2d_bin(scene: Scene, camera: Camera,
     winner ids are shifted by the range's offset, so shading reads the whole
     replicated tables. An exact t tie across ranges goes to the lowest id;
     inside a range K1 keeps the earlier block (ROADMAP F2)."""
-    from ..accel.traverse import intersect_binned
-
     if config.with_stats:
         raise ValueError("with_stats makes intersect_binned return "
                          "(Hit, stats); call it directly for telemetry "
                          "(models/renderer.py trace_rays has the same "
                          "contract)")
-    row0, band_h = _check_band(camera, mesh)
-    pi, nprims = _prims(mesh)
-    setup = _band_setup(scene, camera, "bin", row0, band_h)
-    rmd = setup.rmd
-    with torch.no_grad():
-        best = Hit.miss(rmd.shape[0], config.draw_distance, device=rmd.device,
-                        dtype=rmd.dtype)
-        for oi, (obj, frame) in enumerate(zip(scene.objects, setup.objects)):
-            sub, chunk = _shard_tris(obj.tris, pi, nprims)
-            hit = intersect_binned(frame.origin, None, sub, frame.proj,
-                                   config, band_h, camera.res_w)
-            best = best.merge(_shift(hit, pi * chunk, oi))
-        best = _combine(best, mesh)
-    flat = shade_and_compose(scene, camera.pos, rmd, best, config)
-    return _whole_frame(flat, mesh, band_h, camera.res_w)
+    return _render_ranges(scene, camera, config, mesh, "bin")
 
 
 def radiance_sharded(scene: Scene, camera: Camera, config: RenderConfig,
@@ -507,9 +483,8 @@ def make_train_step_jit(optimizer: torch.optim.Optimizer,
       captured again at a larger one and replayed before any parameter
       changes, so a truncated table never reaches the optimizer. With a
       mesh every rank does so at the same step.
-    - G2: ``optimizer.step()``. It is captured at the second step: the
-      first steps eagerly, a real step that builds the optimizer's state,
-      so that no warm-up ever steps the optimizer.
+    - G2: ``optimizer.step()``, the cache's `GraphCache.follow`: the first
+      step is eager and builds the optimizer's state; no warm-up steps it.
     G1 reads the parameters of ``params`` in place and the caller's target
     through a static copy; a step with other parameters, or a target of
     another shape, captures anew (one pair of graphs is kept). With a mesh
@@ -532,7 +507,7 @@ def make_train_step_jit(optimizer: torch.optim.Optimizer,
     _check_capturable(optimizer)
     loss_fn = make_loss_fn(config, mesh, accel)
     agree = None if mesh is None else agreed_max(mesh)
-    state = {"key": None, "cache": None, "g1": None, "g2": None}
+    state = {"key": None, "cache": None}
 
     def forward_backward(params):
         trained = [*params["scene"].parameters(),
@@ -556,28 +531,14 @@ def make_train_step_jit(optimizer: torch.optim.Optimizer,
                    graphs.signature((scene, camera, target)), camera.res_h,
                    camera.res_w)
             if key != state["key"]:         # one pair of graphs is kept
-                state.update(key=key, cache=graphs.GraphCache(agree),
-                             g1=None, g2=None)
+                state.update(key=key, cache=graphs.GraphCache(agree))
             cache = state["cache"]
             probe = ((lambda _: _band_entry_count(scene, camera, config,
                                                   mesh))
-                     if config.method == "bin" else None)
+                     if METHODS[config.method].probed else None)
             loss = cache.run(key, target, forward_backward(params), probe,
                              config.bin_chunk, pin=(params, accel))
-            if target.device.type != "cuda":
-                optimizer.step()
-                return loss
-            g1 = cache.graphs[key, cache.buckets.get(key)]
-            if state["g1"] is None:          # the first step: eager
-                optimizer.step()
-            else:
-                if state["g2"] is None or state["g1"] is not g1:
-                    state["g2"] = torch.cuda.CUDAGraph()
-                    with tally("capture_s"), torch.cuda.graph(
-                            state["g2"], pool=cache.pool):
-                        optimizer.step()
-                state["g2"].replay()
-            state["g1"] = g1
+            cache.follow(optimizer.step)
             return loss
     step.graphs = lambda: state["cache"]
     return step

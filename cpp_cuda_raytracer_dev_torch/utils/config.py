@@ -4,7 +4,8 @@ The fields and their defaults are the same, so a configuration translates
 one to one. The TPU-only modes (the bf16 pass counts of the TPU's matrix
 unit, the bf16 preview of kernel K1 and K4's floor probes) raise
 ``NotImplementedError`` at construction: a deliberate difference (ROADMAP
-F10, decided in queue 1's former item 8).
+F10, decided in queue 1's former item 8). `METHODS` is the intersect
+methods' table.
 """
 
 from __future__ import annotations
@@ -13,8 +14,34 @@ import dataclasses
 
 from .dtypes import DEFAULT_BACKGROUND_RGB, DEFAULT_DRAW_DISTANCE, MT_EPSILON
 
-_METHODS = ("brute", "fixed", "bin", "grid", "pallas", "pallas2", "kd",
-            "raster")
+
+@dataclasses.dataclass(frozen=True)
+class Method:
+    """An intersect method's facts (``accel/methods.py`` maps each method
+    to its intersect): the type of the accel each object needs (None:
+    none); float32 only (its kernels' operands, or raster's bitcast of t);
+    reads the camera Projection; reads object-frame rays ("bin" makes its
+    own from the Projection); captured by the compiled entry points
+    ("raster" sizes its dense list by a host read); its bucket probed."""
+
+    accel: str | None = None
+    float32: bool = True
+    proj: bool = False
+    object_rays: bool = True
+    captured: bool = True
+    probed: bool = False
+
+
+METHODS = {
+    "brute": Method(float32=False),
+    "fixed": Method(float32=False),
+    "bin": Method(proj=True, object_rays=False, probed=True),
+    "grid": Method(accel="ClusterAccel"),
+    "pallas": Method(accel="ClusterAccel"),
+    "pallas2": Method(accel="ClusterAccel"),
+    "kd": Method(accel="KDTables", float32=False),
+    "raster": Method(proj=True, captured=False),
+}
 _TPU_ONLY = "a TPU-only mode, ROADMAP F10"
 
 
@@ -99,7 +126,7 @@ class RenderConfig:
     sorted_scatter: bool = True
 
     def __post_init__(self):
-        if self.method not in _METHODS:
+        if self.method not in METHODS:
             raise ValueError(f"unknown intersect method {self.method!r}")
         if self.mt_precision != "highest":
             raise NotImplementedError(

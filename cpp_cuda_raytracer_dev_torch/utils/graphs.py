@@ -4,7 +4,8 @@ a training step (`models/renderer.py` `render_jit`,
 
 On CUDA a program (``body(args, bucket) -> (outputs, budget)``) is
 captured once per key and bucket into a ``torch.cuda.CUDAGraph`` and
-replayed:
+replayed, and a program that follows it (`GraphCache.follow`) once per
+graph it follows:
 
 - Key: what the trace depends on (the method and the config, the leaves'
   shapes, dtypes and device, the ``accel`` object), given by the caller.
@@ -95,36 +96,28 @@ def clone(out):
                                        for f in dataclasses.fields(out)})
 
 
-@dataclasses.dataclass
-class Captured:
-    """One captured program: its graph and its static outputs."""
-
-    graph: torch.cuda.CUDAGraph
-    out: object
-    budget: object          # the program's BinBudget, or None
-
-
-def capture(body, args, bucket, pool) -> Captured:
-    """Warm ``body(args, bucket)`` up on a side stream, then capture one
-    call of it into a new graph in ``pool``. The warm-up also runs a
-    body's collectives eagerly on every rank, which creates the NCCL
-    communicator before the capture. torch.cuda.graph's default
-    ``capture_error_mode`` ("global") is enough while ProcessGroupNCCL
-    runs: on the H100 (torch 2.11, NCCL 2.28.9) an NCCL all-reduce and
-    all-gather capture and replay bitwise in it, also with an eager
-    collective of the same group still in flight when the capture
-    begins. Its host seconds count in ``capture_s``
+def capture(fn, pool, warm_up: bool = True):
+    """Capture one call of ``fn()`` into a new graph in ``pool``: (the
+    graph, what the call returned). With ``warm_up`` one call on a side
+    stream comes first; it also runs a program's collectives eagerly on
+    every rank, which creates the NCCL communicator before the capture.
+    torch.cuda.graph's default ``capture_error_mode`` ("global") is enough
+    while ProcessGroupNCCL runs: on the H100 (torch 2.11, NCCL 2.28.9) an
+    NCCL all-reduce and all-gather capture and replay bitwise in it, also
+    with an eager collective of the same group still in flight when the
+    capture begins. Its host seconds count in ``capture_s``
     (`utils/profiling.py` `SETUP_S`)."""
     with tally("capture_s"):
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            body(args, bucket)
-        torch.cuda.current_stream().wait_stream(side)
+        if warm_up:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn()
+            torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=pool):
-            out, budget = body(args, bucket)
-    return Captured(graph, out, budget)
+            out = fn()
+    return graph, out
 
 
 class GraphCache:
@@ -132,7 +125,7 @@ class GraphCache:
     counts the graphs captured and ``regrown`` the calls whose live count
     outgrew their bucket; ``buckets`` holds each key's bucket and
     ``tables`` the `BinBudget` of each key's last run (``last`` is the key
-    run last).
+    run last, ``replayed`` the graph it replayed last, None on the CPU).
 
     ``agree``: None, or a function that returns the maximum over a mesh of
     a count (an int, or a scalar tensor on the program's device) as an int;
@@ -142,11 +135,11 @@ class GraphCache:
         self.agree = agree
         self.pool = None
         self.static: dict = {}      # key -> (static args, their leaves)
-        self.graphs: dict = {}      # (key, bucket) -> Captured
+        self.graphs: dict = {}      # (key, bucket) -> `capture` result
         self.buckets: dict = {}     # key -> bucket
         self.pinned: dict = {}      # key -> objects the key names by id
         self.tables: dict = {}      # key -> BinBudget of its last run
-        self.last = None
+        self.last = self.replayed = self.followed = self.follower = None
         self.captures = 0
         self.regrown = 0
 
@@ -191,9 +184,10 @@ class GraphCache:
             return None
         return [int(n) for n in budget.counts], budget.capacity
 
-    def program(self, key, args, body, bucket) -> Captured:
-        """The key's graph at ``bucket``, captured on first use, its static
-        inputs loaded with the caller's leaves."""
+    def program(self, key, args, body, bucket):
+        """The key's graph at ``bucket`` and its static outputs and budget,
+        captured on first use, its static inputs loaded with the caller's
+        leaves."""
         if key not in self.static:
             static = copy.deepcopy(args)
             self.static[key] = (static, leaves(static))
@@ -203,7 +197,7 @@ class GraphCache:
         if (key, bucket) not in self.graphs:
             if self.pool is None:
                 self.pool = torch.cuda.graph_pool_handle()
-            self.graphs[key, bucket] = capture(body, static, bucket,
+            self.graphs[key, bucket] = capture(lambda: body(static, bucket),
                                                self.pool)
             self.captures += 1
         return self.graphs[key, bucket]
@@ -220,10 +214,10 @@ class GraphCache:
         on_cuda = leaves(args)[0].device.type == "cuda"
         while True:
             if on_cuda:
-                prog = self.program(key, args, body, bucket)
+                self.replayed, (out, budget) = self.program(key, args, body,
+                                                            bucket)
                 with span("rt.graphs.launch"):
-                    prog.graph.replay()
-                out, budget = prog.out, prog.budget
+                    self.replayed.replay()
             else:
                 out, budget = body(args, bucket)
             self.tables[key], self.last = budget, key
@@ -231,3 +225,17 @@ class GraphCache:
             if grown is None:
                 return clone(out) if on_cuda else out
             bucket = grown
+
+    def follow(self, fn) -> None:
+        """``fn()`` after a `run` (the optimizer's step): eagerly on the CPU
+        and after the first run, which no warm-up precedes; on CUDA later
+        replayed from a graph captured without warm-up at the second run
+        and again whenever the run replayed another graph. Its capture
+        counts in ``capture_s``, not in ``captures``."""
+        before, self.followed = self.followed, self.replayed
+        if before is None:
+            fn()
+            return
+        if self.follower is None or before is not self.replayed:
+            self.follower = capture(fn, self.pool, warm_up=False)[0]
+        self.follower.replay()

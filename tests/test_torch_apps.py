@@ -2,7 +2,8 @@
 the CPU: ``io/ply.py``, ``utils/image.py``, ``models/animation.py`` with the
 quaternion repairs, the KD path (``KDTables``, ``kd_intersect``),
 ``utils/debug.py``, and ``apps/render_cli.py`` / ``apps/animate.py`` run
-with ``--device cpu`` on a small PLY written here.
+with ``--device cpu`` on a small PLY written here (animate on the bin path
+with two objects and on the KD path with one).
 
 Tolerances: PLY arrays, image bytes and the HUD text equal; key-script
 poses within 1e-6 (XLA on the CPU contracts multiply-adds into FMAs,
@@ -321,6 +322,21 @@ def test_animate_second_object_matches_jax(mesh_path, tmp_path, capsys):
     rep = json.loads(report.read_text())
     assert rep["frames"] == 3 and rep["objects"] == 2
     assert rep["device"] == "cpu" and rep["cpu_ms_per_frame"] > 0
+
+
+def test_animate_kd_matches_jax(mesh_path, tmp_path, capsys):
+    """Three ticks of the key script on one object by the KD path, its
+    `KDTables` from the apps' shared accel builder: the third frame's PNG
+    against JAX's."""
+    frames = tmp_path / "frames"
+    animate.main(["--mesh", str(mesh_path), "--out", str(frames), "--res",
+                  *map(str, RES), "--frames", "3", "--method", "kd",
+                  "--device", "cpu"])
+    assert "rendered 3 frames" in capsys.readouterr().out
+    got = _read_png(frames / "frame_0002.png").astype(int)
+    want = _jax_image(mesh_path, "kd", focal=0.035, ticks=3).astype(int)
+    assert np.abs(got - want).max() <= 1
+    assert (got != (240, 130, 0)).any(axis=-1).mean() > 0.2
 
 
 @pytest.mark.parametrize("app", [render_cli, animate])

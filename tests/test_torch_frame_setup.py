@@ -38,9 +38,10 @@ import torch
 import cpp_cuda_raytracer_dev_torch as P
 from cpp_cuda_raytracer_dev_torch.models import renderer
 from cpp_cuda_raytracer_dev_torch.models.camera import (
-    PROJ_METHODS, frame_setup_reference, object_frames, set_up_frame)
+    frame_setup_reference, object_frames, set_up_frame)
 from cpp_cuda_raytracer_dev_torch.ops.cuda import shade as k11
 from cpp_cuda_raytracer_dev_torch.ops.quaternion import Pose, from_axis_angle
+from cpp_cuda_raytracer_dev_torch.utils.config import METHODS
 from cpp_cuda_raytracer_dev_torch.utils.graphs import GraphCache
 from cpp_cuda_raytracer_dev_torch.utils.procgen import uv_sphere
 
@@ -112,7 +113,7 @@ def test_plain_setup_is_the_unfused_code(case):
     assert k11.frame_setup.launches == before
     assert torch.equal(got.rmd, rmd) and got.rmd.shape == (rows * w, 3)
     assert got.rmd.dtype == CASES[case][5]
-    if method in PROJ_METHODS:
+    if METHODS[method].proj:
         assert got.proj.row0 == row0
         for f in PROJ_FIELDS:
             assert torch.equal(getattr(got.proj, f), getattr(proj, f)), f
@@ -120,11 +121,11 @@ def test_plain_setup_is_the_unfused_code(case):
         assert got.proj is None
     for pose, frame in zip(poses, got.objects, strict=True):
         assert torch.equal(frame.origin, pose.inv_apply(cam.pos))
-        if method == "bin":
+        if not METHODS[method].object_rays:
             assert frame.rays is None
         else:
             assert torch.equal(frame.rays, pose.inv_apply_vec(rmd))
-        if method in PROJ_METHODS:
+        if METHODS[method].proj:
             want = proj.transformed(pose)
             for f in PROJ_FIELDS:
                 assert torch.equal(getattr(frame.proj, f),
@@ -251,7 +252,7 @@ def test_kernel_matches_plain_version_on_gpu(case):
     assert k11.frame_setup.launches == before + max(
         1, math.ceil(len(poses) / k11.max_objects()))
     _assert_same_setup(got, want)
-    if method in PROJ_METHODS:      # views of one buffer, as K8 takes them
+    if METHODS[method].proj:      # views of one buffer, as K8 takes them
         for f in PROJ_FIELDS:
             x = getattr(got.proj, f)
             assert x.is_contiguous() and x.shape == ((3,) if f in (

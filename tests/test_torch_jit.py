@@ -21,6 +21,11 @@ On the CPU (no graphs; the same bucketed path and growth check):
   two steps, the loss at rtol 1e-5, each step's change within 1e-4 of
   JAX's plus one float32 spacing, the parameters at rtol 1e-5 (atol 1e-7),
   as tests/test_torch_train.py; and bitwise the port's eager step;
+- each of the eight methods against its facts in ``utils/config.py``
+  `METHODS`: its accel from ``accel/methods.py`` `build_accel`,
+  `render_jit` bitwise `render`, a bucket probed only for "bin", the
+  set-up's Projection and object-frame rays, the float32-only methods'
+  refusal of float64 rays, and which methods are captured;
 - the compiled step with a one-rank gloo mesh bitwise the eager one;
   refusals of optimizers that cannot be captured; `GraphCache` with an
   ``agree`` stub taking another rank's larger counts.
@@ -45,8 +50,10 @@ import torch
 import cpp_cuda_raytracer_dev_torch as P
 from cpp_cuda_raytracer_dev_torch.accel.binning import (BinBudget,
                                                         bin_triangles)
+from cpp_cuda_raytracer_dev_torch.accel.methods import build_accel
 from cpp_cuda_raytracer_dev_torch.accel.traverse import bin_object
 from cpp_cuda_raytracer_dev_torch.models import renderer
+from cpp_cuda_raytracer_dev_torch.models.camera import set_up_frame
 from cpp_cuda_raytracer_dev_torch.models.renderer import (jit_captures,
                                                           render_jit)
 from cpp_cuda_raytracer_dev_torch.ops.cuda.bin_intersect import \
@@ -54,6 +61,7 @@ from cpp_cuda_raytracer_dev_torch.ops.cuda.bin_intersect import \
 from cpp_cuda_raytracer_dev_torch.ops.quaternion import from_axis_angle
 from cpp_cuda_raytracer_dev_torch.parallel.render_pjit import (
     make_train_step, make_train_step_jit)
+from cpp_cuda_raytracer_dev_torch.utils.config import METHODS
 from cpp_cuda_raytracer_dev_torch.utils.graphs import GraphCache, next_bucket
 from cpp_cuda_raytracer_dev_torch.utils.procgen import uv_sphere
 
@@ -159,10 +167,36 @@ def test_undersized_bucket_is_caught_and_redone(monkeypatch):
     assert cache.captures == 0 and not cache.graphs     # no graphs here
 
 
-def test_uncaptured_methods_are_named():
-    assert all(jit_captures(P.RenderConfig(method=m)) for m in
-               ("bin", "pallas2", "pallas", "grid", "brute", "fixed", "kd"))
-    assert not jit_captures(P.RenderConfig(method="raster"))
+@pytest.mark.parametrize("method", list(METHODS))
+def test_uncaptured_methods_are_named(method, monkeypatch):
+    """Each method's facts in `METHODS` against what it does: its accel
+    from `build_accel`, `render_jit` bitwise `render`, a bucket probed
+    only where the table says so, the set-up's Projection and object-frame
+    rays where it reads them, float64 rays refused where it runs in float32
+    only; every method but "raster" captured."""
+    facts = METHODS[method]
+    scene, cam = _port_scene("cpu"), _camera("cpu")
+    cfg = P.RenderConfig(method=method, bin_chunk=128, **CLUSTER)
+    accel = build_accel(method, [o.tris for o in scene.objects],
+                        cfg.leaf_size)
+    assert (accel is None) == (facts.accel is None)
+    if accel is not None:
+        assert [type(a).__name__ for a in accel] == [facts.accel]
+    cache = GraphCache()
+    monkeypatch.setattr(renderer, "FRAME_GRAPHS", cache)
+    out = render_jit(scene, cam, cfg, accel)
+    _assert_bitwise(out, P.render(scene, cam, cfg, accel))
+    assert float((out.hit_tri >= 0).float().mean()) > 0.3
+    assert bool(cache.buckets) == (facts.probed and facts.captured)
+    setup = set_up_frame(cam, [o.pose for o in scene.objects], method)
+    assert (setup.proj is not None) == facts.proj
+    assert (setup.objects[0].rays is not None) == facts.object_rays
+    assert jit_captures(cfg) == facts.captured == (method != "raster")
+    if facts.float32:
+        with pytest.raises(TypeError, match="float32 only"):
+            renderer.trace_rays(scene, cam.pos.double(),
+                                setup.rmd.double(), cfg, accel,
+                                RES_H, RES_W, proj=setup.proj)
 
 
 @pytest.fixture(scope="module")

@@ -24,15 +24,15 @@ On the CPU (the Function runs the plain versions of both kernels):
 - the routing: with autograd on and an input that requires grad
   `shade_and_compose` takes the Function, whose backward calls K12's twin
   once on CPU tensors (and raises on a second derivative); with autograd
-  off it calls `shade_compose` (K10's wrapper) and builds no graph;
-  outputs bitwise the autograd chain's. K12's launcher refuses CPU
-  tensors.
+  off it calls ``models/shading.py`` `shade_compose` (the device choice
+  between K10 and its plain version) and builds no graph; outputs bitwise
+  the autograd chain's. K12's launcher refuses CPU tensors.
 
 On the card (marked ``gpu``; they skip here): K12 bitwise its twin (the
 partials, the constants, the cotangents of the rays, the tables' rows and
 hit t) on the cases of tests/test_torch_shade_kernel.py, every cotangent
 set; and a captured `make_train_step_jit` step bitwise between the kernel
-route and the twin route, the counters showing which ran:
+route and the twin route, K12's launch counter showing which ran:
     python -m pytest --noconftest -p no:cacheprovider -m gpu \\
         tests/test_torch_shade_grad.py
 """
@@ -43,10 +43,11 @@ import torch
 from cpp_cuda_raytracer_dev_torch import (Camera, PhongParams, Pose,
                                           RenderConfig, Scene, SceneObject,
                                           Triangles, render)
-from cpp_cuda_raytracer_dev_torch.models import renderer
+from cpp_cuda_raytracer_dev_torch.models import renderer, shading
 from cpp_cuda_raytracer_dev_torch.models import shade_grad as sg
-from cpp_cuda_raytracer_dev_torch.models.renderer import (
-    shade_and_compose, shade_compose_reference)
+from cpp_cuda_raytracer_dev_torch.models.renderer import shade_and_compose
+from cpp_cuda_raytracer_dev_torch.models.shading import \
+    shade_compose_reference
 from cpp_cuda_raytracer_dev_torch.ops.cuda import shade as k10
 from cpp_cuda_raytracer_dev_torch.ops.intersect import Hit
 from test_torch_shade_kernel import CASES, OUT, _edge_hit, _world
@@ -197,10 +198,9 @@ def test_routing_by_autograd(monkeypatch):
             return fn(*args)
         return wrapped
     monkeypatch.setattr(renderer, "shade_compose",
-                        spy("shade_compose", k10.shade_compose))
+                        spy("shade_compose", shading.shade_compose))
     monkeypatch.setattr(sg, "shade_grad_reference",
                         spy("shade_grad", sg.shade_grad_reference))
-    plain = sg.shade_compose_grad.plain
     scene.phong.requires_grad_(True)
     on = shade_and_compose(scene, origin, rmd, hit, config)
     assert calls == {"shade_compose": 0, "shade_grad": 0}
@@ -208,7 +208,6 @@ def test_routing_by_autograd(monkeypatch):
     on["radiance"].sum().backward()
     assert calls == {"shade_compose": 0, "shade_grad": 1}
     assert scene.phong.exponent.grad is not None
-    assert sg.shade_compose_grad.plain == plain       # no CUDA call
     with pytest.raises(ValueError, match="no shade_grad kernel for cpu"):
         k10.shade_grad(scene, origin, rmd, hit, config,
                        (torch.ones_like(rmd), None, None), True, True, True,
@@ -275,7 +274,7 @@ def test_compiled_step_kernel_route_is_twin_route_on_gpu(monkeypatch,
                                                          trained):
     """Three captured `make_train_step_jit` steps, K12 against its twin in
     its place: losses and parameters bitwise; K12 launched on the kernel
-    route only, ``.plain`` counting the twin route's backward passes."""
+    route only."""
     from cpp_cuda_raytracer_dev_torch.parallel.render_pjit import \
         make_train_step_jit
     dev = _cuda()
@@ -293,17 +292,15 @@ def test_compiled_step_kernel_route_is_twin_route_on_gpu(monkeypatch,
                 [0.01, -0.02, 0.0], device=dev)
         _, leaves = _trained(scene, cam, trained)
         step = make_train_step_jit(torch.optim.SGD(leaves, lr=1e-3), config)
-        launches, plain = K12.launches, sg.shade_compose_grad.plain
+        launches = K12.launches
         losses = [step({"scene": scene, "camera": cam}, target)
                   for _ in range(3)]
         torch.cuda.synchronize()
         runs[route] = (losses, [p.detach().clone() for p in leaves],
-                       K12.launches - launches,
-                       sg.shade_compose_grad.plain - plain)
-    (kl, kp, k_launch, k_plain), (tl, tp, t_launch, t_plain) = (
-        runs["kernel"], runs["twin"])
-    assert k_launch >= 1 and k_plain == 0
-    assert t_launch == 0 and t_plain >= 1
+                       K12.launches - launches)
+    (kl, kp, k_launch), (tl, tp, t_launch) = runs["kernel"], runs["twin"]
+    assert k_launch >= 1
+    assert t_launch == 0
     for a, b in zip(kl, tl):
         assert torch.equal(a, b)
     for a, b in zip(kp, tp):

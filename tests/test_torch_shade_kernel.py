@@ -1,8 +1,9 @@
 """Serving shading and composition, kernel K10 (``ops/cuda/shade.py``).
 
 On the CPU:
-- `shade_compose` (the wrapper, which runs its plain version
-  ``shade_compose_reference`` for CPU tensors) gives bitwise the outputs of
+- ``models/shading.py`` `shade_compose` (the device choice, which runs the
+  plain version ``shade_compose_reference`` for CPU tensors and launches
+  no kernel) gives bitwise the outputs of
   the unsplit code it was cut from, ``shade_hits`` then
   ``compose_framebuffer`` (image, radiance, normal, point and the hits),
   for two posed objects sharing one ``Triangles`` in float32, a float64
@@ -15,8 +16,9 @@ On the CPU:
   the image within 1);
 - `shade_and_compose` takes the differentiable version with autograd on
   and an input that requires grad (``models/shade_grad.py``, whose own
-  tests are tests/test_torch_shade_grad.py), the wrapper otherwise, and
-  the wrapper refuses operands the kernel does not take.
+  tests are tests/test_torch_shade_grad.py), the device choice otherwise,
+  and the wrapper refuses operands the kernel does not take and CPU
+  tensors.
 
 On the card (marked ``gpu``; they skip here): K10 bitwise its plain version
 on the same cases (float32 and float64, 1, 2 and 9 objects, the epsilon
@@ -34,8 +36,11 @@ import torch
 
 from cpp_cuda_raytracer_dev_torch import (Camera, Pose, RenderConfig, Scene,
                                           SceneObject, Triangles, render)
-from cpp_cuda_raytracer_dev_torch.models.renderer import (
-    shade_and_compose, shade_compose_reference, shade_hits, trace_rays)
+from cpp_cuda_raytracer_dev_torch.models import shading
+from cpp_cuda_raytracer_dev_torch.models.renderer import (shade_and_compose,
+                                                          trace_rays)
+from cpp_cuda_raytracer_dev_torch.models.shading import (
+    shade_compose_reference, shade_hits)
 from cpp_cuda_raytracer_dev_torch.ops.cuda import shade as k10
 from cpp_cuda_raytracer_dev_torch.ops.intersect import Hit
 from cpp_cuda_raytracer_dev_torch.ops.quaternion import from_axis_angle
@@ -108,7 +113,7 @@ def test_plain_version_is_the_unsplit_shading(case, edge):
         hit = _edge_hit(hit)
     before = k10.shade_compose.launches
     with torch.no_grad():
-        got = k10.shade_compose(scene, origin, rmd, hit, config)
+        got = shading.shade_compose(scene, origin, rmd, hit, config)
         ref = _unsplit(scene, origin, rmd, hit, config)
     assert k10.shade_compose.launches == before      # no kernel launched
     for f in OUT:
@@ -148,8 +153,8 @@ def test_shading_dispatch_by_autograd():
 
 
 def test_shading_dispatch_without_grad_inputs(monkeypatch):
-    """Autograd on but no input that requires grad: the wrapper, as with
-    autograd off."""
+    """Autograd on but no input that requires grad: the device choice, as
+    with autograd off."""
     from cpp_cuda_raytracer_dev_torch.models import renderer
     scene, cam, config, origin, rmd, hit = _world("two posed objects", "cpu")
     scene.requires_grad_(False)
@@ -157,7 +162,7 @@ def test_shading_dispatch_without_grad_inputs(monkeypatch):
 
     def spy(*args):
         calls.append(1)
-        return k10.shade_compose(*args)
+        return shading.shade_compose(*args)
     monkeypatch.setattr(renderer, "shade_compose", spy)
     assert torch.is_grad_enabled()
     out = shade_and_compose(scene, origin, rmd, hit, config)
@@ -221,6 +226,8 @@ def test_render_two_objects_matches_jax():
 
 def test_wrapper_rejects_bad_operands():
     scene, cam, config, origin, rmd, hit = _world("one object", "cpu")
+    with pytest.raises(ValueError, match="no shade_compose kernel for cpu"):
+        k10.shade_compose(scene, origin, rmd, hit, config)
     with pytest.raises(TypeError, match="like the rays"):
         k10.shade_compose(scene, origin, rmd.double(),
                           Hit(hit.t.double(), hit.tri, hit.obj), config)
