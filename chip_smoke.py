@@ -223,13 +223,13 @@ Phases (any failure raises and the process exits non-zero):
      the plain versions in their places, in turns, bitwise, one of each
      profiled (device busy, device and host operations, kernels seen: K8
      and K9 in every bin frame and step, K10 in every frame and step, K12
-     in every step, K11 in no step; the plain route's steps run K10's and
-     K12's twins; K11's counter moves in the captures with the kernels and
+     in every step, K11 in every frame and step and K13 in every step; the
+     plain route runs K11's plain version and the steps K10's, K12's and
+     K13's twins; K11's counter moves in the captures with the kernels and
      not on the plain route, whose replays show no K11); the counters from
      0 over 8 bin frames through ``render``, a ``pallas2`` and a
-     ``pallas`` frame, and one bin training step (K10 and K12 once, K11
-     none: its set-up counted by ``set_up_frame.plain``). Phases 11 and 12
-     count K8-K12 on the apps and sharded paths;
+     ``pallas`` frame, and one bin training step (K10, K11, K12 and K13
+     once). Phases 11 and 12 count K8-K12 on the apps and sharded paths;
  18. the training shading's backward K12 (``models/shade_grad.py``, the
      autograd Function whose forward is K10): K12 bitwise its plain twin
      ``shade_grad_reference`` (partials, constants, the rays', tables' and
@@ -240,10 +240,17 @@ Phases (any failure raises and the process exits non-zero):
      twin and its byte bound; the compiled pose/light/camera-only and
      all-leaves steps (``make_train_step_jit``) with K12 and with its twin
      in its place, in turns, losses and parameters bitwise, one of each
-     profiled, and the counters (K10's and K12's launches). K12's row of
-     the kernels line
+     profiled, and the counters (K10's, K11's, K12's and K13's launches).
+     K12's row of the kernels line
      takes its ``launches`` from phase 17's eager bin step (counter at 0
-     before it); the log prints the process's totals.
+     before it); the log prints the process's totals. Then the training
+     set-up's backward K13 (``models/camera.py``'s autograd Function whose
+     forward is K11): bitwise its plain twin ``frame_setup_grad_reference``
+     at headline frame 0 with the rays' cotangent K12 writes for the
+     pose/light/camera step, in float32 and float64 and on the band of rows
+     270-539; its two launches timed (device time from the profiler)
+     against its byte bound, and the call (both launches and the sum
+     between them) and its twin each captured alone.
 A differing id passes as a tie when both triangles' t, by the oracle's
 constants, lie within 1e-5 of the oracle's t. Each phase prints its seconds.
 Operation bounds are given at the FMA peak (``bound_ms``: 2 operations a
@@ -306,6 +313,7 @@ K10_OPS_PER_HIT = 240          # csrc/shade.cu, "Bound"
 K11_OPS_PER_RAY = 25           # csrc/shade.cu, K11's "Bound"
 K11_OPS_PER_OBJECT_RAY = 15
 K12_OPS_PER_HIT = 400          # csrc/shade.cu, K12's "Bound"
+K13_OPS_PER_RAY = 45           # csrc/shade.cu, K13's "Bound"
 N_RASTER_STEPS = 2             # uncaptured compiled raster steps vs eager
 N_ANIMATE_TICKS = 30
 BACKGROUND = (240, 130, 0)
@@ -334,7 +342,8 @@ KERNEL_NAMES = {"bin_intersect": "own_walk_kernel",
                 "bin_entry_table": "entry_table_kernel",
                 "shade_compose": "shade_compose_kernel",
                 "frame_setup": "frame_setup_kernel",
-                "shade_grad": "shade_grad_kernel"}
+                "shade_grad": "shade_grad_kernel",
+                "frame_setup_grad": "frame_setup_grad_kernel"}
 # K3's and K6's design levers, each switched off (one ray a thread, which at
 # P 512 is also one entry group of 512 threads; one entry group of P / 4
 # threads; two rays a thread in two groups; the next block or chunk copied
@@ -1198,9 +1207,9 @@ def main() -> None:
     phase_done(16)
 
     # ---- 17. the serving frame's kernels K8, K9, K10 and K11 ----
-    train_k12, serving = run_serving_kernels(dev, headline_tv, frames, cfg,
-                                             accel, ccfgs, target, smi,
-                                             clock_mhz)
+    train_k12_k13, serving = run_serving_kernels(dev, headline_tv, frames,
+                                                 cfg, accel, ccfgs, target,
+                                                 smi, clock_mhz)
     for entry in serving:
         paths = entry["launches_by_path"]
         for method, launched in cli_launches.items():
@@ -1208,9 +1217,9 @@ def main() -> None:
         paths["animate_replays"] = animate_seen[entry["name"]]
     phase_done(17)
 
-    # ---- 18. the training shading's backward, K12 ----
-    serving.append(run_shade_grad(dev, headline_tv, cfg, target, smi,
-                                  clock_mhz, train_k12))
+    # ---- 18. the training shading's backward K12, the set-up's K13 ----
+    serving += run_shade_grad(dev, headline_tv, cfg, target, smi, clock_mhz,
+                              train_k12_k13)
     phase_done(18)
 
     kernels = [{
@@ -2041,7 +2050,8 @@ def run_sharded(dev, headline_tv, frames, cfg, accel, ccfgs, target, smi):
         loss1 = pj.make_train_step(torch.optim.SGD(single_list, lr=LR),
                                    cfg)(single, target)
         shard, shard_list = params()
-        for k in (k1.bin_intersect, k2.segment_sum, *prep, k10.shade_grad):
+        for k in (k1.bin_intersect, k2.segment_sum, *prep, k10.shade_grad,
+                  k10.frame_setup_grad):
             k.launches = 0
         start.record()
         loss2 = pj.make_train_step(torch.optim.SGD(shard_list, lr=LR), cfg,
@@ -2051,13 +2061,15 @@ def run_sharded(dev, headline_tv, frames, cfg, accel, ccfgs, target, smi):
         counts = (k1.bin_intersect.launches, k2.segment_sum.launches)
         out.setdefault("bin_intersect", {})["sharded_train"] = counts[0]
         out.setdefault("segment_sum", {})["sharded_train"] = counts[1]
-        for k in (*prep, k10.shade_grad):
+        for k in (*prep, k10.shade_grad, k10.frame_setup_grad):
             out.setdefault(k.__name__, {})["sharded_train"] = k.launches
         if not bp.bin_tri_pass.launches or k10.shade_compose.launches != 1 \
-                or k10.shade_grad.launches != 1 or k10.frame_setup.launches:
-            raise RuntimeError("the sharded step skipped K8, did not shade "
-                               "through K10 and K12 once or set up through "
-                               "K11")
+                or k10.shade_grad.launches != 1 \
+                or k10.frame_setup.launches != 1 \
+                or k10.frame_setup_grad.launches != 1:
+            raise RuntimeError("the sharded step skipped K8, or did not "
+                               "shade through K10 and K12 once or set up "
+                               "through K11 and K13 once")
         finite = all(bool(torch.isfinite(p.grad).all()) for p in shard_list)
         same_p = all(torch.equal(a, b) for a, b in zip(shard_list,
                                                        single_list))
@@ -2274,12 +2286,11 @@ def jit_frames(method, c, acc, kname, frames, smi, note="", mesh=None):
     `render_sharded_jit` against `render_sharded` under inference mode):
     frames 0, 1 and 0 bitwise, one graph captured, eager and replayed
     frames timed in turns and one of each profiled; ``kname`` must be seen
-    inside the replay, and K11's counter must move in the capture (the
-    plain set-up's must not). Returns {kernel: instances in the replayed
+    inside the replay, and K11's counter must move in the capture (K13's,
+    a step's backward, must not). Returns {kernel: instances in the replayed
     frame} (`KERNEL_NAMES`)."""
     from cpp_cuda_raytracer_dev_torch import render, render_jit
     from cpp_cuda_raytracer_dev_torch.models import renderer
-    from cpp_cuda_raytracer_dev_torch.models.camera import set_up_frame
     from cpp_cuda_raytracer_dev_torch.ops.cuda import shade as k10
     from cpp_cuda_raytracer_dev_torch.parallel import render_pjit as pj
 
@@ -2296,7 +2307,7 @@ def jit_frames(method, c, acc, kname, frames, smi, note="", mesh=None):
         fns = {"eager": eager, "replayed": lambda scene, cam, config, accel:
                pj.render_sharded_jit(scene, cam, config, mesh, accel)}
     captures, regrown = cache.captures, cache.regrown
-    plain = set_up_frame.plain
+    k13 = k10.frame_setup_grad.launches
     bad, k11 = [], 0
     for i in (0, 1, 0):          # frame 0, another camera and pose, frame 0
         before = k10.frame_setup.launches
@@ -2310,8 +2321,8 @@ def jit_frames(method, c, acc, kname, frames, smi, note="", mesh=None):
     prof = {k: replay_profile(lambda: f(*frames[0], c, acc))
             for k, f in fns.items()}
     log(f"{name} {method}: bitwise the eager frames 0, 1, 0 "
-        f"{not bad}; K11 launches in the capture {k11}, set-ups by the "
-        f"plain version {set_up_frame.plain - plain}; graphs captured "
+        f"{not bad}; K11 launches in the capture {k11}, K13 launches "
+        f"{k10.frame_setup_grad.launches - k13}; graphs captured "
         f"{cache.captures - captures}, "
         f"regrowths {cache.regrown - regrown}{note}; "
         + "; ".join(f"{k} frames {spread(v)}, profiled frame: device "
@@ -2335,7 +2346,7 @@ def jit_frames(method, c, acc, kname, frames, smi, note="", mesh=None):
                            f"{grown} regrowths")
     seen = prof["replayed"][3]
     if min(seen[kname], prof["replayed"][4], k11) < 1 \
-            or set_up_frame.plain != plain:
+            or k10.frame_setup_grad.launches != k13:
         raise RuntimeError(f"{kname} not seen inside the replayed {method} "
                            f"frame, or K11 not captured in it ({k11})")
     return seen
@@ -2470,16 +2481,17 @@ def jit_steps(dev, headline_tv, c, acc, kname, target, smi, mesh=None,
             raise RuntimeError(f"the replayed {c.method} {kind} step ran "
                                f"{kname} {seen[kname]} and K2 {k2_seen} times")
         # K8 and K9 in a bin step, K10 and K12 in every step (the
-        # shading's forward and backward), K11 in none (the step sets up
-        # with autograd)
+        # shading's forward and backward), K11 and K13 too (the set-up's)
         if not seen["shade_compose"] or not seen["shade_grad"] \
-                or seen["frame_setup"] or (c.method == "bin") != (
+                or not seen["frame_setup"] or not seen["frame_setup_grad"] \
+                or (c.method == "bin") != (
                 seen["bin_tri_pass"] > 0 and seen["bin_entry_keys"] > 0):
             raise RuntimeError(f"the replayed {c.method} {kind} step ran "
                                f"the serving kernels {seen}")
         if all_leaves:
             out = {kname: seen[kname], "segment_sum": k2_seen,
-                   **{k: seen[k] for k in (*SERVING_KERNELS, "shade_grad")}}
+                   **{k: seen[k] for k in (*SERVING_KERNELS, "shade_grad",
+                                           "frame_setup_grad")}}
         del steps, opts
     return out
 
@@ -2537,7 +2549,7 @@ def run_jit(dev, headline_tv, frames, cfg, accel, ccfgs, target, smi):
                      smi)
     out["bin_intersect"]["train_jit"] = seen["bin_intersect"]
     out["segment_sum"] = {"serve_jit": 0, "train_jit": seen["segment_sum"]}
-    for k in (*SERVING_KERNELS, "shade_grad"):
+    for k in (*SERVING_KERNELS, "shade_grad", "frame_setup_grad"):
         out[k] = {"train_jit": seen[k]}
     return out
 
@@ -2941,10 +2953,13 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
     from cpp_cuda_raytracer_dev_torch.accel import binning, traverse
     from cpp_cuda_raytracer_dev_torch.accel.traverse import (_bin_meta,
                                                              _ray_table)
+    from cpp_cuda_raytracer_dev_torch.models import camera as camera_mod
     from cpp_cuda_raytracer_dev_torch.models import renderer
     from cpp_cuda_raytracer_dev_torch.models.camera import (
         frame_setup_reference, set_up_frame)
     from cpp_cuda_raytracer_dev_torch.models.renderer import trace_rays
+    from cpp_cuda_raytracer_dev_torch.models.setup_grad import \
+        frame_setup_grad_reference
     from cpp_cuda_raytracer_dev_torch.models.shading import (
         shade_compose_reference, shade_hits)
     from cpp_cuda_raytracer_dev_torch.models.shade_grad import \
@@ -2955,7 +2970,6 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
         bin_intersect
     from cpp_cuda_raytracer_dev_torch.ops.quaternion import from_axis_angle
     from cpp_cuda_raytracer_dev_torch.ops.shade import compose_framebuffer
-    from cpp_cuda_raytracer_dev_torch.parallel import render_pjit as pj
     from cpp_cuda_raytracer_dev_torch.parallel.render_pjit import (
         make_train_step, make_train_step_jit)
     from cpp_cuda_raytracer_dev_torch.utils.graphs import GraphCache
@@ -3296,13 +3310,22 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
             + f"; sum {sum(st.values()):.4f} ms ({smi})")
 
     # ---- the replayed frames and compiled steps, both routes in turns ----
+    def plain_set_up(camera, poses, method, row0, band_h, rays):
+        """`set_up_frame`'s forward by K11's plain version, also inside
+        its autograd Function."""
+        with torch.no_grad():
+            return frame_setup_reference(camera, poses, method, row0,
+                                         band_h, rays)
+
     @contextlib.contextmanager
     def route(kind):
         """The plain versions in the kernels' places (``kind`` "plain"), as
         phase 3 puts the aligned walk in K1's place; the steps' shading
-        then runs K10's and K12's twins."""
+        then runs K10's and K12's twins, their set-up K11's plain version
+        and K13's twin."""
         names = ((k10, "shade_compose", shade_compose_reference),
                  (k10, "shade_grad", shade_grad_reference),
+                 (k10, "frame_setup_grad", frame_setup_grad_reference),
                  (binning, "bin_tri_pass", bp.bin_tri_pass_reference),
                  (binning, "bin_entry_keys", bp.bin_entry_keys_reference),
                  (binning, "bin_entry_table", bp.bin_entry_table_reference),
@@ -3310,8 +3333,7 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
                   lambda proj, o, b, *rest: _ray_table(proj, o, b[:3],
                                                        b[3:6], *rest)),
                  (renderer, "shade_compose", shade_compose_reference),
-                 (renderer, "set_up_frame", frame_setup_reference),
-                 (pj, "set_up_frame", frame_setup_reference))
+                 (camera_mod, "_set_up", plain_set_up))
         saved = [getattr(m, n) for m, n, _ in names]
         if kind == "plain":
             for m, n, f in names:
@@ -3404,8 +3426,10 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
         seen, plain_seen = prof["kernels"][3], prof["plain"][3]
         if not equal or losses["kernels"] != losses["plain"] \
                 or not seen["shade_compose"] or not seen["shade_grad"] \
-                or seen["frame_setup"] or not seen["bin_tri_pass"] \
-                or plain_seen["shade_compose"] or plain_seen["shade_grad"]:
+                or not seen["frame_setup"] or not seen["frame_setup_grad"] \
+                or not seen["bin_tri_pass"] or any(plain_seen[k] for k in (
+                    "shade_compose", "shade_grad", "frame_setup",
+                    "frame_setup_grad")):
             raise RuntimeError(f"compiled {kind} steps: {seen}, plain "
                                f"route {plain_seen}")
         del sets, opts, steps
@@ -3423,22 +3447,20 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
         render(*frames[0], c, acc)
         serve[f"shade_compose_{method}"] = k10.shade_compose.launches
         serve[f"frame_setup_{method}"] = k10.frame_setup.launches
-    for f in (*wrappers.values(), k10.shade_grad):
+    for f in (*wrappers.values(), k10.shade_grad, k10.frame_setup_grad):
         f.launches = 0
-    plain0 = set_up_frame.plain
     p = train_set(dev, headline_tv)
     make_train_step(torch.optim.SGD([*p["scene"].parameters(),
                                      *p["camera"].parameters()], lr=LR),
                     cfg)(p, target)
     train = {k: f.launches for k, f in wrappers.items()}
     train_k12 = k10.shade_grad.launches
-    train_plain = set_up_frame.plain - plain0
+    train_k13 = k10.frame_setup_grad.launches
     log(f"launches: {N_FRAMES} bin frames through render {serve}; one "
-        f"bin training step {train}, K12 {train_k12}, its set-ups by the "
-        f"plain version {train_plain}")
+        f"bin training step {train}, K12 {train_k12}, K13 {train_k13}")
     if min(serve.values()) < 1 or min(serve[k] for k in wrappers) < N_FRAMES \
             or train["shade_compose"] != 1 or train_k12 != 1 \
-            or train["frame_setup"] or train_plain < 1 or min(
+            or train["frame_setup"] != 1 or train_k13 != 1 or min(
                 train[k] for k in SERVING_KERNELS[:4]) < 1:
         raise RuntimeError("the serving kernels missed their paths")
 
@@ -3458,7 +3480,7 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
         k10_paths[f"serve_{m}"] = serve[f"shade_compose_{m}"]
         k11_paths[f"serve_{m}"] = serve[f"frame_setup_{m}"]
     base = "cpp_cuda_raytracer_dev_tpu/"
-    return train_k12, [{
+    return (train_k12, train_k13), [{
         "name": "bin_tri_pass", "route": "cuda",
         "source": "cpp_cuda_raytracer_dev_torch/csrc/bin_prepass.cu",
         "replaces": base + "accel/binning.py:67",
@@ -3514,11 +3536,11 @@ def run_serving_kernels(dev, headline_tv, frames, cfg, accel, ccfgs, target,
 
 
 def run_shade_grad(dev, headline_tv, cfg, target, smi, clock_mhz,
-                   train_k12):
-    """Phase 18 (see the module docstring): kernel K12, the training
-    shading's backward. Returns its row of the kernels line, whose
-    ``launches`` are ``train_k12``, phase 17's count in one eager bin
-    training step."""
+                   train_k12_k13):
+    """Phase 18 (see the module docstring): kernels K12, the training
+    shading's backward, and K13, the training set-up's. Returns their rows
+    of the kernels line, whose ``launches`` are ``train_k12_k13``, phase
+    17's counts in one eager bin training step."""
     import contextlib
 
     from cpp_cuda_raytracer_dev_torch.models import shade_grad as sg
@@ -3594,7 +3616,9 @@ def run_shade_grad(dev, headline_tv, cfg, target, smi, clock_mhz,
         finally:
             k10.shade_grad = saved
     kinds = ("kernel", "twin")
+    train_k12, train_k13 = train_k12_k13
     step_ms, launches_by_path = {}, {"train": train_k12}
+    k13_paths = {"train": train_k13}
     for kind in ("pose/light/camera-only", "all-leaves"):
         sets = {k: train_set(dev, headline_tv) for k in kinds}
         if kind != "all-leaves":
@@ -3621,8 +3645,10 @@ def run_shade_grad(dev, headline_tv, cfg, target, smi, clock_mhz,
                  k10.shade_grad.launches - counts[1])
         step_ms[kind] = {k: float(np.median(v)) for k, v in turns.items()}
         seen = prof["kernel"][3]
-        launches_by_path["train_jit" if kind == "all-leaves" else
-                         "train_jit_pose_light_camera"] = seen["shade_grad"]
+        path = ("train_jit" if kind == "all-leaves" else
+                "train_jit_pose_light_camera")
+        launches_by_path[path] = seen["shade_grad"]
+        k13_paths[path] = seen["frame_setup_grad"]
         log(f"compiled {kind} steps, K12 and its twin in turns: losses "
             f"{losses['kernel']} / {losses['twin']}, parameters bitwise "
             f"equal {equal}; "
@@ -3638,9 +3664,13 @@ def run_shade_grad(dev, headline_tv, cfg, target, smi, clock_mhz,
             raise RuntimeError(f"compiled {kind} steps: {seen}, {moved}")
         del sets, steps
     log(f"counters: shade_compose.launches {k10.shade_compose.launches}, "
-        f"shade_grad.launches {k10.shade_grad.launches}")
+        f"shade_grad.launches {k10.shade_grad.launches}, "
+        f"frame_setup.launches {k10.frame_setup.launches}, "
+        f"frame_setup_grad.launches {k10.frame_setup_grad.launches}")
+    k13 = run_setup_grad(cam, args["pose/light/camera step"], smi, clock_mhz)
+    k13.update(launches=train_k13, launches_by_path=k13_paths)
     k = "pose/light/camera step"
-    return {
+    return [{
         "name": "shade_grad", "route": "cuda",
         "source": "cpp_cuda_raytracer_dev_torch/csrc/shade.cu",
         "replaces": None,
@@ -3654,7 +3684,71 @@ def run_shade_grad(dev, headline_tv, cfg, target, smi, clock_mhz,
         "all_leaves_ms": ms["all-leaves step"],
         "all_leaves_plain_ms": plain["all-leaves step"],
         "all_leaves_bound_ms": bounds["all-leaves step"]["bound_ms"],
-        "step_ms": step_ms, "launches_by_path": launches_by_path}
+        "step_ms": step_ms, "launches_by_path": launches_by_path}, k13]
+
+
+def run_setup_grad(cam, shade_args, smi, clock_mhz) -> dict:
+    """Phase 18's K13 (see the module docstring): bitwise its twin on the
+    rays' cotangent that K12 writes for ``shade_args`` (the pose/light/
+    camera step's call), timed. Returns its row of the kernels line,
+    without the launches."""
+    from cpp_cuda_raytracer_dev_torch import Camera
+    from cpp_cuda_raytracer_dev_torch.models.camera import _adjust
+    from cpp_cuda_raytracer_dev_torch.models.setup_grad import \
+        frame_setup_grad_reference
+    from cpp_cuda_raytracer_dev_torch.ops.cuda import shade as k13
+
+    with torch.no_grad():
+        g_rmd = k13.shade_grad(*shade_args)[2]
+        leaves = [getattr(cam, f).detach() for f in Camera.LEAVES]
+        w, h = cam.res_w, cam.res_h
+        band = RES_H // 2
+        cases = {"float32": (leaves, g_rmd, 0),
+                 "float64": ([x.double() for x in leaves], g_rmd.double(), 0),
+                 f"band of rows {band}-{h - 1}": (leaves, g_rmd[band * w:],
+                                                  band)}
+        args = {k: (lv, g, w, h, row0, _adjust(w), _adjust(h), [True] * 6)
+                for k, (lv, g, row0) in cases.items()}
+        bad, err = [], 0.0
+        for name, a in args.items():
+            got = k13.frame_setup_grad(*a)
+            torch.cuda.synchronize()
+            want = frame_setup_grad_reference(*a)
+            for f, x, y in zip(Camera.LEAVES, got, want):
+                err = max(err, float((x.double() - y.double()).abs().max()))
+                if not torch.equal(x, y):
+                    bad.append(f"{name}: {f}")
+    log(f"K13 against its plain twin at headline frame 0 with K12's rays' "
+        f"cotangent ({g_rmd.shape[0]} rays; {', '.join(cases)}): bitwise "
+        f"{not bad} {bad}, largest difference {err}")
+    if bad:
+        raise RuntimeError(f"K13 differs from its twin: {bad}")
+
+    a = args["float32"]
+    ms = {k: kernel_ms(lambda: k13.frame_setup_grad(*a), k)
+          for k in ("frame_setup_grad_kernel", "frame_setup_grad_chain")}
+    call_ms = graph_ms(lambda: k13.frame_setup_grad(*a))
+    plain_ms = graph_ms(lambda: frame_setup_grad_reference(*a))
+    n_r = g_rmd.shape[0]
+    # the rays' cotangent read once, nine partials a ray written once
+    bound = op_bounds(K13_OPS_PER_RAY * n_r, n_r * 4 * (3 + 9), clock_mhz)
+    ray_ms = ms["frame_setup_grad_kernel"]
+    log(f"K13 at headline frame 0: the ray pass {ray_ms:.4f} ms, the chain "
+        f"{ms['frame_setup_grad_chain']:.4f} ms; the "
+        f"call (both launches and the sum) captured alone {call_ms:.4f} ms, "
+        f"its twin {plain_ms:.4f} ms; the ray pass's {bound['text']} ({smi})")
+    return {
+        "name": "frame_setup_grad", "route": "cuda",
+        "source": "cpp_cuda_raytracer_dev_torch/csrc/shade.cu",
+        "replaces": None,
+        "replaces_note": "none: JAX differentiates models/camera.py:124 "
+                         "ray_directions by itself; K13 is the backward of "
+                         "the autograd Function whose forward is K11",
+        "max_abs_err": err, "ms": ms["frame_setup_grad_kernel"],
+        "chain_ms": ms["frame_setup_grad_chain"], "call_ms": call_ms,
+        "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+        "bound_by": bound["bound_by"], "library_ms": None,
+        "bound_issue_ms": bound["bound_issue_ms"]}
 
 
 def write_ply(path, tv: np.ndarray) -> None:

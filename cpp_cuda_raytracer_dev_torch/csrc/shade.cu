@@ -1,6 +1,6 @@
 // Serving shading and composition: kernel K10; the serving frame's set-up:
 // kernel K11 (below K10); the training shading's backward: kernel K12
-// (below K11).
+// (below K11); the training set-up's backward: kernel K13 (below K12).
 //
 // Counterpart of the JAX package's XLA-fused plain code of a forward
 // frame's shading and composition, not of a Pallas kernel: `shade_hits`
@@ -918,6 +918,205 @@ cudaError_t launch_grad(int n_rays, int obj0, int n_obj, int n_total,
 #undef K12_CASE
 }
 
+
+// ---- K13: the training set-up's backward ----
+//
+// Counterpart of the JAX package's autograd of the plain code of a frame's
+// set-up (`Camera.ray_directions`, cpp_cuda_raytracer_dev_tpu/models/
+// camera.py:124, under `jax.grad`), not of a Pallas kernel. Run in PyTorch
+// that was about 560 autograd nodes a step (K11's plain twin under
+// autograd, forward and backward). K11 is the forward (models/camera.py
+// `set_up_frame`); K13 takes the cotangent of the rays rmd, which K12
+// writes, back to the camera's six leaves, bit for bit as its plain twin
+// (models/setup_grad.py `frame_setup_grad_reference`), in two launches:
+//
+//   frame_setup_grad_kernel, a few rays a thread as K11: it recomputes the
+//     ray's unnormalised direction d = n_mod + u_mod ix + v_mod iy and its
+//     rsqrt in K11's order at the frame's pixel (ix, iy) (row0 for a
+//     band), forms the normalise's VJP g_d = g inv + 2 (-1/2 (g . d) inv^3)
+//     d (rsqrt's -x^3 / 2), and writes nine columns a ray, g_d, ix g_d and
+//     iy g_d, column-major (column c at partials + c R), which one torch.sum
+//     adds up over the rays: no float atomics, so a step repeats bitwise;
+//   frame_setup_grad_chain_kernel, one thread: the nine sums (the
+//     gradients of n_mod, u_mod and v_mod) back through the ray mods, the
+//     pixel pitch film / res (the host's reciprocal of the int, as K11),
+//     the basis (normalize, the two crosses, normalize(up)) and
+//     look_at - pos to the leaves the need mask asks for.
+//
+// Order: K11's for the recompute; every product and sum of the backward
+// rounded on its own (the _rn intrinsics, so the file's -fmad=true changes
+// none of them), dots summed (x + y) + z, as the twin writes them.
+//
+// Bound: bytes. It reads the (R, 3) cotangent (6.2 MB a 960x540 float32
+// frame) and writes nine columns (18.7 MB), 7.4 us at 3.35 TB/s; about 45
+// operations a ray. The chain is about 200 operations on one thread.
+
+template <typename T>
+__global__ void __launch_bounds__(kSetupThreads)
+frame_setup_grad_kernel(int n_rays, int res_w, int res_h, int row0,
+                        CamPtrs cam_ptrs, T adj_x, T adj_y, const T* g_rmd,
+                        T* partials) {
+  __shared__ T sc[kShFrame];
+  if (threadIdx.x == 0) {
+    const T* cam[kCamPtrs];
+#pragma unroll
+    for (int k = 0; k < kCamPtrs; ++k)
+      cam[k] = static_cast<const T*>(cam_ptrs.p[k]);
+    camera_constants(cam, res_w, res_h, adj_x, adj_y, sc);
+  }
+  __syncthreads();
+  const T* nm = sc + kFrameConsts;
+  const long long R = n_rays;
+  const long long base = static_cast<long long>(row0) * res_w;
+#pragma unroll
+  for (int j = 0; j < kSetupRays; ++j) {
+    const int r = (blockIdx.x * kSetupRays + j) * kSetupThreads + threadIdx.x;
+    if (r >= n_rays) return;
+    const long long i = base + r;
+    const T ix = static_cast<T>(i % res_w), iy = static_cast<T>(i / res_w);
+    T d[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      d[k] = add(add(nm[k], mul(nm[3 + k], ix)), mul(nm[6 + k], iy));
+    const T inv = rsqrt(add(add(mul(d[0], d[0]), mul(d[1], d[1])),
+                            mul(d[2], d[2])));
+    const long long r3 = 3ll * r;
+    const T g[3] = {g_rmd[r3], g_rmd[r3 + 1], g_rmd[r3 + 2]};
+    const T g_s = mul(mul(T(-0.5), dot3v(g, d)), mul(mul(inv, inv), inv));
+    const T two = mul(T(2), g_s);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const T g_d = add(mul(g[k], inv), mul(two, d[k]));
+      partials[k * R + r] = g_d;
+      partials[(3 + k) * R + r] = mul(ix, g_d);
+      partials[(6 + k) * R + r] = mul(iy, g_d);
+    }
+  }
+}
+
+// the VJP of vecmath.normalize, a rsqrt(|a|^2) with inv = rsqrt(|a|^2):
+// g inv + 2 (-1/2 (g . a) inv^3) a
+template <typename T>
+__device__ __forceinline__ void unit3_grad(const T* a, T inv, const T* g,
+                                           T* out) {
+  const T g_s = mul(mul(T(-0.5), dot3v(g, a)), mul(mul(inv, inv), inv));
+  const T two = mul(T(2), g_s);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) out[k] = add(mul(g[k], inv), mul(two, a[k]));
+}
+
+// acc += a x b
+template <typename T>
+__device__ __forceinline__ void add_cross3(const T* a, const T* b, T* acc) {
+  T x[3];
+  cross3(a, b, x);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) acc[k] = add(acc[k], x[k]);
+}
+
+template <typename T>
+__device__ __forceinline__ T rsqrt_sq3(const T* a) {   // unit3's rsqrt
+  return rsqrt(sum3(mul(a[0], a[0]), mul(a[1], a[1]), mul(a[2], a[2])));
+}
+
+template <typename T>
+__global__ void frame_setup_grad_chain_kernel(int res_w, int res_h,
+                                              CamPtrs cam_ptrs, T adj_x,
+                                              T adj_y, const T* sums,
+                                              int need, T* out) {
+  if (blockIdx.x != 0 || threadIdx.x != 0) return;
+  const T* pos = static_cast<const T*>(cam_ptrs.p[0]);
+  const T* look = static_cast<const T*>(cam_ptrs.p[1]);
+  const T* up = static_cast<const T*>(cam_ptrs.p[2]);
+  const T film_w = *static_cast<const T*>(cam_ptrs.p[3]);
+  const T film_h = *static_cast<const T*>(cam_ptrs.p[4]);
+  const T focal = *static_cast<const T*>(cam_ptrs.p[5]);
+  // the forward, as camera_constants computes it
+  T a[3], n[3], upn[3], cu[3], e[3], v[3], u[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) a[k] = sub(look[k], pos[k]);
+  const T inv_a = rsqrt_sq3(a), inv_up = rsqrt_sq3(up);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    n[k] = mul(a[k], inv_a);
+    upn[k] = mul(up[k], inv_up);
+  }
+  cross3(upn, n, cu);
+  cross3(n, cu, e);
+  const T inv_e = rsqrt_sq3(e);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) v[k] = mul(e[k], inv_e);
+  cross3(v, n, u);
+  const T rw = div(T(1), T(res_w)), rh = div(T(1), T(res_h));
+  const T pix_w = mul(film_w, rw), pix_h = mul(film_h, rh);
+
+  // the backward: n_mod = (n focal - v_mod adj_y) - u_mod adj_x, u_mod =
+  // u pix_w, v_mod = v pix_h; sums: the gradients of n_mod, and of u_mod
+  // and v_mod through ix and iy
+  const T* s0 = sums;
+  T g_um[3], g_vm[3], g_n[3], g_u[3], g_v[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    g_um[k] = sub(sums[3 + k], mul(s0[k], adj_x));
+    g_vm[k] = sub(sums[6 + k], mul(s0[k], adj_y));
+    g_n[k] = mul(s0[k], focal);
+    g_u[k] = mul(g_um[k], pix_w);
+    g_v[k] = mul(g_vm[k], pix_h);
+  }
+  const T g_focal = dot3v(s0, n);
+  const T g_film_w = mul(dot3v(g_um, u), rw);
+  const T g_film_h = mul(dot3v(g_vm, v), rh);
+  // u = v x n
+  add_cross3(n, g_u, g_v);
+  add_cross3(g_u, v, g_n);
+  // v = normalize(e), e = n x cu, cu = upn x n
+  T g_e[3], g_cu[3], g_upn[3], g_up[3], g_a[3];
+  unit3_grad(e, inv_e, g_v, g_e);
+  add_cross3(cu, g_e, g_n);
+  cross3(g_e, n, g_cu);
+  cross3(n, g_cu, g_upn);
+  add_cross3(g_cu, upn, g_n);
+  unit3_grad(up, inv_up, g_upn, g_up);
+  // n = normalize(look_at - pos)
+  unit3_grad(a, inv_a, g_n, g_a);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    if (need & 1) out[k] = -g_a[k];
+    if (need & 2) out[3 + k] = g_a[k];
+    if (need & 4) out[6 + k] = g_up[k];
+  }
+  if (need & 8) out[9] = g_film_w;
+  if (need & 16) out[10] = g_film_h;
+  if (need & 32) out[11] = g_focal;
+}
+
+template <typename T>
+cudaError_t launch_setup_grad(int n_rays, int res_w, int res_h, int row0,
+                              const void* const* cam, double adj_x,
+                              double adj_y, const void* g_rmd,
+                              void* partials, cudaStream_t stream) {
+  CamPtrs c;
+  for (int k = 0; k < kCamPtrs; ++k) c.p[k] = cam[k];
+  const int per_block = kSetupThreads * kSetupRays;
+  const int blocks = (n_rays + per_block - 1) / per_block;
+  frame_setup_grad_kernel<T><<<blocks, kSetupThreads, 0, stream>>>(
+      n_rays, res_w, res_h, row0, c, T(adj_x), T(adj_y),
+      static_cast<const T*>(g_rmd), static_cast<T*>(partials));
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_setup_chain(int res_w, int res_h, const void* const* cam,
+                               double adj_x, double adj_y, const void* sums,
+                               int need, void* out, cudaStream_t stream) {
+  CamPtrs c;
+  for (int k = 0; k < kCamPtrs; ++k) c.p[k] = cam[k];
+  frame_setup_grad_chain_kernel<T><<<1, 1, 0, stream>>>(
+      res_w, res_h, c, T(adj_x), T(adj_y), static_cast<const T*>(sums), need,
+      static_cast<T*>(out));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int shade_max_objects() { return kMaxObjects; }
@@ -993,4 +1192,40 @@ extern "C" int shade_grad_launch(int n_rays, int obj0, int n_obj, int n_total,
                             obj_ptrs, ops, eps, cts, outs, s)
       : launch_grad<float>(n_rays, obj0, n_obj, n_total, first, cts_mask,
                            obj_ptrs, ops, eps, cts, outs, s));
+}
+
+// K13. n_rays = band_h * res_w rays of frame rows [row0, row0 + band_h)
+// (n_rays >= 1); cam, adj_x, adj_y: K11's; g_rmd: the rays' cotangent
+// (n_rays, 3); partials: (9, n_rays), column-major: g_d, ix g_d, iy g_d.
+extern "C" int frame_setup_grad_launch(int n_rays, int res_w, int res_h,
+                                       int row0, int is_f64,
+                                       const void* const* cam, double adj_x,
+                                       double adj_y, const void* g_rmd,
+                                       void* partials, void* stream) {
+  if (n_rays < 1 || res_w < 1 || res_h < 1 || row0 < 0)
+    return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  return (int)(is_f64
+      ? launch_setup_grad<double>(n_rays, res_w, res_h, row0, cam, adj_x,
+                                  adj_y, g_rmd, partials, s)
+      : launch_setup_grad<float>(n_rays, res_w, res_h, row0, cam, adj_x,
+                                 adj_y, g_rmd, partials, s));
+}
+
+// K13's chain: sums (9,), the partials summed over the rays;
+// need: bit k for leaf k of pos, look_at, up, film_w, film_h, focal; out
+// (12,), those leaves' gradients in that order, each written only where
+// asked.
+extern "C" int frame_setup_chain_launch(int res_w, int res_h, int is_f64,
+                                        const void* const* cam, double adj_x,
+                                        double adj_y, const void* sums,
+                                        int need, void* out, void* stream) {
+  if (res_w < 1 || res_h < 1 || need < 1 || need > 63)
+    return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  return (int)(is_f64
+      ? launch_setup_chain<double>(res_w, res_h, cam, adj_x, adj_y, sums,
+                                   need, out, s)
+      : launch_setup_chain<float>(res_w, res_h, cam, adj_x, adj_y, sums, need,
+                                  out, s));
 }

@@ -12,9 +12,11 @@ Row iy = 0 is the bottom of the image.
 A frame's set-up (`FrameSetup`): its rays, the camera's Projection and each
 posed object's origin, rays and Projection in the object's frame.
 `set_up_frame` is every frame's entry point: kernel K11
-(``ops/cuda/shade.py`` `frame_setup`) where no camera leaf needs autograd
-on the card, else the plain PyTorch `frame_setup_reference`, which is
-differentiable.
+(``ops/cuda/shade.py`` `frame_setup`) on CUDA tensors, the plain PyTorch
+`frame_setup_reference` on CPU tensors; where a camera leaf needs autograd
+(the training steps) the same forward inside an autograd Function whose
+backward is kernel K13 (``ops/cuda/shade.py`` `frame_setup_grad`) or its
+plain twin (``models/setup_grad.py``).
 """
 
 from __future__ import annotations
@@ -25,8 +27,10 @@ import torch
 from torch import nn
 
 from ..ops import vecmath
-from ..ops.cuda.shade import FRAME_CONSTS, OBJ_CONSTS, frame_setup
+from ..ops.cuda import shade as k11
+from ..ops.cuda.shade import FRAME_CONSTS, OBJ_CONSTS
 from ..utils.config import METHODS
+from .setup_grad import frame_setup_grad_reference
 
 
 def _adjust(res: int) -> float:
@@ -231,9 +235,9 @@ def frame_setup_reference(camera: Camera, poses, method: str, row0: int = 0,
     default) for the intersect ``method``: `Camera.ray_directions` (sliced
     to the band; None without ``rays``, which a bin probe reads none of),
     `Camera.projection` (where ``method`` reads it, with ``row0``) and
-    `object_frames`. Plain PyTorch; the rays and the Projection carry
-    autograd to the camera (the training steps), the object frames none.
-    Kernel K11's plain version."""
+    `object_frames`. Plain PyTorch, kernel K11's plain version; outside
+    `set_up_frame` its rays and Projection carry autograd to the camera,
+    the object frames none."""
     rmd = None
     if rays:
         w = camera.res_w
@@ -248,23 +252,16 @@ def frame_setup_reference(camera: Camera, poses, method: str, row0: int = 0,
                                                method))
 
 
-def set_up_frame(camera: Camera, poses, method: str, row0: int = 0,
-                 band_h: int | None = None, rays: bool = True) -> FrameSetup:
-    """`frame_setup_reference`'s `FrameSetup`, bit for bit: from kernel K11
-    on CUDA tensors unless autograd needs the set-up (grad mode on and a
-    camera leaf that requires grad; the object frames never carry
-    autograd), else from the plain version. ``set_up_frame.plain`` counts
-    the CUDA calls that took the plain version: the share of set-ups K11
-    serves is ``frame_setup.launches`` / (launches + plain) (one launch a
-    call up to ``ops/cuda/shade.py`` `max_objects` poses)."""
-    on_card = camera.pos.device.type == "cuda"
-    if not on_card or torch.is_grad_enabled() and any(
-            t.requires_grad for t in camera.parameters()):
-        set_up_frame.plain += int(on_card)
-        return frame_setup_reference(camera, poses, method, row0, band_h,
-                                     rays)
+def _set_up(camera: Camera, poses, method: str, row0: int,
+            band_h: int | None, rays: bool) -> FrameSetup:
+    """`frame_setup_reference`'s `FrameSetup` without autograd, bit for
+    bit: kernel K11 on CUDA tensors, the plain version on CPU tensors."""
+    if camera.pos.device.type != "cuda":
+        with torch.no_grad():
+            return frame_setup_reference(camera, poses, method, row0, band_h,
+                                         rays)
     poses, facts = list(poses), METHODS[method]
-    rmd, consts, obj_rays = frame_setup(
+    rmd, consts, obj_rays = k11.frame_setup(
         [getattr(camera, f) for f in Camera.LEAVES],
         [p.quat for p in poses], [p.translation for p in poses],
         camera.res_w, camera.res_h, row0,
@@ -286,4 +283,51 @@ def set_up_frame(camera: Camera, poses, method: str, row0: int = 0,
     return FrameSetup(rmd, proj, objects)
 
 
-set_up_frame.plain = 0
+class _FrameSetupGrad(torch.autograd.Function):
+    """`_set_up` differentiable in the camera's six leaves through its rays
+    alone: forward K11 (the plain version on CPU tensors), backward K13
+    (its plain twin `frame_setup_grad_reference` on CPU tensors). The rest
+    of the `FrameSetup` (the Projection, the object frames, made without
+    autograd) leaves as a second output that is no tensor, so autograd
+    differentiates none of it; the poses go in as plain arguments."""
+
+    @staticmethod
+    def forward(ctx, camera, poses, method, row0, band_h, *leaves):
+        ctx.set_materialize_grads(False)
+        setup = _set_up(camera, poses, method, row0, band_h, True)
+        ctx.frame = (camera.res_w, camera.res_h, row0)
+        ctx.save_for_backward(*leaves)
+        return setup.rmd, setup
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_rmd, _g_setup):
+        lead = (None,) * 5
+        need = ctx.needs_input_grad[5:]
+        if g_rmd is None:
+            return lead + (None,) * len(need)
+        res_w, res_h, row0 = ctx.frame
+        grad = (k11.frame_setup_grad if g_rmd.device.type == "cuda"
+                else frame_setup_grad_reference)
+        return lead + tuple(grad(ctx.saved_tensors, g_rmd, res_w, res_h,
+                                 row0, _adjust(res_w), _adjust(res_h),
+                                 need))
+
+
+def set_up_frame(camera: Camera, poses, method: str, row0: int = 0,
+                 band_h: int | None = None, rays: bool = True) -> FrameSetup:
+    """`frame_setup_reference`'s `FrameSetup`, bit for bit: kernel K11 on
+    CUDA tensors, the plain version on CPU tensors. Where autograd needs the
+    rays (grad mode on, a camera leaf that requires grad, ``rays``) the same
+    forward runs in `_FrameSetupGrad`, whose rays carry the camera's
+    gradient (kernel K13 on CUDA tensors, `frame_setup_grad_reference` on
+    CPU tensors); the Projection and the object frames never carry
+    autograd. One K11 launch a call up to ``ops/cuda/shade.py``
+    `max_objects` poses, one K13 call a backward."""
+    if rays and torch.is_grad_enabled() and any(
+            t.requires_grad for t in camera.parameters()):
+        rmd, setup = _FrameSetupGrad.apply(
+            camera, list(poses), method, row0, band_h,
+            *(getattr(camera, f) for f in Camera.LEAVES))
+        return dataclasses.replace(setup, rmd=rmd)
+    return _set_up(camera, poses, method, row0, band_h, rays)

@@ -126,8 +126,9 @@ def render_differentiable(scene: Scene, camera: Camera,
     scene's and the camera's parameters (the JAX package's ``render``).
     ``accel``: one `ClusterAccel` per object for the cluster methods, one
     `KDTables` per object for "kd". The set-up (rays, Projection, the
-    objects' frames) is `set_up_frame`'s: kernel K11 on the card unless a
-    camera leaf needs autograd."""
+    objects' frames) is `set_up_frame`'s: kernel K11 on the card, whose
+    rays carry the camera's gradient through kernel K13 where a camera leaf
+    needs autograd."""
     setup = set_up_frame(camera, [obj.pose for obj in scene.objects],
                         config.method)
     flat = render_rays(scene, camera.pos, setup.rmd, config, accel,

@@ -1,11 +1,11 @@
 """Shading and composition: kernel K10 (``csrc/shade.cu``), the
 counterpart of the JAX package's XLA-fused plain code in ``shade_hits``
 (``models/shading.py``) and ``ops/shade.py``, and its backward, kernel K12
-(the same source), the counterpart of that code's autograd; and the
-serving frame's set-up: kernel K11 (the same source), the counterpart of
-the plain code of ``Camera.ray_directions`` / ``projection``
-(``models/camera.py``) and the pose transforms of ``trace_rays``. None is
-a Pallas kernel.
+(the same source), the counterpart of that code's autograd; the frame's
+set-up: kernel K11 (the same source), the counterpart of the plain code of
+``Camera.ray_directions`` / ``projection`` (``models/camera.py``) and the
+pose transforms of ``trace_rays``; and its backward, kernel K13 (the same
+source), the counterpart of the rays' autograd. None is a Pallas kernel.
 
 - `shade_compose` is K10's launcher: `render_rays`'s dict of flat per-ray
   outputs for given hits, without autograd. For CUDA tensors it launches
@@ -35,11 +35,18 @@ for the serving frames and the training steps' forward.
   launch), and raises if a launch fails or an operand is not one it takes.
   `frame_setup.launches` counts its launches.
 
-``models/camera.py`` `set_up_frame` calls it, and assembles the frame's
-`FrameSetup` from its outputs, when no camera leaf needs autograd on the
-card (every serving frame and probe); with autograd on a camera leaf (the
-training steps) and on CPU tensors it runs the plain version,
-`frame_setup_reference`. The two agree bit for bit.
+``models/camera.py`` `set_up_frame` calls it on CUDA tensors, and
+assembles the frame's `FrameSetup` from its outputs (every frame, probe
+and training step; on CPU tensors it runs the plain version,
+`frame_setup_reference`). The two agree bit for bit.
+
+- `frame_setup_grad` is K13's launcher, the backward of the autograd
+  Function that `set_up_frame` takes where a camera leaf needs autograd:
+  for CUDA tensors it launches the kernel's ray pass, sums its partials
+  and launches its chain, and raises if a launch fails or an operand is not
+  one it takes (the Function takes the plain twin, ``models/setup_grad.py``
+  `frame_setup_grad_reference`, for CPU tensors). The two agree bit for
+  bit. `frame_setup_grad.launches` counts its calls.
 """
 
 from __future__ import annotations
@@ -71,6 +78,14 @@ def _lib():
             [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2 + [ctypes.c_double]
             + [ctypes.c_void_p] * 3)
         lib.shade_grad_launch.restype = ctypes.c_int
+        lib.frame_setup_grad_launch.argtypes = (
+            [ctypes.c_int] * 5 + [ctypes.c_void_p] + [ctypes.c_double] * 2
+            + [ctypes.c_void_p] * 3)
+        lib.frame_setup_grad_launch.restype = ctypes.c_int
+        lib.frame_setup_chain_launch.argtypes = (
+            [ctypes.c_int] * 3 + [ctypes.c_void_p] + [ctypes.c_double] * 2
+            + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2)
+        lib.frame_setup_chain_launch.restype = ctypes.c_int
         _fn.append(lib)
     return _fn[0]
 
@@ -201,6 +216,30 @@ def _launch(scene, origin, rmd, hit, config):
 FRAME_CONSTS, OBJ_CONSTS = 16, 12
 
 
+def _check_camera(camera_leaves, kernel: str, res_h: int, row0: int,
+                  band_h: int) -> list:
+    """K11's and K13's camera operands: six leaves (pos, look_at, up (3,);
+    film_w, film_h, focal ()) of one float dtype on the card, and rows
+    [row0, row0 + band_h) of the frame."""
+    cam = list(camera_leaves)
+    if len(cam) != 6:
+        raise ValueError("six camera leaves")
+    dt, dev = cam[0].dtype, cam[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"no {kernel} kernel for {dev}")
+    if dt not in _DTYPES:
+        raise ValueError(f"the camera must be float32 or float64, not {dt}")
+    if not 0 <= row0 <= row0 + band_h <= res_h:
+        raise ValueError(f"rows [{row0}, {row0 + band_h}) are not rows of "
+                         f"a frame {res_h} high")
+    for i, x in enumerate(cam):
+        want = (3,) if i < 3 else ()
+        if x.shape != want or x.dtype != dt or x.device != dev:
+            raise TypeError(f"camera leaf {i} must be {want} {dt} on {dev}, "
+                            f"got {tuple(x.shape)} {x.dtype} on {x.device}")
+    return cam
+
+
 def frame_setup(camera_leaves, quats, trans, res_w: int, res_h: int,
                 row0: int, band_h: int, adjust_x: float, adjust_y: float,
                 rays: bool = True, object_rays: bool = True):
@@ -213,25 +252,13 @@ def frame_setup(camera_leaves, quats, trans, res_w: int, res_h: int,
     `FRAME_CONSTS` then `OBJ_CONSTS` an object; each object's rays R^T d,
     or None without ``object_rays``). The plain version is
     ``models/camera.py`` `frame_setup_reference`."""
-    cam = list(camera_leaves)
+    cam = _check_camera(camera_leaves, "frame_setup", res_h, row0, band_h)
     quats, trans = list(quats), list(trans)
     dt, dev = cam[0].dtype, cam[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"no frame_setup kernel for {dev}")
-    if dt not in _DTYPES:
-        raise ValueError(f"the camera must be float32 or float64, not {dt}")
-    if not 0 <= row0 <= row0 + band_h <= res_h:
-        raise ValueError(f"rows [{row0}, {row0 + band_h}) are not rows of "
-                         f"a frame {res_h} high")
     if object_rays and not rays:
         raise ValueError("object-frame rays are made from the rays")
-    if len(cam) != 6 or len(quats) != len(trans):
-        raise ValueError("six camera leaves and a translation a quaternion")
-    for i, x in enumerate(cam):
-        want = (3,) if i < 3 else ()
-        if x.shape != want or x.dtype != dt or x.device != dev:
-            raise TypeError(f"camera leaf {i} must be {want} {dt} on {dev}, "
-                            f"got {tuple(x.shape)} {x.dtype} on {x.device}")
+    if len(quats) != len(trans):
+        raise ValueError("a translation a quaternion")
     for q, t in zip(quats, trans):
         if q.shape != (4,) or t.shape != (3,) or q.dtype != dt \
                 or t.dtype != dt or q.device != dev or t.device != dev:
@@ -330,3 +357,61 @@ def shade_grad(scene, origin: torch.Tensor, rmd: torch.Tensor, hit, config,
 
 
 shade_grad.launches = 0
+
+
+# ---- K13: the training set-up's backward ----
+
+# K13's partials a ray: the cotangent of the unnormalised direction d, then
+# ix d's and iy d's (the gradients of n_mod, u_mod and v_mod once summed)
+SETUP_GRAD_COLS = 9
+
+
+def frame_setup_grad(camera_leaves, g_rmd: torch.Tensor, res_w: int,
+                     res_h: int, row0: int, adjust_x: float, adjust_y: float,
+                     need) -> list:
+    """K13 on CUDA tensors: the gradients of the six camera leaves (as
+    `frame_setup` takes them) from the cotangent ``g_rmd`` (band_h * res_w,
+    3) of K11's rays of frame rows [row0, row0 + band_h), bit for bit its
+    plain twin ``models/setup_grad.py`` `frame_setup_grad_reference`.
+    ``need``: six flags; returns six tensors, None where a flag is off.
+    Two launches with one ``torch.sum`` between: the rays' partials
+    (`SETUP_GRAD_COLS` a ray), then the chain to the leaves. Raises on
+    tensors of any other device. ``frame_setup_grad.launches`` counts its
+    calls (a ray pass and a chain launch each)."""
+    need = [bool(x) for x in need]
+    if len(need) != 6 or not any(need):
+        raise ValueError("need: six flags, one or more set")
+    num_r = g_rmd.shape[0] if g_rmd.dim() == 2 else -1
+    if num_r < 1 or num_r % res_w or g_rmd.shape[1] != 3:
+        raise ValueError(f"g_rmd must be (band_h * {res_w}, 3), got "
+                         f"{tuple(g_rmd.shape)}")
+    cam = _check_camera(camera_leaves, "frame_setup_grad", res_h, row0,
+                        num_r // res_w)
+    dt, dev = cam[0].dtype, cam[0].device
+    if g_rmd.dtype != dt or g_rmd.device != dev:
+        raise TypeError(f"g_rmd must be {dt} on {dev} like the camera, got "
+                        f"{g_rmd.dtype} on {g_rmd.device}")
+    keep = [x.contiguous() for x in cam] + [g_rmd.contiguous()]
+    cam_ptrs = (ctypes.c_void_p * 6)(*(x.data_ptr() for x in keep[:6]))
+    partials = torch.empty((SETUP_GRAD_COLS, num_r), dtype=dt, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    is_f64 = int(dt == torch.float64)
+    err = _lib().frame_setup_grad_launch(
+        num_r, res_w, res_h, row0, is_f64, cam_ptrs, adjust_x, adjust_y,
+        keep[6].data_ptr(), partials.data_ptr(), stream)
+    if err == 0:
+        sums = partials.sum(dim=1)
+        out = torch.empty((12,), dtype=dt, device=dev)
+        err = _lib().frame_setup_chain_launch(
+            res_w, res_h, is_f64, cam_ptrs, adjust_x, adjust_y,
+            sums.data_ptr(), sum(1 << k for k, on in enumerate(need) if on),
+            out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"frame_setup_grad kernel launch failed: CUDA "
+                           f"error {err}")
+    frame_setup_grad.launches += 1
+    views = (out[0:3], out[3:6], out[6:9], out[9], out[10], out[11])
+    return [v if on else None for v, on in zip(views, need)]
+
+
+frame_setup_grad.launches = 0

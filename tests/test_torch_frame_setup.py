@@ -12,8 +12,8 @@ On the CPU:
   without ``rays`` it makes none, and the bin probe `bin_entry_count`
   counts the same entries without generating a ray;
 - with autograd on and camera leaves that require grad, the plain version
-  runs, its rays and Projection carry gradients to the camera, and no
-  kernel launches;
+  runs inside the autograd Function, K13's twin once in its backward: its
+  rays alone carry gradients to the camera, and no kernel launches;
 - a bin `render` with `Pose.inv_apply_vec` made to raise on rays (not on
   the Projection's vectors) renders bitwise the frame traced from the
   object-frame rays the bin path used to be given (it never read them).
@@ -21,9 +21,10 @@ On the CPU:
 On the card (marked ``gpu``; they skip here): K11 bitwise its plain
 version in float32 and float64, with more objects than one launch serves
 and with a band; `render_jit` frames of "bin" and "kd" at 960x540 bitwise
-those of the same frames with the plain set-up; no launch and one ``plain``
-count when autograd needs the set-up (a camera leaf that requires grad),
-and K11 when only a pose requires grad. The file imports no JAX:
+those of the same frames with the plain set-up; K11 and, in the
+backward, K13 when autograd needs the set-up (a camera leaf that requires
+grad; the plain version never runs), and K11 alone when only a pose
+requires grad. The file imports no JAX:
     python -m pytest --noconftest -p no:cacheprovider -m gpu \\
         tests/test_torch_frame_setup.py
 """
@@ -36,9 +37,12 @@ import pytest
 import torch
 
 import cpp_cuda_raytracer_dev_torch as P
+from cpp_cuda_raytracer_dev_torch.models import camera as camera_mod
 from cpp_cuda_raytracer_dev_torch.models import renderer
 from cpp_cuda_raytracer_dev_torch.models.camera import (
     frame_setup_reference, object_frames, set_up_frame)
+from cpp_cuda_raytracer_dev_torch.models.setup_grad import \
+    frame_setup_grad_reference
 from cpp_cuda_raytracer_dev_torch.ops.cuda import shade as k11
 from cpp_cuda_raytracer_dev_torch.ops.quaternion import Pose, from_axis_angle
 from cpp_cuda_raytracer_dev_torch.utils.config import METHODS
@@ -176,16 +180,27 @@ def test_bin_probe_generates_no_rays(monkeypatch):
     assert got == want and min(got) > 0
 
 
-def test_setup_with_autograd_takes_the_plain_version():
+def test_setup_with_autograd_takes_the_plain_version(monkeypatch):
+    """On CPU tensors the Function's forward is the plain version and its
+    backward K13's twin, called once; only the rays carry autograd."""
     cam, poses, _, _, _ = _case("odd bin two objects", "cpu")
     cam.requires_grad_()
+    calls = []
+
+    def twin(*args):
+        calls.append(args[-1])
+        return frame_setup_grad_reference(*args)
+    monkeypatch.setattr(camera_mod, "frame_setup_grad_reference", twin)
     before = k11.frame_setup.launches
     setup = set_up_frame(cam, poses, "bin")
     assert k11.frame_setup.launches == before
-    assert setup.rmd.requires_grad and setup.proj.n.requires_grad
+    assert type(setup.rmd.grad_fn).__name__ == "_FrameSetupGradBackward"
+    assert not any(getattr(setup.proj, f).requires_grad
+                   for f in PROJ_FIELDS if f != "origin")
     assert not any(f.origin.requires_grad or f.proj.n.requires_grad
                    for f in setup.objects)
-    (setup.rmd.sum() + setup.proj.sx).backward()
+    setup.rmd.sum().backward()
+    assert calls == [(True,) * 6]
     for name in P.Camera.LEAVES:
         assert getattr(cam, name).grad is not None, name
     with torch.no_grad():
@@ -297,27 +312,40 @@ def test_replayed_frame_is_the_plain_setup_frame_on_gpu(method,
 
 
 @pytest.mark.gpu
-def test_no_launch_when_autograd_needs_the_setup_on_gpu():
+def test_no_launch_when_autograd_needs_the_setup_on_gpu(monkeypatch):
+    """A camera leaf that requires grad: K11 forward inside the autograd
+    Function (the plain version never runs) and K13 once in the backward;
+    a pose that requires grad alone: K11 and no Function."""
     _need_cuda()
     cam, poses, _, _, _ = _case("odd bin two objects", "cuda", (96, 64))
     cam.requires_grad_()
-    launches, plain = k11.frame_setup.launches, set_up_frame.plain
-    setup = set_up_frame(cam, poses, "bin")
-    assert (k11.frame_setup.launches, set_up_frame.plain) == (
-        launches, plain + 1)
+
+    def refuse(*args, **kw):
+        raise AssertionError("the plain set-up ran")
     with torch.no_grad():
         off = set_up_frame(cam, poses, "bin")
-    assert (k11.frame_setup.launches, set_up_frame.plain) == (
-        launches + 1, plain + 1)
-    _assert_same_setup(off, setup)
+    monkeypatch.setattr(camera_mod, "frame_setup_reference", refuse)
+    launches = k11.frame_setup.launches, k11.frame_setup_grad.launches
+    setup = set_up_frame(cam, poses, "bin")
+    assert (k11.frame_setup.launches, k11.frame_setup_grad.launches) == (
+        launches[0] + 1, launches[1])
+    assert type(setup.rmd.grad_fn).__name__ == "_FrameSetupGradBackward"
+    assert not setup.proj.n.requires_grad and not any(
+        f.origin.requires_grad for f in setup.objects)
+    _assert_same_setup(setup, off)
+    setup.rmd.sum().backward()
+    assert (k11.frame_setup.launches, k11.frame_setup_grad.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    assert all(p.grad is not None for p in cam.parameters())
     # a pose that requires grad: its object frame carries no autograd
-    # either way, so K11 serves it
+    # either way, so K11 serves it without the Function
     cam.requires_grad_(False)
     poses[1].requires_grad_()
     posed = set_up_frame(cam, poses, "bin")
-    assert (k11.frame_setup.launches, set_up_frame.plain) == (
-        launches + 2, plain + 1)
-    _assert_same_setup(posed, setup)
+    assert (k11.frame_setup.launches, k11.frame_setup_grad.launches) == (
+        launches[0] + 2, launches[1] + 1)
+    assert posed.rmd.grad_fn is None
+    _assert_same_setup(posed, off)
 
 
 @pytest.mark.gpu
