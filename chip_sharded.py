@@ -117,6 +117,7 @@ def regrowth(dev, tv, cfg, target, mesh) -> dict:
     import torch.distributed as dist
 
     import chip_smoke as cs
+    from cpp_cuda_raytracer_dev_torch.models.renderer import bin_entry_count
     from cpp_cuda_raytracer_dev_torch.parallel import render_pjit as pj
 
     sets = {k: cs.train_set(dev, tv) for k in ("compiled", "eager")}
@@ -136,8 +137,8 @@ def regrowth(dev, tv, cfg, target, mesh) -> dict:
             for p in sets.values():
                 p["camera"].pos.copy_(torch.tensor([0.0, 0.0, z]))
                 p["camera"].look_at.copy_(torch.tensor([0.0, y, 0.0]))
-        band = pj._band_entry_count(sets["compiled"]["scene"], cam, cfg,
-                                    mesh)
+        band = bin_entry_count(sets["compiled"]["scene"], cam, cfg,
+                               *pj._band(cam, mesh))
         if agree(band) > first >= -agree(-band):
             break
     else:

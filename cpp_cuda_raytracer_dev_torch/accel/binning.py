@@ -29,8 +29,6 @@ the JAX package's.
 
 from __future__ import annotations
 
-import contextlib
-import contextvars
 import dataclasses
 
 import torch
@@ -38,6 +36,7 @@ import torch
 from ..ops.cuda.bin_prepass import (bin_entry_keys, bin_entry_table,
                                     bin_tri_pass)
 from ..utils.dtypes import MT_EPSILON
+from ..utils.graphs import Budget
 
 
 @dataclasses.dataclass
@@ -56,45 +55,10 @@ class BinnedScene:
 
 
 @dataclasses.dataclass
-class BinBudget:
-    """The entry capacity of every bin table built inside `bin_budget`, the
-    live count of each table in the order they were built (``counts``,
-    scalar i64s on the device) and the largest of them (``live``, None
-    until a table is built). Recording a count launches nothing for the
-    first table, and one maximum for each later one."""
-
-    capacity: int
-    live: torch.Tensor | None = None
-    counts: list = dataclasses.field(default_factory=list)
-
-    def record(self, n_e: torch.Tensor) -> None:
-        self.counts.append(n_e)
-        self.live = n_e if self.live is None else torch.maximum(self.live,
-                                                                n_e)
-
-
-_BUDGET: contextvars.ContextVar = contextvars.ContextVar("bin_budget",
-                                                         default=None)
-
-
-@contextlib.contextmanager
-def bin_budget(capacity: int | None):
-    """Inside, the renderer's bin tables have ``capacity`` entries and
-    record their live counts in the yielded `BinBudget`; ``None`` yields
-    None and changes nothing."""
-    if capacity is None:
-        yield None
-        return
-    budget = BinBudget(capacity)
-    token = _BUDGET.set(budget)
-    try:
-        yield budget
-    finally:
-        _BUDGET.reset(token)
-
-
-def active_bin_budget() -> BinBudget | None:
-    return _BUDGET.get()
+class BinBudget(Budget):
+    """The entry capacity of every bin table built inside `utils/graphs.py`
+    `sized`, each table's live entry count (a scalar i64) and their
+    largest."""
 
 
 def bin_triangles(proj, origin: torch.Tensor, p1, e1, e2,

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 from ..ops.intersect import FixedOriginCache, Hit, mt_brute, mt_fixed_origin
 from ..utils.config import METHODS
-from .binning import active_bin_budget
+from ..utils.graphs import active_budget
 from .native import build_kd_fast
 from .raster import intersect_raster
 from .traverse import (ClusterAccel, KDTables, intersect_binned,
@@ -16,17 +16,19 @@ from .traverse import (ClusterAccel, KDTables, intersect_binned,
                        intersect_clustered_pallas_v2, kd_intersect)
 
 
-def _bin(frame, tris, accel, config, band_h, band_w) -> Hit:
-    """Inside `bin_budget` the table has the budget's capacity and its live
-    count is recorded in the budget."""
-    budget = active_bin_budget()
-    out = intersect_binned(frame.origin, frame.rays, tris, frame.proj,
-                           config, band_h, band_w, capacity=None
-                           if budget is None else budget.capacity)
-    if budget is None:
-        return out
-    budget.record(out[1])
-    return out[0]
+def _sized(intersect):
+    """``intersect(frame, tris, accel, config, band_h, band_w, size)``
+    inside `utils/graphs.py` `sized`: at its budget's capacity, the live
+    count recorded in the budget; else at None."""
+    def run(frame, tris, accel, config, band_h, band_w) -> Hit:
+        budget = active_budget()
+        out = intersect(frame, tris, accel, config, band_h, band_w,
+                        None if budget is None else budget.capacity)
+        if budget is None:
+            return out
+        budget.record(out[1])
+        return out[0]
+    return run
 
 
 INTERSECTS = {
@@ -35,13 +37,15 @@ INTERSECTS = {
     "fixed": lambda f, tris, accel, c, bh, bw: mt_fixed_origin(
         f.rays, FixedOriginCache.build(f.origin, tris), c.draw_distance,
         c.eps, c.chunk),
-    "bin": _bin,
+    "bin": _sized(lambda f, tris, accel, c, bh, bw, cap: intersect_binned(
+        f.origin, f.rays, tris, f.proj, c, bh, bw, capacity=cap)),
     "grid": lambda f, tris, accel, c, bh, bw: intersect_clustered(
         f.origin, f.rays, tris, accel, c, bh, bw),
     "pallas": lambda f, tris, accel, c, bh, bw: intersect_clustered_pallas(
         f.origin, f.rays, accel, c, bh, bw),
-    "pallas2": lambda f, tris, accel, c, bh, bw:
-        intersect_clustered_pallas_v2(f.origin, f.rays, accel, c, bh, bw),
+    "pallas2": _sized(lambda f, tris, accel, c, bh, bw, cap:
+                      intersect_clustered_pallas_v2(f.origin, f.rays, accel,
+                                                    c, bh, bw, bucket=cap)),
     "kd": lambda f, tris, accel, c, bh, bw: kd_intersect(
         f.origin, f.rays, accel, c.draw_distance, c.eps, width=bw or 0),
     "raster": lambda f, tris, accel, c, bh, bw: intersect_raster(

@@ -27,7 +27,6 @@ lockstep over all rays) on the CPU.
 from __future__ import annotations
 
 import dataclasses
-
 import numpy as np
 import torch
 
@@ -39,6 +38,7 @@ from ..ops.cuda.tile_intersect import tile_intersect, tile_intersect_v2
 from ..ops.intersect import Hit, mt_test
 from .binning import BinnedScene, bin_triangles
 from ..utils.dtypes import DEFAULT_DRAW_DISTANCE, MT_EPSILON, SLAB_EPSILON
+from ..utils.graphs import Budget
 from ..utils.profiling import tally
 from .kd_build import KDTree
 
@@ -429,15 +429,65 @@ def _run_v2_kernel(o, d_tiles, cand, count, accel: ClusterAccel, config,
                              count_subs=config.debug_mode == 1)
 
 
+@dataclasses.dataclass
+class EscalateBudget(Budget):
+    """The bucket of "pallas2"'s exact escalation (``escalate_all``) inside
+    `utils/graphs.py` `sized`: (tiles escalated, candidates a tile), and
+    each object's live counts, an i64 (2,) [tiles with overflow, the
+    longest visible list of an escalated tile with overflow], and their
+    elementwise maximum."""
+
+    def fill(self) -> tuple[list[int], int]:
+        """Each object's tiles with overflow and the tiles' bucket."""
+        return [int(n[0]) for n in self.counts], self.capacity[0]
+
+
+def _v2_cull(o, d, accel: ClusterAccel, config, res_h: int, res_w: int):
+    """The "pallas2" tiles and their first cull: (tiles, meta, n_sub, cand,
+    count, overflow)."""
+    th, tw = config.tile_h, config.tile_w
+    k = min(config.max_candidates, accel.num_clusters)
+    tiles, meta = _tile_rays(d, res_h, res_w, th, tw, config.sub_h,
+                             config.sub_w)
+    sh, sw = meta[6], meta[7]
+    n_sub = (th // sh) * (tw // sw) if (sh and sw) else 1
+    return (tiles, meta, n_sub, *_cull(o, tiles, accel, config, k, sh, sw))
+
+
+def escalation_need(o: torch.Tensor, d: torch.Tensor, accel: ClusterAccel,
+                    config, res_h: int, res_w: int) -> torch.Tensor:
+    """The live counts that size "pallas2"'s exact escalation, an i64 (2,)
+    on the device: the tiles whose first cull overflows, and the longest
+    visible list among them (the flat cull's visible clusters; 0 where no
+    tile overflows). The probe of a compiled frame's first bucket."""
+    tiles, meta, _, _, _, overflow = _v2_cull(o, d, accel, config, res_h,
+                                              res_w)
+    over = overflow > 0
+    if not bool(over.any()):                                # a host read
+        return torch.zeros(2, dtype=torch.int64, device=o.device)
+    _, count, ovf = cull_tiles(o, tiles[over], accel, config.tile_h,
+                               config.tile_w, 1, meta[6], meta[7])
+    return torch.stack([over.sum(), (count + ovf).amax().to(torch.int64)])
+
+
 def intersect_clustered_pallas_v2(o: torch.Tensor, d: torch.Tensor,
                                   accel: ClusterAccel, config, res_h: int,
-                                  res_w: int):
+                                  res_w: int, bucket: tuple | None = None):
     """The "pallas2" path: frustum cull -> kernel K4 (nearest-first walk
     with the suffix-min early exit), then an exact second pass over the
     ``escalate_tiles`` tiles with the most overflow, flat-culled at
     ``max_candidates * escalate_factor`` and spliced in. The pass always
     runs (no host sync reads the overflow); overflow left after it is
     reported, not hidden.
+
+    With ``config.escalate_all`` the second pass takes every tile with
+    overflow, flat-culled at a budget that holds its whole visible list,
+    so no tile keeps overflow: sized from the live counts (one host read)
+    or, with ``bucket`` = (tiles, candidates), at that bucket with nothing
+    read back. The result is then (Hit, the live counts of
+    `escalation_need`, an i64 (2,) on the device): a caller that finds a
+    count above its bucket must redo the frame at a larger one, so no
+    result that is kept has dropped a cluster.
 
     With ``config.with_stats`` returns (Hit, stats): ``steps`` (nT,)
     candidates visited and ``mt_subs`` (nT,) sub-tile MT executions (with
@@ -446,38 +496,73 @@ def intersect_clustered_pallas_v2(o: torch.Tensor, d: torch.Tensor,
     """
     th, tw = config.tile_h, config.tile_w
     k = min(config.max_candidates, accel.num_clusters)
-    tiles, meta = _tile_rays(d, res_h, res_w, th, tw, config.sub_h,
-                             config.sub_w)
+    tiles, meta, n_sub, cand, count, overflow = _v2_cull(
+        o, d, accel, config, res_h, res_w)
     sh, sw = meta[6], meta[7]
-    n_sub = (th // sh) * (tw // sw) if (sh and sw) else 1
-    cand, count, overflow = _cull(o, tiles, accel, config, k, sh, sw)
     t_tiles, tri_tiles, steps = _run_v2_kernel(
         o, tiles.transpose(1, 2).contiguous(), cand, count, accel, config,
         n_sub)
 
     n_tiles = tiles.shape[0]
-    e = min(config.escalate_tiles, n_tiles)
-    k2 = min(k * max(config.escalate_factor, 1), accel.num_clusters)
-    if e > 0 and k2 > k and accel.num_clusters > k:
-        etile = torch.sort(overflow, descending=True,
-                           stable=True).indices[:e]
-        e_tiles = tiles[etile]
-        cand2, count2, ovf2 = cull_tiles(o, e_tiles, accel, th, tw, k2, sh,
-                                         sw)
-        t2, tri2, _ = _run_v2_kernel(
-            o, e_tiles.transpose(1, 2).contiguous(), cand2, count2, accel,
-            config, n_sub)
-        # escalated results are a superset of the first pass (a tile
-        # picked with overflow 0 recomputes the same answer)
-        t_tiles[etile] = t2
-        tri_tiles[etile] = tri2
-        overflow[etile] = ovf2
+    live = None
+    if config.escalate_all:
+        live = _escalate_all(o, tiles, overflow, t_tiles, tri_tiles, accel,
+                             config, n_sub, sh, sw, bucket)
+    else:
+        e = min(config.escalate_tiles, n_tiles)
+        k2 = min(k * max(config.escalate_factor, 1), accel.num_clusters)
+        if e > 0 and k2 > k and accel.num_clusters > k:
+            etile = torch.sort(overflow, descending=True,
+                               stable=True).indices[:e]
+            e_tiles = tiles[etile]
+            cand2, count2, ovf2 = cull_tiles(o, e_tiles, accel, th, tw, k2,
+                                             sh, sw)
+            t2, tri2, _ = _run_v2_kernel(
+                o, e_tiles.transpose(1, 2).contiguous(), cand2, count2,
+                accel, config, n_sub)
+            # escalated results are a superset of the first pass (a tile
+            # picked with overflow 0 recomputes the same answer)
+            t_tiles[etile] = t2
+            tri_tiles[etile] = tri2
+            overflow[etile] = ovf2
 
     hit = _hit(t_tiles, tri_tiles, meta, res_h, res_w)
     if config.with_stats:
         return hit, {"steps": steps[:, 0], "mt_subs": steps[:, 1],
                      "count": count, "overflow": overflow}
+    if bucket is not None:
+        return hit, live
     return hit
+
+
+def _escalate_all(o, tiles, overflow, t_tiles, tri_tiles,
+                  accel: ClusterAccel, config, n_sub: int, sh: int, sw: int,
+                  bucket):
+    """``escalate_all``'s second pass at ``bucket`` = (tiles, candidates),
+    spliced into ``t_tiles``, ``tri_tiles`` and ``overflow`` in place;
+    without a bucket at (the tiles with overflow, every cluster), one host
+    read. Returns the live counts of `escalation_need` (None where no tile
+    overflows and there is no bucket). Only tiles with overflow take its
+    result, so the tiles a bucket adds change nothing."""
+    over = overflow > 0
+    if bucket is None:
+        bucket = (int(over.sum()), accel.num_clusters)      # a host read
+        if bucket[0] == 0:
+            return None
+    etile = torch.sort(overflow, descending=True,
+                       stable=True).indices[:min(bucket[0], tiles.shape[0])]
+    e_tiles = tiles[etile]
+    cand2, count2, ovf2 = cull_tiles(
+        o, e_tiles, accel, config.tile_h, config.tile_w,
+        min(bucket[1], accel.num_clusters), sh, sw)
+    t2, tri2, _ = _run_v2_kernel(o, e_tiles.transpose(1, 2).contiguous(),
+                                 cand2, count2, accel, config, n_sub)
+    took = over[etile]
+    t_tiles[etile] = torch.where(took[:, None], t2, t_tiles[etile])
+    tri_tiles[etile] = torch.where(took[:, None], tri2, tri_tiles[etile])
+    overflow[etile] = torch.where(took, ovf2, overflow[etile])
+    need = torch.where(took, count2 + ovf2, 0).amax()
+    return torch.stack([over.sum(), need.to(torch.int64)])
 
 
 def _ray_table(proj, o, bmin, bmax, n_tiles: int, n_tx: int,

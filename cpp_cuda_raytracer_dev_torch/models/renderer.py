@@ -19,9 +19,9 @@ import dataclasses
 
 import torch
 
-from ..accel.binning import bin_budget
+from ..accel.binning import BinBudget
 from ..accel.methods import INTERSECTS
-from ..accel.traverse import bin_object
+from ..accel.traverse import EscalateBudget, bin_object, escalation_need
 from ..ops.intersect import Hit
 from ..utils import graphs
 from ..utils.config import METHODS, RenderConfig
@@ -169,27 +169,83 @@ def bin_entry_count(scene: Scene, camera: Camera, config: RenderConfig,
                    for obj, frame in zip(scene.objects, setup.objects))
 
 
-def compiled_frame(cache: graphs.GraphCache, frame, probe, scene: Scene,
-                   camera: Camera, config: RenderConfig, accel, *mesh):
+def escalation_count(scene: Scene, camera: Camera, config: RenderConfig,
+                     accel, row0: int = 0, band_h: int | None = None
+                     ) -> torch.Tensor:
+    """The live counts that size "pallas2"'s exact escalation
+    (`accel/traverse.py` `escalation_need`), the elementwise largest over
+    the objects: the probe of a key's first bucket (one uncaptured cull an
+    object, K4 not run), of a band as `bin_entry_count`'s."""
+    with torch.no_grad():
+        setup = set_up_frame(camera, [obj.pose for obj in scene.objects],
+                             config.method, row0, band_h)
+        need = [escalation_need(frame.origin, frame.rays, a, config,
+                                band_h or camera.res_h - row0, camera.res_w)
+                for a, frame in zip(accel, setup.objects)]
+        return torch.stack(need).amax(dim=0)
+
+
+def _bin_probe(scene: Scene, camera: Camera, config: RenderConfig, accel,
+               row0: int = 0, band_h: int | None = None) -> int:
+    return bin_entry_count(scene, camera, config, row0, band_h)
+
+
+def _bucketing(config: RenderConfig):
+    """What a frame or step of ``config`` sizes at a bucket of a live count
+    (`utils/graphs.py` `GraphCache`), as (its `Budget` class, its probe
+    (scene, camera, config, accel, row0, band_h), its least bucket): the
+    bin tables' entries (a ``probed`` method), or the tiles "pallas2"
+    escalates and their candidates (under ``escalate_all``); None where
+    it has no bucket."""
+    facts = METHODS[config.method]
+    if facts.probed:
+        return BinBudget, _bin_probe, config.bin_chunk
+    if facts.escalates and config.escalate_all:
+        return EscalateBudget, escalation_count, (1, 1)
+    return None
+
+
+def budget(config: RenderConfig, bucket) -> graphs.Budget | None:
+    """The `Budget` that sizes a frame or step of ``config`` at ``bucket``
+    (for `utils/graphs.py` `sized`), None where it has no bucket."""
+    sizing = _bucketing(config)
+    return None if sizing is None else sizing[0](bucket)
+
+
+def bucket_probe(scene: Scene, camera: Camera, config: RenderConfig, accel,
+                 row0: int = 0, band_h: int | None = None):
+    """(probe, least bucket) of ``config`` for `GraphCache.run`: the probe
+    of the frame's (or a band's) live count that picks a key's first
+    bucket; (None, None) where it has no bucket."""
+    sizing = _bucketing(config)
+    if sizing is None:
+        return None, None
+    _, probe, least = sizing
+    return (lambda _: probe(scene, camera, config, accel, row0, band_h),
+            least)
+
+
+def compiled_frame(cache: graphs.GraphCache, frame, scene: Scene,
+                   camera: Camera, config: RenderConfig, accel, *mesh,
+                   band=(0, None)):
     """``frame(scene, camera, config, *mesh, accel)`` without gradients
-    through ``cache`` (`utils/graphs.py`: captured on CUDA, its bin tables
-    at a bucket that grows with the live count), keyed by the config, the
-    leaves' shapes, dtypes and device, the resolution and the ``accel``
-    objects; a probed method's first bucket comes from ``probe(scene,
-    camera, config, *mesh)``. The outputs are bitwise the frame's."""
+    through ``cache`` (`utils/graphs.py`: captured on CUDA, what `budget`
+    sizes at a bucket that grows with the live count), keyed
+    by the config, the leaves' shapes, dtypes and device, the resolution
+    and the ``accel`` objects; the first bucket comes from `bucket_probe`
+    of the rows ``band`` = (row0, band_h). The outputs are bitwise the
+    frame's."""
     key = (config, graphs.signature((scene, camera)), camera.res_h,
            camera.res_w, None if accel is None else tuple(id(a)
                                                           for a in accel))
 
     def body(args, bucket):
-        with torch.no_grad(), bin_budget(bucket) as budget:
+        with torch.no_grad(), graphs.sized(budget(config, bucket)) as b:
             out = frame(*args, config, *mesh, accel)
-        return out, budget
+        return out, b
 
-    return cache.run(key, (scene, camera), body,
-                     (lambda args: probe(*args, config, *mesh))
-                     if METHODS[config.method].probed else None,
-                     config.bin_chunk, pin=accel)
+    probe, least = bucket_probe(scene, camera, config, accel, *band)
+    return cache.run(key, (scene, camera), body, probe, least, pin=accel)
 
 
 # render_jit's graphs, one memory pool (utils/graphs.py `GraphCache`)
@@ -210,5 +266,5 @@ def render_jit(scene: Scene, camera: Camera,
     with span("rt.render_jit"):
         if not jit_captures(config):
             return render(scene, camera, config, accel)
-        return compiled_frame(FRAME_GRAPHS, render_differentiable,
-                              bin_entry_count, scene, camera, config, accel)
+        return compiled_frame(FRAME_GRAPHS, render_differentiable, scene,
+                              camera, config, accel)

@@ -54,15 +54,15 @@ import torch
 import torch.distributed as dist
 
 from ..models.camera import Camera, set_up_frame
-from ..accel.binning import bin_budget
 from ..accel.methods import INTERSECTS
-from ..models.renderer import (RenderOutput, bin_entry_count, compiled_frame,
-                               jit_captures, render_differentiable,
-                               render_rays, shade_and_compose, trace_rays)
+from ..models.renderer import (RenderOutput, bucket_probe, budget,
+                               compiled_frame, jit_captures,
+                               render_differentiable, render_rays,
+                               shade_and_compose, trace_rays)
 from ..models.scene import Scene
 from ..ops.intersect import Hit
 from ..utils import graphs
-from ..utils.config import METHODS, RenderConfig
+from ..utils.config import RenderConfig
 from ..utils.profiling import span
 from .collectives import allreduce_nearest_hit
 from .mesh import (PRIMS_AXIS, RAYS_AXIS, axis_group, axis_index, axis_size,
@@ -127,30 +127,27 @@ def render_sharded(scene: Scene, camera: Camera, config: RenderConfig,
 
 def agreed_max(mesh):
     """`utils/graphs.py` ``agree`` for a mesh: ``agree(count)``, the
-    maximum of a count (an int, or a scalar tensor on this rank's device)
-    over every rank of the mesh, as an int (one MAX all-reduce of 8 bytes
-    a mesh dimension, then one host read). Every rank must call it at the
-    same point of the program."""
+    maximum of a count (an int, or a tensor of one or two counts on this
+    rank's device) over every rank of the mesh, as an int or a tuple of
+    ints, elementwise (one MAX all-reduce of 8 or 16 bytes a mesh
+    dimension, then one host read). Every rank must call it at the same
+    point of the program."""
     groups = [mesh.get_group(name) for name in mesh.mesh_dim_names]
     dev = (torch.device("cuda", torch.cuda.current_device())
            if mesh.device_type == "cuda" else torch.device("cpu"))
 
     def agree(count) -> int:
-        n = torch.as_tensor(count).to(dev, torch.int64, copy=True).reshape(1)
+        n = torch.as_tensor(count).to(dev, torch.int64, copy=True).reshape(-1)
         for group in groups:
             dist.all_reduce(n, op=dist.ReduceOp.MAX, group=group)
-        return int(n)
+        return int(n) if n.numel() == 1 else tuple(n.tolist())
     return agree
 
 
-def _band_entry_count(scene: Scene, camera: Camera, config: RenderConfig,
-                      mesh) -> int:
-    """`bin_entry_count` of this rank's band (of the frame without a
-    mesh): the probe of a compiled bin frame or step."""
-    if mesh is None:
-        return bin_entry_count(scene, camera, config)
-    row0, band_h = _check_band(camera, mesh)
-    return bin_entry_count(scene, camera, config, row0, band_h)
+def _band(camera: Camera, mesh) -> tuple[int, int | None]:
+    """(row0, band_h) of this rank's band, (0, None) without a mesh: the
+    rows a compiled frame or step probes (`bucket_probe`)."""
+    return (0, None) if mesh is None else _check_band(camera, mesh)
 
 
 # render_sharded_jit's graphs: one `GraphCache` a mesh, as (mesh, cache)
@@ -187,9 +184,9 @@ def render_sharded_jit(scene: Scene, camera: Camera, config: RenderConfig,
     if not jit_captures(config):
         with torch.no_grad():
             return render_sharded(scene, camera, config, mesh, accel)
-    return compiled_frame(sharded_graphs(mesh), render_sharded,
-                          _band_entry_count, scene, camera, config, accel,
-                          mesh)
+    return compiled_frame(sharded_graphs(mesh), render_sharded, scene,
+                          camera, config, accel, mesh,
+                          band=_band(camera, mesh))
 
 
 @dataclasses.dataclass
@@ -515,12 +512,12 @@ def make_train_step_jit(optimizer: torch.optim.Optimizer,
 
         def body(target, bucket):
             optimizer.zero_grad(set_to_none=True)
-            with bin_budget(bucket) as budget:
+            with graphs.sized(budget(config, bucket)) as sized:
                 loss = loss_fn(params, target)
                 loss.backward()
             if mesh is not None:
                 allreduce_gradients(trained, mesh)
-            return loss.detach(), budget
+            return loss.detach(), sized
         return body
 
     def step(params, target: torch.Tensor) -> torch.Tensor:
@@ -533,11 +530,10 @@ def make_train_step_jit(optimizer: torch.optim.Optimizer,
             if key != state["key"]:         # one pair of graphs is kept
                 state.update(key=key, cache=graphs.GraphCache(agree))
             cache = state["cache"]
-            probe = ((lambda _: _band_entry_count(scene, camera, config,
-                                                  mesh))
-                     if METHODS[config.method].probed else None)
+            probe, least = bucket_probe(scene, camera, config, accel,
+                                        *_band(camera, mesh))
             loss = cache.run(key, target, forward_backward(params), probe,
-                             config.bin_chunk, pin=(params, accel))
+                             least, pin=(params, accel))
             cache.follow(optimizer.step)
             return loss
     step.graphs = lambda: state["cache"]

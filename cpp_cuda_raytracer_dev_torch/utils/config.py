@@ -1,7 +1,8 @@
 """Render configuration: the JAX package's ``RenderConfig``, field for field.
 
 The fields and their defaults are the same, so a configuration translates
-one to one. The TPU-only modes (the bf16 pass counts of the TPU's matrix
+one to one; ``escalate_all``, which the JAX package lacks, is off by
+default. The TPU-only modes (the bf16 pass counts of the TPU's matrix
 unit, the bf16 preview of kernel K1 and K4's floor probes) raise
 ``NotImplementedError`` at construction: a deliberate difference (ROADMAP
 F10, decided in queue 1's former item 8). `METHODS` is the intersect
@@ -22,7 +23,9 @@ class Method:
     none); float32 only (its kernels' operands, or raster's bitcast of t);
     reads the camera Projection; reads object-frame rays ("bin" makes its
     own from the Projection); captured by the compiled entry points
-    ("raster" sizes its dense list by a host read); its bucket probed."""
+    ("raster" sizes its dense list by a host read); its bucket probed;
+    takes ``RenderConfig.escalate_all`` (its escalation is then sized at
+    a probed bucket, `models/renderer.py` `budget`)."""
 
     accel: str | None = None
     float32: bool = True
@@ -30,6 +33,7 @@ class Method:
     object_rays: bool = True
     captured: bool = True
     probed: bool = False
+    escalates: bool = False
 
 
 METHODS = {
@@ -38,7 +42,7 @@ METHODS = {
     "bin": Method(proj=True, object_rays=False, probed=True),
     "grid": Method(accel="ClusterAccel"),
     "pallas": Method(accel="ClusterAccel"),
-    "pallas2": Method(accel="ClusterAccel"),
+    "pallas2": Method(accel="ClusterAccel", escalates=True),
     "kd": Method(accel="KDTables", float32=False),
     "raster": Method(proj=True, captured=False),
 }
@@ -85,6 +89,13 @@ class RenderConfig:
     # escalate_factor and their hits spliced in. 0 = off.
     escalate_tiles: int = 64
     escalate_factor: int = 4
+    # pallas2 exact escalation (an addition the JAX package lacks, ROADMAP
+    # F7): every tile with overflow is culled again, flat, at a candidate
+    # budget that holds its whole visible list, so no tile keeps overflow;
+    # escalate_tiles and escalate_factor are then unused. The eager frame
+    # sizes both from the live counts (host reads); the compiled ones at
+    # buckets of them (`models/renderer.py` `budget`).
+    escalate_all: bool = False
     # Telemetry: intersect_binned (kernel K3) and
     # intersect_clustered_pallas_v2 then return (Hit, stats); trace_rays
     # refuses it, as in the JAX package.

@@ -17,20 +17,23 @@ graph it follows:
   which never steps an optimizer.
 - One memory pool serves every graph of a cache. Outputs live in it, so
   each call returns clones of them, which no later replay overwrites.
-- Bucket: a program whose bin tables are sized at a capacity bucket
-  (`accel/binning.py` `bin_budget`) returns its `BinBudget` (else None),
-  which holds each table's live count and their largest, ``live``. The
-  first call of a key takes its bucket from a probe (the live count of an
-  uncaptured frame): the next power of two at or above it, a multiple of
-  ``chunk``. After each replay the host reads the live count
-  (8 bytes, the only sync); above the bucket, the result is thrown away and
+- Bucket: a program whose tensors are sized at a bucket of a live count
+  runs inside `sized` and returns its `Budget` (else None), which holds
+  each table's live count and their largest, ``live``: the bin tables'
+  entries (`accel/binning.py` `BinBudget`, an int bucket) or the tiles
+  "pallas2" escalates and their candidates (`accel/traverse.py`
+  `EscalateBudget`, a bucket of two ints, each count held to its own).
+  The first call of a key takes its bucket from a probe (the live count of
+  an uncaptured frame): the next power of two at or above it, at least
+  ``chunk``. After each replay the host reads the live count (8 or 16
+  bytes, the only sync); above the bucket, the result is thrown away and
   the program is captured again at the bucket that holds it and replayed.
   The bucket never shrinks. A capture that fails raises: nothing falls back
   to the uncaptured program.
 - Fill: the cache keeps the budget of each key's last run (on CUDA the
   captured one, whose counts each replay rewrites), so `fill` reads how
-  full each table of the last frame was, when asked: a frame makes no
-  read and launches nothing for it.
+  full the last frame's bucket was, when asked: a frame makes no read and
+  launches nothing for it.
 - Agreement (the sharded paths, `parallel/render_pjit.py`): every rank of
   a mesh replays its own graph, whose collectives pair up only if every
   rank replays, regrows, warms up and captures at the same calls. A cache
@@ -43,9 +46,9 @@ graph it follows:
   device (objects named by ``id`` are pinned, so no id is reused).
 
 - Tracing (`utils/profiling.py`): each replay runs in the span
-  ``rt.graphs.launch`` and each host read of the live count in
-  ``rt.graphs.live``; every probe, warm-up and capture adds its host
-  seconds to ``capture_s``.
+  ``rt.graphs.launch``, each host read of the live count in
+  ``rt.graphs.live`` and each regrowth in ``rt.graphs.regrow``; every
+  probe, warm-up and capture adds its host seconds to ``capture_s``.
 
 On the CPU there is no graph: the body runs on the caller's arguments at
 the same bucket, with the same growth check.
@@ -53,6 +56,8 @@ the same bucket, with the same growth check.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import copy
 import dataclasses
 
@@ -60,11 +65,74 @@ import torch
 
 from .profiling import span, tally
 
+# the span of a regrowth of a bucket (`GraphCache.grow`)
+REGROW_SPAN = "rt.graphs.regrow"
 
-def next_bucket(live: int, chunk: int) -> int:
+
+def next_bucket(live, chunk):
     """The smallest power of two at or above ``live``, at least ``chunk``
-    (a power of two, so the bucket is a multiple of it)."""
+    (a power of two, so the bucket is a multiple of it); elementwise where
+    ``live`` and ``chunk`` are tuples."""
+    if isinstance(live, tuple):
+        return tuple(next_bucket(n, c) for n, c in zip(live, chunk))
     return max(1 << max(int(live) - 1, 0).bit_length(), chunk)
+
+
+def _fits(live, bucket) -> bool:
+    if isinstance(live, tuple):
+        return all(n <= b for n, b in zip(live, bucket))
+    return live <= bucket
+
+
+def _larger(a, b):
+    """The elementwise maximum of two buckets: a bucket never shrinks."""
+    if isinstance(a, tuple):
+        return tuple(max(x, y) for x, y in zip(a, b))
+    return max(a, b)
+
+
+@dataclasses.dataclass
+class Budget:
+    """The bucket every table of a frame is sized at (``capacity``), the
+    live count of each table in the order they were built (``counts``, i64
+    tensors on the device: a scalar, or one element for each int of a
+    tuple bucket) and their (elementwise) largest, ``live`` (None until a
+    table is built). Recording a count launches nothing for the first
+    table, and one maximum for each later one."""
+
+    capacity: int | tuple
+    live: torch.Tensor | None = None
+    counts: list = dataclasses.field(default_factory=list)
+
+    def record(self, n: torch.Tensor) -> None:
+        self.counts.append(n)
+        self.live = n if self.live is None else torch.maximum(self.live, n)
+
+    def fill(self) -> tuple[list[int], int]:
+        """Each table's live count and the capacity (read from the
+        device)."""
+        return [int(n) for n in self.counts], self.capacity
+
+
+_BUDGET: contextvars.ContextVar = contextvars.ContextVar("budget",
+                                                         default=None)
+
+
+@contextlib.contextmanager
+def sized(budget: Budget | None):
+    """Inside, the renderer sizes the tables ``budget`` is for (its class:
+    `models/renderer.py` `budget` picks it) at its capacity and records
+    their live counts in it; None changes nothing. Yields ``budget``."""
+    token = _BUDGET.set(budget)
+    try:
+        yield budget
+    finally:
+        _BUDGET.reset(token)
+
+
+def active_budget() -> Budget | None:
+    """The budget of `sized`, else None."""
+    return _BUDGET.get()
 
 
 def leaves(args) -> list[torch.Tensor]:
@@ -124,12 +192,13 @@ class GraphCache:
     """Captured programs by key and bucket, in one memory pool. ``captures``
     counts the graphs captured and ``regrown`` the calls whose live count
     outgrew their bucket; ``buckets`` holds each key's bucket and
-    ``tables`` the `BinBudget` of each key's last run (``last`` is the key
+    ``tables`` the `Budget` of each key's last run (``last`` is the key
     run last, ``replayed`` the graph it replayed last, None on the CPU).
 
     ``agree``: None, or a function that returns the maximum over a mesh of
-    a count (an int, or a scalar tensor on the program's device) as an int;
-    every count that picks or grows a bucket then goes through it."""
+    a count (an int, or a tensor of one or two counts on the program's
+    device) as an int or a tuple of ints; every count that picks or grows a
+    bucket then goes through it."""
 
     def __init__(self, agree=None):
         self.agree = agree
@@ -138,20 +207,25 @@ class GraphCache:
         self.graphs: dict = {}      # (key, bucket) -> `capture` result
         self.buckets: dict = {}     # key -> bucket
         self.pinned: dict = {}      # key -> objects the key names by id
-        self.tables: dict = {}      # key -> BinBudget of its last run
+        self.tables: dict = {}      # key -> Budget of its last run
         self.last = self.replayed = self.followed = self.follower = None
         self.captures = 0
         self.regrown = 0
 
-    def count(self, n) -> int:
-        """A live or probed count as an int: read from the device, or with
-        ``agree`` its maximum over the mesh."""
-        return int(n) if self.agree is None else self.agree(n)
+    def count(self, n):
+        """A live or probed count as an int (a tuple of ints for a tensor
+        of several): read from the device, or with ``agree`` its maximum
+        over the mesh."""
+        if self.agree is not None:
+            return self.agree(n)
+        if isinstance(n, torch.Tensor) and n.dim():
+            return tuple(n.tolist())
+        return int(n)
 
-    def bucket(self, key, args, probe, chunk: int | None) -> int | None:
+    def bucket(self, key, args, probe, chunk):
         """The key's bucket; the first call of a key takes it from
         ``probe(args)`` (its host seconds count in ``capture_s``). None
-        for a program without bin tables."""
+        for a program without a bucket."""
         if probe is None:
             return None
         if key not in self.buckets:
@@ -160,29 +234,33 @@ class GraphCache:
             self.buckets[key] = next_bucket(n, chunk)
         return self.buckets[key]
 
-    def grow(self, key, budget, bucket, chunk) -> int | None:
+    def grow(self, key, budget, bucket, chunk):
         """After a run at ``bucket``: None when its ``budget``'s largest
         live count fits, else the larger bucket to redo it at (one host
-        read of 8 bytes, in the span ``rt.graphs.live``)."""
+        read of 8 or 16 bytes, in the span ``rt.graphs.live``; the
+        regrowth in ``rt.graphs.regrow``)."""
         if budget is None or budget.live is None:
             return None
         with span("rt.graphs.live"):
             n = self.count(budget.live)
-        if n <= bucket:
+        if _fits(n, bucket):
             return None
-        self.regrown += 1
-        self.graphs.pop((key, bucket), None)    # the bucket never shrinks
-        self.buckets[key] = next_bucket(n, chunk)
+        with span(REGROW_SPAN):
+            self.regrown += 1
+            self.graphs.pop((key, bucket), None)  # the bucket never shrinks
+            self.buckets[key] = _larger(bucket, next_bucket(n, chunk))
         return self.buckets[key]
 
-    def fill(self) -> tuple[list[int], int] | None:
-        """The live entry count of each bin table of the last run, in the
-        order they were built, and their capacity; None where that run
-        built none. Reads the counts from the device."""
+    def fill(self, kind: type) -> tuple[list[int], int] | None:
+        """`Budget.fill` of the last run where its budget is a ``kind``
+        (`accel/binning.py` `BinBudget`: the bin tables' entries;
+        `accel/traverse.py` `EscalateBudget`: the tiles "pallas2" escalated
+        and their bucket); None where that run built none. Reads the counts
+        from the device."""
         budget = self.tables.get(self.last)
-        if budget is None or not budget.counts:
+        if not isinstance(budget, kind) or not budget.counts:
             return None
-        return [int(n) for n in budget.counts], budget.capacity
+        return budget.fill()
 
     def program(self, key, args, body, bucket):
         """The key's graph at ``bucket`` and its static outputs and budget,

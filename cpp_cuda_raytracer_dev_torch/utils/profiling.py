@@ -10,9 +10,10 @@ codes (``TEST_Dungeonrun/WinMain.cpp:47-48,122-151,219-235``). Here:
   encloses it. With no profiler recording it is a shared null context,
   one flag check. The spans: ``rt.render_jit`` (`render_jit`'s whole
   call), ``rt.train_step`` (`make_train_step_jit`'s step), inside them
-  ``rt.graphs.launch`` (each replay of a captured graph) and
+  ``rt.graphs.launch`` (each replay of a captured graph),
   ``rt.graphs.live`` (the host's read of the live count, a wait on the
-  device).
+  device) and ``rt.graphs.regrow`` (a live count that outgrew its bucket:
+  the frame is redone at a larger one).
 - `SETUP_S` and `tally(name)`: process-wide set-up seconds by cause, on the
   host's clock: ``capture_s`` (every probe frame, and every warm-up and
   capture of a graph), ``kd_build_s`` (the KD tree's build and its tables'
@@ -21,6 +22,9 @@ codes (``TEST_Dungeonrun/WinMain.cpp:47-48,122-151,219-235``). Here:
   `render_jit` ran (its last replay on the card) and the tables' shared
   capacity, read when asked: the program keeps the counts a frame makes
   anyway, so a frame makes no read and launches nothing for it.
+- `escalate_fill()`: the same for "pallas2"'s exact escalation
+  (``escalate_all``): each object's tiles with overflow, all escalated, in
+  the last frame, and the bucket of tiles escalated.
 - `trace(dir)`: context manager around ``torch.profiler.profile`` (CPU and,
   where there is one, the CUDA device); writes a Chrome trace on exit,
   which shows the spans above the kernels they launch.
@@ -76,8 +80,19 @@ def bin_fill() -> tuple[list[int], int] | None:
     last frame run by `render_jit`, or None where that frame built no bin
     tables. Reads the counts from the device: call it outside the frames
     being timed."""
+    from ..accel.binning import BinBudget
     from ..models import renderer
-    return renderer.FRAME_GRAPHS.fill()
+    return renderer.FRAME_GRAPHS.fill(BinBudget)
+
+
+def escalate_fill() -> tuple[list[int], int] | None:
+    """([tiles with overflow of each object], the bucket of tiles
+    escalated) of the last frame run by `render_jit` with "pallas2"'s
+    exact escalation, or None where that frame had none. Reads the counts
+    from the device: call it outside the frames being timed."""
+    from ..accel.traverse import EscalateBudget
+    from ..models import renderer
+    return renderer.FRAME_GRAPHS.fill(EscalateBudget)
 
 
 def _sync_cuda() -> None:

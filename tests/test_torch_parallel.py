@@ -93,6 +93,7 @@ _WORKER = textwrap.dedent("""
     import torch.distributed as dist
     from cpp_cuda_raytracer_dev_torch import RenderConfig, render
     from cpp_cuda_raytracer_dev_torch import render_differentiable
+    from cpp_cuda_raytracer_dev_torch.models.renderer import bin_entry_count
     from cpp_cuda_raytracer_dev_torch.ops.intersect import Hit
     from cpp_cuda_raytracer_dev_torch.parallel import mesh as pm
     from cpp_cuda_raytracer_dev_torch.parallel import render_pjit as pj
@@ -178,8 +179,8 @@ _WORKER = textwrap.dedent("""
                     if kind == "regrow" and i == 1:
                         with torch.no_grad():
                             cam.look_at.copy_(torch.tensor([0.0, -0.4, 0.0]))
-                        res[f"{p}.band1"] = np.array(pj._band_entry_count(
-                            scene, cam, cfg, mesh))
+                        res[f"{p}.band1"] = np.array(bin_entry_count(
+                            scene, cam, cfg, *pj._band(cam, mesh)))
                     res[f"{p}.loss{i}"] = step({"scene": scene,
                                                 "camera": cam}, tgt).numpy()
                     if name == "jit":
