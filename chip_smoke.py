@@ -90,6 +90,10 @@ Phases (any failure raises and the process exits non-zero):
      thread would have on frame 0 (from the telemetry); both kernels, and
      K4's escalation pass, timed with CUDA events; each design lever
      switched off in turn and timed against the design (``time_levers``);
+     the cull kernel K14 against its plain twin on headline frame 0 (the
+     two-level first pass and a flat pass of 256 tiles at 128 candidates,
+     the ``pallas2.orbit`` bucket: ids, counts, overflow and boxes
+     bitwise), each pass and its twin timed, with its bound;
      8 "pallas2" and 3 "pallas" frames through ``render``
      at phase 3's cameras and poses after resetting both launch counters,
      which must show the frames went through the kernels; frame 0 of each
@@ -314,6 +318,9 @@ K11_OPS_PER_RAY = 25           # csrc/shade.cu, K11's "Bound"
 K11_OPS_PER_OBJECT_RAY = 15
 K12_OPS_PER_HIT = 400          # csrc/shade.cu, K12's "Bound"
 K13_OPS_PER_RAY = 45           # csrc/shade.cu, K13's "Bound"
+K14_OPS_PER_TEST = 30          # csrc/tile_intersect.cu, K14's "Bound": a box
+#                                test's 6 differences and 4 planes of 6
+K14_BUCKET = (256, 128)        # pallas2.orbit's escalation bucket
 N_RASTER_STEPS = 2             # uncaptured compiled raster steps vs eager
 N_ANIMATE_TICKS = 30
 BACKGROUND = (240, 130, 0)
@@ -343,7 +350,8 @@ KERNEL_NAMES = {"bin_intersect": "own_walk_kernel",
                 "shade_compose": "shade_compose_kernel",
                 "frame_setup": "frame_setup_kernel",
                 "shade_grad": "shade_grad_kernel",
-                "frame_setup_grad": "frame_setup_grad_kernel"}
+                "frame_setup_grad": "frame_setup_grad_kernel",
+                "cluster_cull": "cluster_cull_kernel"}
 # K3's and K6's design levers, each switched off (one ray a thread, which at
 # P 512 is also one entry group of 512 threads; one entry group of P / 4
 # threads; two rays a thread in two groups; the next block or chunk copied
@@ -1457,12 +1465,14 @@ def run_cluster_paths(dev, headline_tv, frames, idx_t, ref, smi, clock_mhz):
             f"tiles, K {escal0[1].shape[1]}): kernel {ms_esc[0]:.4f} ms, "
             f"plain {ms_esc[1]:.4f} ms ({smi})")
         lever_ms = time_levers(k45, frame0, smi)
+        k14 = run_k14(frames[0], accel, c2, smi, clock_mhz)
 
     # serve frames through the entry point, one path at a time
     served, launches = {}, {}
     for method, n in N_CLUSTER_FRAMES.items():
         k45.tile_intersect_v2.launches = 0
         k45.tile_intersect.launches = 0
+        k45.cluster_cull.launches = 0
         frame_ms, outs = [], []
         for scene, cam in frames[:n]:
             start.record()
@@ -1472,7 +1482,8 @@ def run_cluster_paths(dev, headline_tv, frames, idx_t, ref, smi, clock_mhz):
             frame_ms.append(start.elapsed_time(end))
             outs.append(out)
         launches[method] = (k45.tile_intersect_v2.launches,
-                            k45.tile_intersect.launches)
+                            k45.tile_intersect.launches,
+                            k45.cluster_cull.launches)
         served[method] = outs
         for i, out in enumerate(outs):
             hit = out.hit_tri >= 0
@@ -1501,6 +1512,12 @@ def run_cluster_paths(dev, headline_tv, frames, idx_t, ref, smi, clock_mhz):
             launches["pallas"][0] != 0:
         raise RuntimeError(f"pallas frames launched K4/K5 "
                            f"{launches['pallas']} times")
+    # K14: a pallas2 frame's first pass and its escalation, a pallas
+    # frame's one pass
+    if launches["pallas2"][2] != 2 * N_CLUSTER_FRAMES["pallas2"] or \
+            launches["pallas"][2] != N_CLUSTER_FRAMES["pallas"]:
+        raise RuntimeError(f"the cluster frames launched K14 "
+                           f"{[launches[m][2] for m in launches]} times")
 
     # frame 0 of each method, and one grid frame, against the oracle rays
     with torch.inference_mode():
@@ -1645,7 +1662,79 @@ def run_cluster_paths(dev, headline_tv, frames, idx_t, ref, smi, clock_mhz):
         "levers_ms": lever_ms["K5"],
         "launches_by_path": {"serve_pallas2": launches["pallas2"][1],
                              "serve_pallas": launches["pallas"][1],
-                             "train_pallas2": 0}}]
+                             "train_pallas2": 0}}, dict(
+        k14, launches=launches["pallas2"][2],
+        launches_by_path={"serve_pallas2": launches["pallas2"][2],
+                          "serve_pallas": launches["pallas"][2]})]
+
+
+def run_k14(frame, accel, c2, smi, clock_mhz) -> dict:
+    """K14 (the cull) against its plain twin on one headline frame: the
+    two-level first pass over every tile, and a flat pass at the
+    ``pallas2.orbit`` bucket (`K14_BUCKET`: the tiles with the most
+    overflow, padded with the next ones, at 128 candidates), outputs
+    bitwise; each pass and its twin timed. Returns the kernels line's
+    entry for K14."""
+    from cpp_cuda_raytracer_dev_torch.accel import traverse as tr
+    scene, cam = frame
+    obj = scene.objects[0]
+    o = obj.pose.inv_apply(cam.pos)
+    d = obj.pose.inv_apply_vec(cam.ray_directions())
+    th, tw = c2.tile_h, c2.tile_w
+    k = min(c2.max_candidates, accel.num_clusters)
+    tiles, _ = tr._tile_rays(d, RES_H, RES_W, th, tw)
+    c, group = accel.num_clusters, c2.group_size
+    ng = -(-c // group)
+    kg = min(c2.max_groups, ng)
+    _, _, ovf = tr.cull_tiles_hier(o, tiles, accel, th, tw, k, group, kg)
+    et = tiles[torch.sort(ovf, descending=True,
+                          stable=True).indices[:K14_BUCKET[0]]]
+    k2 = min(K14_BUCKET[1], c)
+
+    def twin(out):
+        return (*out, tr._candidate_boxes(o, accel, out[0], out[1]))
+    passes = {
+        "first pass": (
+            lambda: tr.cull_tiles_hier(o, tiles, accel, th, tw, k, group, kg,
+                                       boxes=True),
+            lambda: twin(tr.cull_tiles_hier_reference(
+                o, tiles, accel, th, tw, k, group, kg)),
+            tiles.shape[0] * (ng + kg * group), k, tiles.shape[0]),
+        "escalation pass": (
+            lambda: tr.cull_tiles(o, et, accel, th, tw, k2, boxes=True),
+            lambda: twin(tr.cull_tiles_reference(o, et, accel, th, tw, k2)),
+            et.shape[0] * c, k2, et.shape[0])}
+    entry = {"name": "cluster_cull", "route": "cuda",
+             "source": "cpp_cuda_raytracer_dev_torch/csrc/tile_intersect.cu",
+             "replaces": "cpp_cuda_raytracer_dev_tpu/accel/traverse.py:300,"
+                         "319,415 (plain jnp, no Pallas kernel)",
+             "max_abs_err": 0.0, "library_ms": None}
+    for pname, (fn, plain, tests, kk, n_t) in passes.items():
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        eq = [torch.equal(x, y) for x, y in zip(got, want)]
+        log(f"K14 vs plain [headline frame 0, {pname}, {n_t} tiles at K "
+            f"{kk}]: cand, count, overflow, boxes bitwise {eq}; count mean "
+            f"{float(want[1].float().mean()):.2f}, overflow tiles "
+            f"{int((want[2] > 0).sum())}")
+        if not all(eq):
+            raise RuntimeError(f"K14 and its plain twin disagree ({pname})")
+        kms, pms = cuda_ms(fn, KERNEL_REPS), cuda_ms(plain, PLAIN_REPS)
+        # the cluster bounds read once, the tiles' five rays, the lists,
+        # counts and boxes written
+        nbytes = (c * 24 + n_t * (5 * 12 + 8 + kk * (4 + 32))
+                  + (ng * 24 if pname == "first pass" else 0))
+        bound = op_bounds(tests * K14_OPS_PER_TEST, nbytes, clock_mhz)
+        log(f"K14 {pname}: {tests} box tests at {K14_OPS_PER_TEST} FP32 "
+            f"operations; {bound['text']}; kernel {kms:.4f} ms, plain "
+            f"{pms:.4f} ms ({smi})")
+        key = "" if pname == "first pass" else "escalation_"
+        entry.update({f"{key}ms": kms, f"{key}plain_ms": pms,
+                      f"{key}bound_ms": bound["bound_ms"],
+                      f"{key}bound_by": bound["bound_by"],
+                      f"{key}bound_issue_ms": bound["bound_issue_ms"],
+                      f"{key}box_tests": tests})
+    return entry
 
 
 def tie_rule_holds(kname, tri, slot_mat):

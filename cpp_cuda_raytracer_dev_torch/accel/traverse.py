@@ -11,9 +11,13 @@ and the tile's rays are intersected with them: by dense plain PyTorch
 (`intersect_clustered`, "grid"), by kernel K5 (`intersect_clustered_pallas`,
 "pallas") or by kernel K4 with its early exit and an exact second pass
 over the tiles whose candidate list overflowed
-(`intersect_clustered_pallas_v2`, "pallas2"). The cull is vectorised over
-tiles, as the JAX package's ``vmap`` is; candidate order is a stable sort,
-as ``jax.lax.top_k``'s is, so equal keys keep the lower cluster first.
+(`intersect_clustered_pallas_v2`, "pallas2"). Candidate order is a stable
+sort, as ``jax.lax.top_k``'s is, so equal keys keep the lower cluster
+first. On CUDA tensors kernel K14 (``ops/cuda/tile_intersect.py``
+`cluster_cull`) runs a whole cull pass, the candidates' boxes included, in
+one launch; on CPU tensors its plain twins here (`cull_tiles_reference`,
+`cull_tiles_hier_reference`, `_candidate_boxes`), vectorised over tiles as
+the JAX package's ``vmap`` is, give the same bits.
 
 Bin path (``method="bin"``): per-tile ray table, screen-space binning, the
 bin-intersect kernel K1, and back to image order.
@@ -34,7 +38,8 @@ from ..ops import vecmath
 from ..ops.cuda.bin_intersect import bin_intersect
 from ..ops.cuda.bin_prepass import ray_table
 from ..ops.cuda.kd_traverse import kd_traverse, kd_traverse_reference
-from ..ops.cuda.tile_intersect import tile_intersect, tile_intersect_v2
+from ..ops.cuda.tile_intersect import (cluster_cull, tile_intersect,
+                                       tile_intersect_v2)
 from ..ops.intersect import Hit, mt_test
 from .binning import BinnedScene, bin_triangles
 from ..utils.dtypes import DEFAULT_DRAW_DISTANCE, MT_EPSILON, SLAB_EPSILON
@@ -181,25 +186,34 @@ def _corner_idx(th: int, tw: int, sh: int = 0, sw: int = 0):
     return 0, c01, c10, th * tw - 1
 
 
+def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Dot products over the last axis summed in one order on every device,
+    (a0 b0 + a1 b1) + a2 b2 (the CPU's sum; the card's reduction picks its
+    own), so that K14 repeats them bit for bit."""
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) \
+        + a[..., 2] * b[..., 2]
+
+
 def _tile_frustum_visible(o: torch.Tensor, tiles: torch.Tensor,
-                          bmin: torch.Tensor, bmax: torch.Tensor,
-                          th: int, tw: int, sh: int = 0, sw: int = 0):
+                          center: torch.Tensor, bmin: torch.Tensor,
+                          bmax: torch.Tensor, th: int, tw: int, sh: int = 0,
+                          sw: int = 0):
     """Visibility of cluster AABBs from each tile's ray cone.
 
-    tiles: (n, P, 3); bmin/bmax: (C, 3) shared by all tiles or (n, C, 3)
-    per tile. Directions are affine in pixel coordinates, so the 4 corner
-    rays bound the cone; each side plane passes through the origin, and a
-    box is outside when its corner furthest along the plane's inward
-    normal is behind it. Returns (visible (n, C), tnear (n, C)), tnear the
-    box centre's distance along the tile's mean direction.
+    tiles: (n, P, 3), center (n, 3) their mean over P; bmin/bmax: (C, 3)
+    shared by all tiles or (n, C, 3) per tile. Directions are affine in
+    pixel coordinates, so the 4 corner rays bound the cone; each side plane
+    passes through the origin, and a box is outside when its corner
+    furthest along the plane's inward normal is behind it. Returns (visible
+    (n, C), tnear (n, C)), tnear the box centre's distance along the tile's
+    mean direction.
     """
     i00, i01, i10, i11 = _corner_idx(th, tw, sh, sw)
     c00, c01, c10, c11 = (tiles[:, i] for i in (i00, i01, i10, i11))
-    center = tiles.mean(dim=1)                              # (n, 3)
     corners = torch.stack([c00, c01, c11, c10], dim=1)      # (n, 4, 3)
     nxt = torch.stack([c01, c11, c10, c00], dim=1)
     normals = vecmath.cross(corners, nxt)
-    flip = torch.sign(vecmath.dot(normals, center[:, None, :]))[..., None]
+    flip = torch.sign(_dot3(normals, center[:, None, :]))[..., None]
     normals = normals * torch.where(flip == 0, 1.0, flip)
     if bmin.dim() == 2:
         bmin, bmax = bmin[None], bmax[None]                 # (1|n, C, 3)
@@ -213,7 +227,7 @@ def _tile_frustum_visible(o: torch.Tensor, tiles: torch.Tensor,
         term = n_a * torch.where(n_a > 0, hi, lo)
         dist = term if dist is None else dist + term
     visible = (dist >= 0.0).all(dim=1)
-    tnear = vecmath.dot((bmin + bmax) / 2.0 - o, center[:, None, :])
+    tnear = _dot3((bmin + bmax) / 2.0 - o, center[:, None, :])
     return visible, tnear
 
 
@@ -229,19 +243,64 @@ def _cull_group(per_tile: int) -> int:
 
 
 def cull_tiles(o: torch.Tensor, tiles: torch.Tensor, accel: ClusterAccel,
-               th: int, tw: int, k: int, sh: int = 0, sw: int = 0):
+               th: int, tw: int, k: int, sh: int = 0, sw: int = 0,
+               boxes: bool = False):
     """Frustum-cull every cluster against every tile's ray cone.
 
     tiles: (nT, P, 3). Returns (cand (nT, K) int32 nearest-first, count
     (nT,) int32 visible clusters clamped to K, overflow (nT,) int32 visible
-    clusters past K).
+    clusters past K), and with ``boxes`` the candidates' boxes
+    (`_candidate_boxes`) fourth. Kernel K14 on CUDA tensors, one launch;
+    `cull_tiles_reference` on CPU tensors; the two agree bit for bit.
     """
+    return _cull_pass(o, tiles, accel, th, tw, k, sh, sw, 0, 0, boxes)
+
+
+def cull_tiles_hier(o: torch.Tensor, tiles: torch.Tensor, accel: ClusterAccel,
+                    th: int, tw: int, k: int, group: int, kg: int,
+                    sh: int = 0, sw: int = 0, boxes: bool = False):
+    """Two-level frustum cull: groups of `group` consecutive clusters (KD
+    leaf order, so spatially coherent) are tested first; only the nearest
+    `kg` visible groups have their member clusters tested. Same contract as
+    `cull_tiles`; the clusters of visible groups past the `kg` budget count
+    as overflow (an upper bound), so escalation picks those tiles up.
+    Kernel K14 on CUDA tensors, `cull_tiles_hier_reference` on CPU tensors.
+    """
+    return _cull_pass(o, tiles, accel, th, tw, k, sh, sw, group, kg, boxes)
+
+
+def _cull_pass(o, tiles, accel: ClusterAccel, th, tw, k, sh, sw, group, kg,
+               boxes):
+    """One cull pass, flat (``group`` 0) or through groups: K14 or the
+    twins, by the tiles' device."""
+    if tiles.device.type == "cuda":
+        tiles = tiles.contiguous()
+        kg = min(kg, -(-accel.num_clusters // group)) if group else 0
+        out = cluster_cull(o.contiguous(), tiles, tiles.mean(dim=1),
+                           accel.bounds_min, accel.bounds_max,
+                           _corner_idx(th, tw, sh, sw), k, group, kg, boxes)
+        return out if boxes else out[:3]
+    out = (cull_tiles_hier_reference(o, tiles, accel, th, tw, k, group, kg,
+                                     sh, sw) if group else
+           cull_tiles_reference(o, tiles, accel, th, tw, k, sh, sw))
+    if boxes:
+        return (*out, _candidate_boxes(o, accel, out[0], out[1]))
+    return out
+
+
+def cull_tiles_reference(o: torch.Tensor, tiles: torch.Tensor,
+                         accel: ClusterAccel, th: int, tw: int, k: int,
+                         sh: int = 0, sw: int = 0):
+    """`cull_tiles` (without boxes) in plain PyTorch on any device: K14's
+    twin, in tile groups that bound the (tile, plane, cluster)
+    temporaries."""
     out = []
+    center = tiles.mean(dim=1)                              # (nT, 3)
     step = _cull_group(4 * accel.num_clusters)
     for i in range(0, tiles.shape[0], step):
         visible, tnear = _tile_frustum_visible(
-            o, tiles[i:i + step], accel.bounds_min, accel.bounds_max, th, tw,
-            sh, sw)
+            o, tiles[i:i + step], center[i:i + step], accel.bounds_min,
+            accel.bounds_max, th, tw, sh, sw)
         cand = _nearest_k(torch.where(visible, tnear, torch.inf), k)
         nvis = visible.sum(dim=1, dtype=torch.int32)
         out.append((cand.to(torch.int32), torch.clamp_max(nvis, k),
@@ -249,15 +308,11 @@ def cull_tiles(o: torch.Tensor, tiles: torch.Tensor, accel: ClusterAccel,
     return tuple(torch.cat(x) for x in zip(*out))
 
 
-def cull_tiles_hier(o: torch.Tensor, tiles: torch.Tensor, accel: ClusterAccel,
-                    th: int, tw: int, k: int, group: int, kg: int,
-                    sh: int = 0, sw: int = 0):
-    """Two-level frustum cull: groups of `group` consecutive clusters (KD
-    leaf order, so spatially coherent) are tested first; only the nearest
-    `kg` visible groups have their member clusters tested. Same contract as
-    `cull_tiles`; the clusters of visible groups past the `kg` budget count
-    as overflow (an upper bound), so escalation picks those tiles up.
-    """
+def cull_tiles_hier_reference(o: torch.Tensor, tiles: torch.Tensor,
+                              accel: ClusterAccel, th: int, tw: int, k: int,
+                              group: int, kg: int, sh: int = 0, sw: int = 0):
+    """`cull_tiles_hier` (without boxes) in plain PyTorch on any device:
+    K14's twin."""
     c = accel.num_clusters
     dev = accel.bounds_min.device
     pad = (-c) % group
@@ -274,17 +329,19 @@ def cull_tiles_hier(o: torch.Tensor, tiles: torch.Tensor, accel: ClusterAccel,
                          f"group_size = {kg * group}")
     lane = torch.arange(group, device=dev)
     out = []
+    center = tiles.mean(dim=1)                              # (nT, 3)
     step = _cull_group(4 * max(ng, kg * group))
     for i in range(0, tiles.shape[0], step):
-        tg = tiles[i:i + step]
-        gvis, gnear = _tile_frustum_visible(o, tg, gb_min, gb_max, th, tw,
-                                            sh, sw)
+        tg, cg = tiles[i:i + step], center[i:i + step]
+        gvis, gnear = _tile_frustum_visible(o, tg, cg, gb_min, gb_max, th,
+                                            tw, sh, sw)
         gsel = _nearest_k(torch.where(gvis, gnear, torch.inf), kg)
         gsel_valid = gvis.gather(1, gsel)
         cl_raw = (gsel[:, :, None] * group + lane).reshape(tg.shape[0], -1)
         cl = cl_raw.clamp_max(c - 1)                       # clamp pad tail
         visible, tnear = _tile_frustum_visible(
-            o, tg, accel.bounds_min[cl], accel.bounds_max[cl], th, tw, sh, sw)
+            o, tg, cg, accel.bounds_min[cl], accel.bounds_max[cl], th, tw,
+            sh, sw)
         visible = (visible & (cl_raw < c)
                    & gsel_valid.repeat_interleave(group, dim=1))
         sel = _nearest_k(torch.where(visible, tnear, torch.inf), k)
@@ -297,13 +354,15 @@ def cull_tiles_hier(o: torch.Tensor, tiles: torch.Tensor, accel: ClusterAccel,
     return tuple(torch.cat(x) for x in zip(*out))
 
 
-def _cull(o, tiles, accel, config, k, sh=0, sw=0):
+def _cull(o, tiles, accel, config, k, sh=0, sw=0, boxes=False):
+    """The cull the configuration asks for: two levels where
+    ``max_groups`` > 0, else flat (`cull_tiles_hier`, `cull_tiles`)."""
     if config.max_groups > 0:
         return cull_tiles_hier(o, tiles, accel, config.tile_h, config.tile_w,
                                k, config.group_size, config.max_groups, sh,
-                               sw)
+                               sw, boxes)
     return cull_tiles(o, tiles, accel, config.tile_h, config.tile_w, k, sh,
-                      sw)
+                      sw, boxes)
 
 
 def _candidate_boxes(o: torch.Tensor, accel: ClusterAccel, cand: torch.Tensor,
@@ -313,10 +372,12 @@ def _candidate_boxes(o: torch.Tensor, accel: ClusterAccel, cand: torch.Tensor,
 
     For unit directions the distance bounds any hit t inside the cluster
     from below; its suffix minimum over the nearest-first order is K4's
-    loop-exit certificate. Candidates past ``count`` get 3e38."""
+    loop-exit certificate. Candidates past ``count`` get 3e38. Plain
+    PyTorch on any device: the twin of K14's boxes, which a cull with
+    ``boxes`` writes in its own launch on CUDA tensors."""
     gap = torch.clamp_min(torch.maximum(accel.bounds_min - o,
                                         o - accel.bounds_max), 0.0)
-    dist_c = torch.sqrt((gap * gap).sum(dim=-1))            # (C,)
+    dist_c = torch.sqrt(_dot3(gap, gap))                    # (C,)
     box8 = torch.cat([accel.bounds_min, accel.bounds_max, dist_c[:, None],
                       torch.zeros_like(dist_c)[:, None]], dim=1)  # (C, 8)
     boxes = box8[cand.long()]                               # (nT, K, 8)
@@ -408,8 +469,7 @@ def intersect_clustered_pallas(o: torch.Tensor, d: torch.Tensor,
     th, tw = config.tile_h, config.tile_w
     k = min(config.max_candidates, accel.num_clusters)
     tiles, meta = _tile_rays(d, res_h, res_w, th, tw)       # (nT, P, 3)
-    cand, count, _ = _cull(o, tiles, accel, config, k)
-    boxes = _candidate_boxes(o, accel, cand, count)
+    cand, count, _, boxes = _cull(o, tiles, accel, config, k, boxes=True)
     t_tiles, tri_tiles, _ = tile_intersect(
         tiles.transpose(1, 2).contiguous(), cand, count, boxes,
         o.contiguous(), accel.geom9, accel.slot_mat, config.eps,
@@ -417,12 +477,20 @@ def intersect_clustered_pallas(o: torch.Tensor, d: torch.Tensor,
     return _hit(t_tiles, tri_tiles, meta, res_h, res_w)
 
 
-def _run_v2_kernel(o, d_tiles, cand, count, accel: ClusterAccel, config,
-                   n_sub: int):
-    """Cull output -> K4 -> (t (nT, P), tri (nT, P), steps (nT, 2))."""
-    boxes = _candidate_boxes(o, accel, cand, count)
-    root = torch.cat([o, accel.bounds_min.amin(dim=0),
+def _root(o, accel: ClusterAccel) -> torch.Tensor:
+    """K4's (9,) origin | root bmin | root bmax."""
+    return torch.cat([o, accel.bounds_min.amin(dim=0),
                       accel.bounds_max.amax(dim=0)])
+
+
+def _run_v2_kernel(o, d_tiles, cand, count, accel: ClusterAccel, config,
+                   n_sub: int, boxes=None, root=None):
+    """Cull output -> K4 -> (t (nT, P), tri (nT, P), steps (nT, 2)); the
+    candidates' boxes and the root are made here unless given."""
+    if boxes is None:
+        boxes = _candidate_boxes(o, accel, cand, count)
+    if root is None:
+        root = _root(o, accel)
     return tile_intersect_v2(d_tiles, cand, count, boxes, root, accel.geom9,
                              accel.slot_mat, config.eps,
                              config.draw_distance, n_sub=n_sub,
@@ -442,16 +510,18 @@ class EscalateBudget(Budget):
         return [int(n[0]) for n in self.counts], self.capacity[0]
 
 
-def _v2_cull(o, d, accel: ClusterAccel, config, res_h: int, res_w: int):
+def _v2_cull(o, d, accel: ClusterAccel, config, res_h: int, res_w: int,
+             boxes: bool = False):
     """The "pallas2" tiles and their first cull: (tiles, meta, n_sub, cand,
-    count, overflow)."""
+    count, overflow), and with ``boxes`` the candidates' boxes."""
     th, tw = config.tile_h, config.tile_w
     k = min(config.max_candidates, accel.num_clusters)
     tiles, meta = _tile_rays(d, res_h, res_w, th, tw, config.sub_h,
                              config.sub_w)
     sh, sw = meta[6], meta[7]
     n_sub = (th // sh) * (tw // sw) if (sh and sw) else 1
-    return (tiles, meta, n_sub, *_cull(o, tiles, accel, config, k, sh, sw))
+    return (tiles, meta, n_sub,
+            *_cull(o, tiles, accel, config, k, sh, sw, boxes))
 
 
 def escalation_need(o: torch.Tensor, d: torch.Tensor, accel: ClusterAccel,
@@ -496,18 +566,19 @@ def intersect_clustered_pallas_v2(o: torch.Tensor, d: torch.Tensor,
     """
     th, tw = config.tile_h, config.tile_w
     k = min(config.max_candidates, accel.num_clusters)
-    tiles, meta, n_sub, cand, count, overflow = _v2_cull(
-        o, d, accel, config, res_h, res_w)
+    tiles, meta, n_sub, cand, count, overflow, boxes = _v2_cull(
+        o, d, accel, config, res_h, res_w, boxes=True)
     sh, sw = meta[6], meta[7]
+    root = _root(o, accel)
     t_tiles, tri_tiles, steps = _run_v2_kernel(
         o, tiles.transpose(1, 2).contiguous(), cand, count, accel, config,
-        n_sub)
+        n_sub, boxes, root)
 
     n_tiles = tiles.shape[0]
     live = None
     if config.escalate_all:
         live = _escalate_all(o, tiles, overflow, t_tiles, tri_tiles, accel,
-                             config, n_sub, sh, sw, bucket)
+                             config, n_sub, sh, sw, bucket, root)
     else:
         e = min(config.escalate_tiles, n_tiles)
         k2 = min(k * max(config.escalate_factor, 1), accel.num_clusters)
@@ -515,11 +586,11 @@ def intersect_clustered_pallas_v2(o: torch.Tensor, d: torch.Tensor,
             etile = torch.sort(overflow, descending=True,
                                stable=True).indices[:e]
             e_tiles = tiles[etile]
-            cand2, count2, ovf2 = cull_tiles(o, e_tiles, accel, th, tw, k2,
-                                             sh, sw)
+            cand2, count2, ovf2, boxes2 = cull_tiles(
+                o, e_tiles, accel, th, tw, k2, sh, sw, boxes=True)
             t2, tri2, _ = _run_v2_kernel(
                 o, e_tiles.transpose(1, 2).contiguous(), cand2, count2,
-                accel, config, n_sub)
+                accel, config, n_sub, boxes2, root)
             # escalated results are a superset of the first pass (a tile
             # picked with overflow 0 recomputes the same answer)
             t_tiles[etile] = t2
@@ -537,7 +608,7 @@ def intersect_clustered_pallas_v2(o: torch.Tensor, d: torch.Tensor,
 
 def _escalate_all(o, tiles, overflow, t_tiles, tri_tiles,
                   accel: ClusterAccel, config, n_sub: int, sh: int, sw: int,
-                  bucket):
+                  bucket, root):
     """``escalate_all``'s second pass at ``bucket`` = (tiles, candidates),
     spliced into ``t_tiles``, ``tri_tiles`` and ``overflow`` in place;
     without a bucket at (the tiles with overflow, every cluster), one host
@@ -552,11 +623,12 @@ def _escalate_all(o, tiles, overflow, t_tiles, tri_tiles,
     etile = torch.sort(overflow, descending=True,
                        stable=True).indices[:min(bucket[0], tiles.shape[0])]
     e_tiles = tiles[etile]
-    cand2, count2, ovf2 = cull_tiles(
+    cand2, count2, ovf2, boxes2 = cull_tiles(
         o, e_tiles, accel, config.tile_h, config.tile_w,
-        min(bucket[1], accel.num_clusters), sh, sw)
+        min(bucket[1], accel.num_clusters), sh, sw, boxes=True)
     t2, tri2, _ = _run_v2_kernel(o, e_tiles.transpose(1, 2).contiguous(),
-                                 cand2, count2, accel, config, n_sub)
+                                 cand2, count2, accel, config, n_sub, boxes2,
+                                 root)
     took = over[etile]
     t_tiles[etile] = torch.where(took[:, None], t2, t_tiles[etile])
     tri_tiles[etile] = torch.where(took[:, None], tri2, tri_tiles[etile])

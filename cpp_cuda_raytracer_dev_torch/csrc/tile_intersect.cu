@@ -572,3 +572,478 @@ extern "C" int tile_intersect_launch(const void* d, const void* cand, const void
       p, kmax, n_slots, lpad, n_sub, levers, dist, eps, k1, eps2_det, draw);
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// K14: the cluster paths' cull, one pass of it in one launch: each tile's
+// frustum test of the cluster boxes, its stable nearest-k candidate list,
+// and, as an epilogue, the candidates' boxes for K4 / K5.
+//
+// It replaces no Pallas kernel: the JAX package culls in plain jnp
+// (cpp_cuda_raytracer_dev_tpu/accel/traverse.py `cull_tiles_hier`,
+// `cull_tiles`, `_candidate_boxes`), and so does K14's plain twin in
+// accel/traverse.py (`cull_tiles_reference`, `cull_tiles_hier_reference`,
+// `_candidate_boxes`), about 290 operations of a "pallas2" frame and
+// (n, 4, C) temporaries a pass. The contract, per tile t:
+//
+//   frustum: the corner rays c00, c01, c10, c11 (P-axis positions
+//          0, i01, i10, i11 of tiles[t]) and the centre m = center[t] (the
+//          tiles' mean over P, computed by the caller); the normals
+//          n_j = cross(a_j, b_j) over the pairs (c00, c01), (c01, c11),
+//          (c11, c10), (c10, c00), each times s = sign(dot(n_j, m)) (1
+//          where that is 0). A box (lo, hi) is visible when for every j
+//          (n_jx h_x + n_jy h_y) + n_jz h_z >= 0, h_a = (n_ja > 0 ? hi_a :
+//          lo_a) - o_a. Its key is dot((lo + hi) / 2 - o, m), every dot as
+//          (x0 y0 + x1 y1) + x2 y2.
+//   flat (group 0): the positions are the C clusters.
+//   two levels (group > 0): first the ng = ceil(C / group) group boxes
+//          (the members' union; `cluster_group_box_kernel` before the
+//          cull), of which the kg nearest are kept (gsel); then the
+//          positions j < kg group, cluster cl = gsel[j / group] group +
+//          j % group, visible only where its group was visible and cl < C
+//          (the padded tail takes cluster C - 1 as its id, as the twin's
+//          clamp does).
+//   list:  the positions sorted by (key, position) with invisible ones
+//          keyed +inf, the first k: torch.sort(key, stable=True)
+//          .indices[:k], the visible nearest first, then the invisible in
+//          ascending order. cand = their cluster ids; count = min(nvis,
+//          k); overflow = max(nvis - k, 0), plus for two levels
+//          max(ngvis - kg, 0) group.
+//   boxes (where boxes is not null): row j = bmin | bmax | the suffix
+//          minimum over j' >= j of dist(cand[j']) (3e38 for j' >= count)
+//          | 0, with dist(c) = sqrt((g_x g_x + g_y g_y) + g_z g_z), g =
+//          max(max(bmin - o, o - bmax), 0).
+//
+// Design: one CTA of 256 threads a tile. Per level, each thread tests one
+// position of each run of 256 (coalesced reads of the bounds, which stay
+// in L1 / L2: 196 KB at 8,192 clusters); a warp's ballot is one word of a
+// visibility mask, and one block scan of the words' counts gives each word
+// the visible positions before it. Each thread then places its own
+// positions at once: a visible one as a 64-bit (ordered key bits,
+// position) pair at its index-order place in the pair buffer, an invisible
+// one that the list reaches straight into the list's tail. A bitonic sort
+// of the visible pairs alone, padded to a power of two, orders them (two
+// pairs never compare equal: -0 and +0 are one key, as the twin's
+// comparison has them), so the sort's cost follows the visible count, not
+// C.
+//
+// The workspace (pairs, mask, the counts before each mask word, the kept
+// groups) is sized for the largest level, every position visible. Where
+// it fits (up to 16,384 positions a level) it is shared memory and the
+// grid is a CTA a tile; where it does not, it is the CTA's slice of a
+// global scratch buffer the launcher's caller allocates
+// (`cluster_cull_scratch` bytes a CTA), and a grid of `blocks` CTAs walks
+// the tiles, so any cluster count is culled, in the same steps.
+//
+// Bound: the box tests, 30 operations each (six differences; per plane
+// three products, two sums and the test; the planes' choice of corner is
+// the tile's, and the keys of visible boxes, 14 more, are left out), 3.1M
+// a "pallas2" frame at the published scene: about 3 us of the card's FP32
+// issue; the bounds read (24 bytes a cluster) and the lists and boxes
+// written (36 bytes a candidate, 2.4 MB for the first pass's 1,020 tiles
+// at 64, 1.2 MB for 256 escalated tiles at 128) take under a microsecond
+// of HBM. A pass is set by its barriers and its placement, not by the
+// card's peaks.
+//
+// Numerics: built with -fmad=false, every product and sum rounds as the
+// twin's separate operations; division by 2 and sqrt are exact / IEEE.
+
+namespace {
+
+constexpr int kCullThreads = 256;
+constexpr int kCullWarps = kCullThreads / 32;
+constexpr int kCullSharedPos = 16384;  // the largest level held in shared memory
+constexpr int kCullMostPos = 1 << 30;  // the largest level at all
+constexpr float kCullFar = 3.0e38f;    // the boxes' distance past count
+
+struct Frustum {
+  float n[4][3];                       // inward plane normals
+  float m[3];                          // the tile's mean direction
+  float o[3];                          // the rays' origin
+};
+
+__device__ __forceinline__ float dot3(const float* a, const float* b) {
+  return (a[0] * b[0] + a[1] * b[1]) + a[2] * b[2];
+}
+
+__device__ Frustum tile_frustum(const float* __restrict__ tiles,
+                                const float* __restrict__ center,
+                                const float* __restrict__ origin, int tile,
+                                int p, int i01, int i10, int i11) {
+  Frustum f;
+  const float* base = tiles + (size_t)tile * p * 3;
+  float c[4][3];                       // c00, c01, c11, c10
+  const int at[4] = {0, i01, i11, i10};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int a = 0; a < 3; ++a) c[j][a] = base[(size_t)at[j] * 3 + a];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    f.m[a] = center[(size_t)tile * 3 + a];
+    f.o[a] = origin[a];
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float* x = c[j];
+    const float* y = c[(j + 1) & 3];
+    float n[3] = {x[1] * y[2] - x[2] * y[1], x[2] * y[0] - x[0] * y[2],
+                  x[0] * y[1] - x[1] * y[0]};
+    const float d = dot3(n, f.m);
+    const float s = d > 0.f ? 1.f : (d < 0.f ? -1.f : 1.f);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) f.n[j][a] = n[a] * s;
+  }
+  return f;
+}
+
+__device__ __forceinline__ bool box_visible(const Frustum& f,
+                                            const float* __restrict__ lo,
+                                            const float* __restrict__ hi) {
+  float l[3], h[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    l[a] = lo[a] - f.o[a];
+    h[a] = hi[a] - f.o[a];
+  }
+  bool vis = true;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float t0 = f.n[j][0] * (f.n[j][0] > 0.f ? h[0] : l[0]);
+    const float t1 = f.n[j][1] * (f.n[j][1] > 0.f ? h[1] : l[1]);
+    const float t2 = f.n[j][2] * (f.n[j][2] > 0.f ? h[2] : l[2]);
+    vis &= (t0 + t1) + t2 >= 0.f;
+  }
+  return vis;
+}
+
+__device__ __forceinline__ float box_key(const Frustum& f,
+                                         const float* __restrict__ lo,
+                                         const float* __restrict__ hi) {
+  float c[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) c[a] = (lo[a] + hi[a]) / 2.f - f.o[a];
+  return dot3(c, f.m);
+}
+
+// (key, position) as one 64-bit word whose unsigned order is the pair's
+// lexicographic order; -0 is taken as +0.
+__device__ __forceinline__ unsigned long long pair_word(float key, int pos) {
+  unsigned b = key == 0.f ? 0u : __float_as_uint(key);
+  b = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+  return ((unsigned long long)b << 32) | (unsigned)pos;
+}
+
+// Exclusive prefix sum of v over the CTA; *total gets the sum.
+__device__ int block_exclusive_sum(int v, int* warp_sum, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) warp_sum[warp] = x;
+  __syncthreads();
+  int before = 0, all = 0;
+#pragma unroll
+  for (int w = 0; w < kCullWarps; ++w) {
+    const int s = warp_sum[w];
+    before += w < warp ? s : 0;
+    all += s;
+  }
+  __syncthreads();                           // warp_sum is free again
+  *total = all;
+  return before + x - v;
+}
+
+// Ascending bitonic sort of buf[0, n), n a power of two; ends on a barrier.
+__device__ void bitonic_sort(unsigned long long* buf, int n) {
+  for (int size = 2; size <= n; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = threadIdx.x; i < n / 2; i += kCullThreads) {
+        const int lo = 2 * i - (i & (stride - 1));
+        const int hi = lo + stride;
+        const unsigned long long a = buf[lo], b = buf[hi];
+        if ((a > b) == ((lo & size) == 0)) {
+          buf[lo] = b;
+          buf[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// One level of the cull: the positions [0, n) sorted by (key, position)
+// with the invisible keyed +inf, the first k passed to out(j, id(pos)).
+// Returns the visible count. mask and before hold ceil(n / 256) * 8 words
+// each and buf the next power of two >= n pairs; ends on a barrier.
+template <class Vis, class Key, class Id, class Out>
+__device__ int select_nearest(int n, int k, Vis vis, Key key, Id id, Out out,
+                              unsigned long long* buf, unsigned* mask,
+                              int* before, int* warp_sum) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int base = 0; base < n; base += kCullThreads) {
+    const int pos = base + tid;
+    const unsigned bits = __ballot_sync(kFull, pos < n && vis(pos));
+    if (lane == 0) mask[(base >> 5) + warp] = bits;
+  }
+  __syncthreads();
+  // the visible positions before each mask word: a thread a run of words
+  const int words = (n + 31) >> 5;
+  const int per = (words + kCullThreads - 1) / kCullThreads;
+  const int w0 = min(tid * per, words), w1 = min(w0 + per, words);
+  int mine = 0;
+  for (int w = w0; w < w1; ++w) mine += __popc(mask[w]);
+  int nvis;
+  int at = block_exclusive_sum(mine, warp_sum, &nvis);
+  for (int w = w0; w < w1; ++w) {
+    before[w] = at;
+    at += __popc(mask[w]);
+  }
+  __syncthreads();
+  // each visible position's pair at its place in index order; the
+  // invisible ones that the list reaches straight to their place in it
+  for (int pos = tid; pos < n; pos += kCullThreads) {
+    const unsigned bits = mask[pos >> 5];
+    const int vis_before = before[pos >> 5] + __popc(bits & ((1u << lane) - 1u));
+    if ((bits >> lane) & 1u)
+      buf[vis_before] = pair_word(key(pos), pos);
+    else if (nvis + pos - vis_before < k)
+      out(nvis + pos - vis_before, id(pos));
+  }
+  // the visible pairs, padded to a power of two, sorted
+  int m2 = 1;
+  while (m2 < nvis) m2 <<= 1;
+  for (int i = nvis + tid; i < m2; i += kCullThreads) buf[i] = ~0ull;
+  __syncthreads();
+  bitonic_sort(buf, m2);
+  for (int j = tid; j < min(k, nvis); j += kCullThreads)
+    out(j, id((int)(buf[j] & 0xffffffffu)));
+  __syncthreads();
+  return nvis;
+}
+
+// The union of each group's member boxes, a warp a group.
+__global__ void __launch_bounds__(256)
+cluster_group_box_kernel(const float* __restrict__ bmin,
+                         const float* __restrict__ bmax, int c, int group,
+                         int ng, float* __restrict__ gbox) {
+  const int g = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (g >= ng) return;                       // whole warps
+  const int first = g * group, last = min(first + group, c);
+  const float inf = __int_as_float(0x7f800000);
+  float lo[3] = {inf, inf, inf}, hi[3] = {-inf, -inf, -inf};
+  for (int i = first + lane; i < last; i += 32) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      lo[a] = fminf(lo[a], bmin[(size_t)i * 3 + a]);
+      hi[a] = fmaxf(hi[a], bmax[(size_t)i * 3 + a]);
+    }
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      lo[a] = fminf(lo[a], __shfl_xor_sync(kFull, lo[a], d));
+      hi[a] = fmaxf(hi[a], __shfl_xor_sync(kFull, hi[a], d));
+    }
+  }
+  if (lane < 3) {
+    gbox[(size_t)g * 6 + lane] = lo[lane];
+    gbox[(size_t)g * 6 + 3 + lane] = hi[lane];
+  }
+}
+
+// The candidates' boxes of one tile (the contract's "boxes").
+__device__ void candidate_boxes_of(const int* __restrict__ cand, int kk,
+                                   int cnt, const float* __restrict__ bmin,
+                                   const float* __restrict__ bmax,
+                                   const float* __restrict__ origin,
+                                   float* __restrict__ out, int* warp_min) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int per = (kk + kCullThreads - 1) / kCullThreads;
+  const int j0 = min(tid * per, kk), j1 = min(j0 + per, kk);
+  const float ox = origin[0], oy = origin[1], oz = origin[2];
+  const auto dist = [&](int j) {
+    if (j >= cnt) return kCullFar;
+    const int c = cand[j];
+    const float* lo = bmin + (size_t)c * 3;
+    const float* hi = bmax + (size_t)c * 3;
+    const float gx = fmaxf(fmaxf(lo[0] - ox, ox - hi[0]), 0.f);
+    const float gy = fmaxf(fmaxf(lo[1] - oy, oy - hi[1]), 0.f);
+    const float gz = fmaxf(fmaxf(lo[2] - oz, oz - hi[2]), 0.f);
+    return sqrtf((gx * gx + gy * gy) + gz * gz);
+  };
+  float mine = kCullFar;
+  for (int j = j0; j < j1; ++j) mine = fminf(mine, dist(j));
+  // the minimum over the threads after this one (exact in any order)
+  float after = mine;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const float y = __shfl_down_sync(kFull, after, d);
+    if (lane + d < 32) after = fminf(after, y);
+  }
+  if (lane == 0) warp_min[warp] = __float_as_int(after);
+  __syncthreads();
+  float run = __shfl_down_sync(kFull, after, 1);
+  if (lane == 31) run = kCullFar;
+  for (int w = warp + 1; w < kCullWarps; ++w)
+    run = fminf(run, __int_as_float(warp_min[w]));
+  for (int j = j1 - 1; j >= j0; --j) {
+    run = fminf(run, dist(j));
+    const int c = cand[j];
+    const float* lo = bmin + (size_t)c * 3;
+    const float* hi = bmax + (size_t)c * 3;
+    float4* row = reinterpret_cast<float4*>(out + (size_t)j * 8);
+    row[0] = make_float4(lo[0], lo[1], lo[2], hi[0]);
+    row[1] = make_float4(hi[1], hi[2], run, 0.f);
+  }
+  __syncthreads();
+}
+
+// The workspace of the largest level: cap pairs, the mask and the counts
+// before its words (cap / 32 words each), the kg kept groups.
+// cap is the next power of two >= the level's positions (at least 256);
+// bytes is a multiple of 8.
+struct CullWork {
+  long long most = 0;                  // positions of the largest level
+  int cap = 256;
+  size_t bytes = 0;
+  CullWork(int c, int group, int kg) {
+    const long long ng = group > 0 ? ((long long)c + group - 1) / group : 0;
+    const long long members = (long long)kg * group;
+    most = group > 0 ? (ng > members ? ng : members) : c;
+    while (cap < most && cap < kCullMostPos) cap <<= 1;
+    bytes = (size_t)cap * 8 + (size_t)cap / 32 * 8
+          + ((size_t)(group > 0 ? kg : 0) * 4 + 7) / 8 * 8;
+  }
+  bool shared() const { return cap <= kCullSharedPos; }
+};
+
+// kScratch: the workspace is the CTA's slice of scratch, else shared
+// memory (a separate instance, so that its accesses are known shared).
+template <bool kScratch>
+__global__ void __launch_bounds__(kCullThreads)
+cluster_cull_kernel(const float* __restrict__ tiles,    // (nT, P, 3)
+                    const float* __restrict__ center,   // (nT, 3)
+                    const float* __restrict__ origin,   // (3,)
+                    const float* __restrict__ bmin,     // (C, 3)
+                    const float* __restrict__ bmax,     // (C, 3)
+                    const float* __restrict__ gbox,     // (ng, 6), two levels
+                    int* __restrict__ cand,             // (nT, K)
+                    int* __restrict__ count,            // (nT,)
+                    int* __restrict__ overflow,         // (nT,)
+                    float* __restrict__ boxes,          // (nT, K, 8) or null
+                    unsigned long long* scratch,        // a workspace a CTA
+                    size_t work_words, int n_tiles, int p, int c, int k,
+                    int group, int ng, int kg, int i01, int i10, int i11,
+                    int cap) {
+  extern __shared__ unsigned long long cull_smem[];
+  __shared__ int warp_sum[kCullWarps];
+  unsigned long long* buf =                                 // cap pairs
+      kScratch ? scratch + (size_t)blockIdx.x * work_words : cull_smem;
+  unsigned* mask = reinterpret_cast<unsigned*>(buf + cap);  // cap / 32
+  int* before = reinterpret_cast<int*>(mask + cap / 32);    // cap / 32
+  int* gsel = before + cap / 32;                            // kg
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const Frustum f = tile_frustum(tiles, center, origin, tile, p, i01, i10,
+                                   i11);
+    int* tc = cand + (size_t)tile * k;
+    const auto to_cand = [&](int j, int id) { tc[j] = id; };
+    int nvis, extra = 0;
+    if (group == 0) {
+      nvis = select_nearest(
+          c, k,
+          [&](int q) { return box_visible(f, bmin + 3 * q, bmax + 3 * q); },
+          [&](int q) { return box_key(f, bmin + 3 * q, bmax + 3 * q); },
+          [](int q) { return q; }, to_cand, buf, mask, before, warp_sum);
+    } else {
+      const int ngvis = select_nearest(
+          ng, kg,
+          [&](int g) { return box_visible(f, gbox + 6 * g, gbox + 6 * g + 3); },
+          [&](int g) { return box_key(f, gbox + 6 * g, gbox + 6 * g + 3); },
+          [](int g) { return g; }, [&](int j, int g) { gsel[j] = g; }, buf,
+          mask, before, warp_sum);
+      const auto raw = [&](int j) { return gsel[j / group] * group + j % group; };
+      nvis = select_nearest(
+          kg * group, k,
+          [&](int j) {
+            const int q = raw(j);
+            return j / group < ngvis && q < c
+                && box_visible(f, bmin + 3 * q, bmax + 3 * q);
+          },
+          [&](int j) {
+            const int q = min(raw(j), c - 1);
+            return box_key(f, bmin + 3 * q, bmax + 3 * q);
+          },
+          [&](int j) { return min(raw(j), c - 1); }, to_cand, buf, mask,
+          before, warp_sum);
+      extra = max(ngvis - kg, 0) * group;
+    }
+    const int cnt = min(nvis, k);
+    if (threadIdx.x == 0) {
+      count[tile] = cnt;
+      overflow[tile] = max(nvis - k, 0) + extra;
+    }
+    if (boxes)
+      candidate_boxes_of(tc, k, cnt, bmin, bmax, origin,
+                         boxes + (size_t)tile * k * 8, warp_sum);
+  }
+}
+
+}  // namespace
+
+// The global scratch bytes a CTA of K14 needs at these sizes: 0 where its
+// workspace fits in shared memory (a level of at most 16,384 positions).
+extern "C" size_t cluster_cull_scratch(int c, int group, int kg) {
+  const CullWork w(c, group, kg);
+  return w.shared() ? 0 : w.bytes;
+}
+
+// Kernel K14 (one launch a pass; for two levels `cluster_group_box_kernel`
+// first, into gbox, ng * 6 floats of scratch). group 0: the flat cull of
+// the c clusters; group > 0: two levels through groups of `group`, the kg
+// nearest. boxes may be null. scratch: null, or blocks x
+// cluster_cull_scratch(c, group, kg) bytes where that is not 0.
+extern "C" int cluster_cull_launch(const void* tiles, const void* center,
+                                   const void* origin, const void* bmin,
+                                   const void* bmax, void* gbox, void* cand,
+                                   void* count, void* overflow, void* boxes,
+                                   void* scratch, int blocks, int n_tiles,
+                                   int p, int c, int k, int group, int kg,
+                                   int i01, int i10, int i11, void* stream) {
+  const int ng = group > 0 ? (int)(((long long)c + group - 1) / group) : 0;
+  if (n_tiles < 0 || c < 1 || k < 1 || group < 0
+      || (group == 0 && k > c)
+      || (group > 0 && (kg < 1 || kg > ng || k > (long long)kg * group)))
+    return (int)cudaErrorInvalidValue;
+  const CullWork w(c, group, kg);
+  if (w.most > kCullMostPos || (!w.shared() && (!scratch || blocks < 1)))
+    return (int)cudaErrorInvalidValue;
+  if (n_tiles == 0) return (int)cudaSuccess;
+  const size_t smem = w.shared() ? w.bytes : 0;
+  const int grid = w.shared() ? n_tiles : min(blocks, n_tiles);
+  const auto kernel = w.shared() ? cluster_cull_kernel<false>
+                                 : cluster_cull_kernel<true>;
+  auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  if (group > 0) {
+    cluster_group_box_kernel<<<(ng + 7) / 8, 256, 0, s>>>(
+        static_cast<const float*>(bmin), static_cast<const float*>(bmax), c, group,
+        ng, static_cast<float*>(gbox));
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<grid, kCullThreads, smem, s>>>(
+      static_cast<const float*>(tiles), static_cast<const float*>(center),
+      static_cast<const float*>(origin), static_cast<const float*>(bmin),
+      static_cast<const float*>(bmax), static_cast<const float*>(gbox),
+      static_cast<int*>(cand), static_cast<int*>(count), static_cast<int*>(overflow),
+      static_cast<float*>(boxes), static_cast<unsigned long long*>(scratch),
+      w.bytes / 8, n_tiles, p, c, k, group, ng, kg, i01, i10, i11, w.cap);
+  return (int)cudaGetLastError();
+}

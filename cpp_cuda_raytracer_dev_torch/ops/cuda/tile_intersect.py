@@ -1,7 +1,9 @@
 """Tile-intersect: the nearest hit per primary ray over a tile's candidate
 clusters, kernels K4 (``method="pallas2"``, the JAX package's
 ``ops/pallas/intersect_kernel_v2.py``) and K5 (``method="pallas"``,
-``ops/pallas/intersect_kernel.py``).
+``ops/pallas/intersect_kernel.py``), and the cull that lists those
+candidates, kernel K14 (`cluster_cull`; its plain twin is
+``accel/traverse.py``'s, which dispatches by device).
 
 - `tile_intersect_v2` (K4) and `tile_intersect` (K5) are the wrappers. For
   CUDA tensors they launch the hand-written kernel in
@@ -15,6 +17,11 @@ clusters, kernels K4 (``method="pallas2"``, the JAX package's
 - ``.launches`` on each wrapper counts kernel launches; inside a captured
   CUDA graph (`render_jit`) that is the capture's launch, not the
   replays' (chip_smoke.py counts a replay's kernels in the profiler).
+- K14 (`cluster_cull`, CUDA tensors only) culls every tile of one pass
+  in one launch and writes its candidate list, count, overflow and,
+  optionally, the candidates' boxes, at any cluster count. The contract is
+  stated in ``csrc/tile_intersect.cu``; ``cluster_cull.launches`` counts
+  its launches.
 - The kernels take P <= 2048 rays a tile (a multiple of 32, and above 512
   of 512), n_sub <= 2048 and eps > 0; the wrappers raise otherwise.
 
@@ -51,7 +58,9 @@ _MAX_SUB = 2048
 _MAX_SLOTS = 1024
 _PREFETCH = 3             # candidates whose geometry is in flight
 _LONGEST_FIRST_TILES = 512  # order the tiles by count from this many on
+_CULL_BLOCKS_PER_SM = 2  # K14's CTAs an SM where it sorts in global scratch
 _fn = []
+_cull_fn = []
 
 
 def _launcher():
@@ -376,3 +385,98 @@ def tile_intersect_reference(d_tiles, cand, count, boxes, origin, geom9,
     result bit for bit)."""
     return _walk(5, d_tiles, cand, count, boxes, origin, geom9, slot_mat,
                  eps, draw_distance, n_sub, count_subs)
+
+
+def _cull_launcher():
+    if not _cull_fn:
+        lib = _build.load("tile_intersect")
+        fn = lib.cluster_cull_launch
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        scratch = lib.cluster_cull_scratch
+        scratch.argtypes = [ctypes.c_int] * 3
+        scratch.restype = ctypes.c_size_t
+        _cull_fn.append((fn, scratch))
+    return _cull_fn[0]
+
+
+def _check_cuda_f32(dev, **operands):
+    for name, x in operands.items():
+        if x.device != dev or x.device.type != "cuda":
+            raise ValueError(f"{name} is on {x.device}: K14 takes CUDA "
+                             f"tensors on one device")
+        if x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32, got "
+                             f"{x.dtype}")
+
+
+def cluster_cull(origin: torch.Tensor, tiles: torch.Tensor,
+                 center: torch.Tensor, bounds_min: torch.Tensor,
+                 bounds_max: torch.Tensor, corners: tuple, k: int,
+                 group: int = 0, kg: int = 0, with_boxes: bool = True):
+    """K14: one cull pass over every tile in one launch. ``tiles`` (nT, P,
+    3) directions, ``center`` (nT, 3) their mean over P, ``corners`` the
+    P-axis positions (0, i01, i10, i11) of the corner rays; ``group`` > 0
+    culls through groups of that many clusters, the ``kg`` nearest (kg <=
+    the number of groups), else every cluster. Returns (cand (nT, k) int32,
+    count (nT,) int32, overflow (nT,) int32, boxes (nT, k, 8) float32 or
+    None), bitwise `accel/traverse.py`'s twin. A level of more than 16,384
+    positions sorts in a global scratch buffer allocated here, a
+    workspace for each of `_CULL_BLOCKS_PER_SM` CTAs an SM."""
+    dev = origin.device
+    _check_cuda_f32(dev, origin=origin, tiles=tiles, center=center,
+                    bounds_min=bounds_min, bounds_max=bounds_max)
+    if origin.shape != (3,):
+        raise ValueError(f"origin must be (3,), got {tuple(origin.shape)}")
+    if bounds_min.dim() != 2 or bounds_min.shape[1] != 3 \
+            or bounds_max.shape != bounds_min.shape:
+        raise ValueError("bounds_min / bounds_max must be (C, 3)")
+    if tiles.dim() != 3 or tiles.shape[2] != 3 \
+            or center.shape != (tiles.shape[0], 3):
+        raise ValueError("tiles must be (nT, P, 3) and center (nT, 3)")
+    n_t, p = tiles.shape[:2]
+    c = bounds_min.shape[0]
+    i00, i01, i10, i11 = corners
+    if i00 != 0 or not all(0 <= i < p for i in (i01, i10, i11)):
+        raise ValueError(f"corner positions {corners} outside P = {p}")
+    ng = -(-c // group) if group > 0 else 0
+    if group > 0:
+        if not (1 <= kg <= ng and 1 <= k <= kg * group):
+            raise ValueError(f"k = {k}, kg = {kg}: need 1 <= kg <= {ng} "
+                             f"groups and 1 <= k <= kg x group")
+    elif not 1 <= k <= c:
+        raise ValueError(f"k = {k} outside 1..{c} clusters")
+    cand = torch.empty((n_t, k), dtype=torch.int32, device=dev)
+    count = torch.empty(n_t, dtype=torch.int32, device=dev)
+    overflow = torch.empty(n_t, dtype=torch.int32, device=dev)
+    boxes = (torch.empty((n_t, k, 8), dtype=torch.float32, device=dev)
+             if with_boxes else None)
+    if not n_t:
+        return cand, count, overflow, boxes
+    gbox = (torch.empty((ng, 6), dtype=torch.float32, device=dev)
+            if group > 0 else None)
+    launch, scratch_bytes = _cull_launcher()
+    per_block = scratch_bytes(c, group, kg)
+    blocks, scratch = 0, None
+    if per_block:
+        blocks = min(n_t, _CULL_BLOCKS_PER_SM * torch.cuda
+                     .get_device_properties(dev).multi_processor_count)
+        scratch = torch.empty(blocks * per_block, dtype=torch.uint8,
+                              device=dev)
+    err = launch(tiles.data_ptr(), center.data_ptr(), origin.data_ptr(),
+                 bounds_min.data_ptr(), bounds_max.data_ptr(),
+                 None if gbox is None else gbox.data_ptr(), cand.data_ptr(),
+                 count.data_ptr(), overflow.data_ptr(),
+                 None if boxes is None else boxes.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), blocks,
+                 n_t, p, c, k, group, kg, i01, i10, i11,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"cluster_cull (K14) launch failed: CUDA error "
+                           f"{err}")
+    cluster_cull.launches += 1
+    return cand, count, overflow, boxes
+
+
+cluster_cull.launches = 0
